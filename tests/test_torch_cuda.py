@@ -1,5 +1,5 @@
-"""The CUDA kernels of the port against their plain PyTorch twins, on the
-card. Every test here carries the ``cuda`` marker and skips where there is
+"""The CUDA kernels of the port against their plain PyTorch twins, and the
+tiled bundled-Jacobi design against the per-sweep one, on the card. Every test here carries the ``cuda`` marker and skips where there is
 no card; the file imports neither JAX nor the JAX package, so it runs on a
 machine without them:
 
@@ -75,3 +75,62 @@ def test_cuda_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         TB.jacobi_bundle(*arrays[:3], arrays[3][:7], *arrays[4:])
     assert TB.jacobi_bundle.launches == before
+
+
+def _extent(TI, where):
+    return {"below": TI - 1, "at": 2 * TI, "past": 2 * TI + 1}[where]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,K,rows,cols,halo,masked", [
+    (1, 1, "at", "at", 0, False),
+    (1, 8, "past", "at", 8, True),
+    (3, 3, "below", "below", 0, False),
+    (3, 12, "at", "at", 0, True),
+    (5, 5, "past", "at", 0, False),
+    (7, 8, "at", "at", 0, False),
+    (7, 8, "past", "below", 0, True),
+    (7, 5, "past", "past", 8, False),
+    (7, 12, "below", "at", 8, False),
+    (11, 3, "at", "below", 8, False),
+    (11, 12, "past", "at", 0, False),
+    (24, 5, "past", "past", 0, False),
+    (24, 8, "at", "past", 0, True),
+])
+def test_tiled_kernel_matches_plain_and_per_sweep(L, K, rows, cols, halo, masked):
+    """The tiled design (the tile of plan_tiles for L and K; R and C below,
+    at and one past a tile edge; K not a multiple of S; the halo mode; a
+    box whose first tile is masked out, which the resident kernel skips and
+    fills with +0.0) against the plain twin, x bit for
+    bit and the norm to rel 1e-5 (summed in another order), and against
+    the per-sweep design, x and norm bit for bit (the same per-column
+    terms and the same fixed reduction tree). L <= 7 with C a multiple of 4
+    runs the resident kernel, the rest the generic one."""
+    TI, _ = TB.plan_tiles(L, K)
+    shape = (L, _extent(TI, rows), _extent(TI, cols))
+    arrays = _cuda_arrays(shape, seed=L * 100 + K)
+    assert TB.tiled_variant(*arrays, K=K) == (
+        "resident" if L <= 7 and shape[2] % 4 == 0 else "generic")
+    if masked:   # only the mask: the plain version gives acc * 0, -0.0 where acc < 0
+        arrays[4][..., :TI, :TI] = 0.0
+    before = TB.jacobi_bundle.launches
+    xk, nk = TB.jacobi_bundle(*arrays, K=K, halo=halo)
+    xs, ns = TB.jacobi_bundle_per_sweep(*arrays, K=K, halo=halo)
+    xp, np_ = TB.jacobi_bundle_reference(*arrays, K=K, halo=halo)
+    torch.cuda.synchronize()
+    assert TB.jacobi_bundle.launches == before + 1
+    assert torch.equal(xk, xp)
+    assert float(nk) == pytest.approx(float(np_), rel=1e-5)
+    assert torch.equal(xk, xs) and torch.equal(nk, ns)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_halo_matches_plain_version():
+    """halo = 8 at the CPU test's shape and seed (tests/test_torch_jacobi.py
+    holds the twin against the Pallas halo mode there)."""
+    arrays = _cuda_arrays((5, 37, 45), seed=7)
+    xk, nk = TB.jacobi_bundle(*arrays, halo=8)
+    xp, np_ = TB.jacobi_bundle_reference(*arrays, halo=8)
+    torch.cuda.synchronize()
+    assert torch.equal(xk, xp)
+    assert float(nk) == pytest.approx(float(np_), rel=1e-5)

@@ -36,14 +36,148 @@ def test_bundle_reference_matches_pallas(shape):
     assert float(nt) == pytest.approx(float(nj), rel=1e-5)
 
 
+def test_bundle_reference_matches_pallas_halo():
+    """The sharded mode's norm (halo = 8: the outer ring of 8 rows and
+    columns left out of the norm, still swept) against the Pallas kernel's
+    ``halo`` mode in interpret mode: x to 4 ulp, the norm to rel 1e-5."""
+    shape = (5, 37, 45)
+    arrays = seeded_system(shape, seed=7)
+    xj, nj = JP.jacobi_bundle(*(jnp.asarray(a) for a in arrays), halo=8)
+    xt, nt = TB.jacobi_bundle_reference(*(torch.from_numpy(a) for a in arrays),
+                                        halo=8)
+    _, n0 = TB.jacobi_bundle_reference(*(torch.from_numpy(a) for a in arrays))
+    xj = np.asarray(xj)
+    np.testing.assert_allclose(xt.numpy(), xj, rtol=0,
+                               atol=4 * ULP * float(np.abs(xj).max()))
+    assert float(nt) == pytest.approx(float(nj), rel=1e-5)
+    assert float(nt) < 0.5 * float(n0)       # the ring really is left out
+
+
+def tiled_emulation(arrays, K, TI, S, halo=0):
+    """The schedule of csrc/jacobi_bundle.cu's tiled design in PyTorch, for
+    the CPU: ceil(K / S) launches; per TI x TI tile an x tile with an S ring;
+    sweep s of a launch of n sweeps updates only the in-box cells at ring
+    >= S - n + s of the tile; the interior is written out; the last launch
+    gives one norm partial per (row, col) column, summed over l in order.
+    Returns (x, norm plane)."""
+    b, cu, cd, cl, m, x = arrays
+    L, R, C = x.shape
+    TW = TI + 2 * S
+    nty, ntx = -(-R // TI), -(-C // TI)
+
+    def pad(a):   # zero ring of S, plus room for the ragged last tile
+        return torch.nn.functional.pad(a, (S, S + TI, S, S + TI))
+
+    bp, cup, cdp, mp = pad(b), pad(cu), pad(cd), pad(m)
+    clp = torch.stack([pad(c) for c in cl])
+    inbox = pad(torch.ones((R, C)))
+    ii = torch.arange(TW)
+    ring = torch.minimum(torch.minimum(ii[:, None], ii[None, :]),
+                         torch.minimum(TW - 1 - ii[:, None], TW - 1 - ii[None, :]))
+    rows = torch.arange(R)[:, None]
+    cols = torch.arange(C)[None, :]
+    counted = (rows >= halo) & (rows < R - halo) & (cols >= halo) & (cols < C - halo)
+    norm_plane = torch.zeros((R, C))
+    launches = -(-K // S)
+    for q in range(launches):
+        n = min(S, K - q * S)
+        xp = pad(x)
+        y = torch.empty_like(x)
+        for ty in range(nty):
+            for tx in range(ntx):
+                win = (slice(ty * TI, ty * TI + TW), slice(tx * TI, tx * TI + TW))
+                bt, ut, dt, mt = (a[:, win[0], win[1]] for a in (bp, cup, cdp, mp))
+                ct = clp[:, :, win[0], win[1]]
+                live = inbox[win] > 0
+                xt = xp[:, win[0], win[1]].clone()
+                for s in range(1, n + 1):
+                    x_up = torch.zeros_like(xt)
+                    x_up[1:] = xt[:-1]
+                    x_dn = torch.zeros_like(xt)
+                    x_dn[:-1] = xt[1:]
+                    acc = bt
+                    acc = acc + ut * x_up
+                    acc = acc + dt * x_dn
+                    for k, (dr, dc) in enumerate(TB.LATERAL_OFFSETS):
+                        acc = acc + ct[k] * TB.shift2d(xt, dr, dc)
+                    acc[0] = torch.clamp_min(acc[0], 0.0)
+                    new = acc * mt
+                    if q == launches - 1 and s == n:
+                        dx = torch.abs(new - xt)
+                        apsi = torch.abs(new)
+                        contrib = dx * torch.where(apsi > 1.0, 1.0 / apsi, 1.0) * mt
+                        local = torch.zeros(contrib.shape[1:])
+                        for l in range(L):
+                            local = local + contrib[l]
+                    xt = torch.where(live & (ring >= S - n + s), new, xt)
+                r0, c0 = ty * TI, tx * TI
+                hr, hc = min(TI, R - r0), min(TI, C - c0)
+                y[:, r0:r0 + hr, c0:c0 + hc] = xt[:, S:S + hr, S:S + hc]
+                if q == launches - 1:
+                    norm_plane[r0:r0 + hr, c0:c0 + hc] = local[S:S + hr, S:S + hc]
+        x = y
+    return x, torch.where(counted, norm_plane, 0.0)
+
+
+@pytest.mark.parametrize("shape,K,tile,halo", [
+    ((5, 37, 45), 8, None, 0),        # the planned tile
+    ((7, 23, 19), 8, (4, 4), 0),      # many tiles, ragged on both axes
+    ((3, 17, 21), 5, (4, 4), 0),      # K not a multiple of S: 4 + 1 sweeps
+    ((2, 13, 9), 7, (4, 3), 3),       # 3 + 3 + 1 sweeps, halo mode
+    ((4, 6, 5), 1, (8, 1), 2),        # one sweep, box smaller than a tile
+])
+def test_tiled_schedule_matches_reference(shape, K, tile, halo):
+    """The tiled design's schedule (tiles, rings, the launches of a bundle,
+    the per-column norm plane) gives the plain version's x bit for bit,
+    and its norm plane sums to the plain norm (rel 1e-5: another order)."""
+    arrays = [torch.from_numpy(a) for a in seeded_system(shape, seed=sum(shape) + K)]
+    TI, S = tile or TB.plan_tiles(shape[0], K)
+    x_e, plane = tiled_emulation(arrays, K, TI, S, halo)
+    x_r, n_r = TB.jacobi_bundle_reference(*arrays, K=K, halo=halo)
+    assert torch.equal(x_e, x_r)
+    assert float(plane.sum()) == pytest.approx(float(n_r), rel=1e-5)
+
+
+def test_plan_tiles_fits_a_block():
+    """The planned tile fits a Hopper block (shared memory, 512 threads),
+    has a side that is a multiple of 4 (TMA boxes start on 16-byte columns)
+    and keeps at most K sweeps on chip. Against the per-sweep design's 14
+    box-array passes a sweep, its modelled passes are fewer wherever two or
+    more sweeps share a launch and L <= 10; taller columns get small tiles
+    and pay their rings (at most 30 passes a sweep up to L = 64). At the
+    main path's (L, K) = (7, 8) it is 16 x 16 with S = 4: 56 passes against
+    112."""
+    for L in range(1, 65):
+        for K in (1, 2, 3, 5, 8, 12):
+            TI, S = TB.plan_tiles(L, K)
+            assert 1 <= S <= K and TI >= 4 and TI % 4 == 0
+            assert (TI + 2 * S - 2) ** 2 <= TB.MAX_THREADS
+            assert TB.tile_smem(L, TI, S) <= TB.SMEM_PER_BLOCK
+            passes = TB.modelled_passes(K, TI, S)
+            assert passes <= 30 * K
+            if K > 1 and L <= 10:
+                assert passes < 14 * K
+    assert TB.plan_tiles(7, 8) == (16, 4)
+    assert TB.modelled_passes(8, 16, 4) == 56.0
+    with pytest.raises(ValueError):
+        TB.plan_tiles(300, 8)
+
+
+def test_per_sweep_design_runs_on_cuda_only():
+    arrays = [torch.from_numpy(a) for a in seeded_system((3, 9, 7), seed=3)]
+    with pytest.raises(ValueError):
+        TB.jacobi_bundle_per_sweep(*arrays)
+
+
 def test_wrapper_runs_plain_version_on_cpu():
     """On CPU tensors the wrapper IS the plain version and counts no
     kernel launch."""
     arrays = [torch.from_numpy(a) for a in seeded_system((3, 9, 7), seed=3)]
     before = TB.jacobi_bundle.launches
-    x, n = TB.jacobi_bundle(*arrays, K=3)
-    xr, nr = TB.jacobi_bundle_reference(*arrays, K=3)
-    assert torch.equal(x, xr) and torch.equal(n, nr)
+    for halo in (0, 2):
+        x, n = TB.jacobi_bundle(*arrays, K=3, halo=halo)
+        xr, nr = TB.jacobi_bundle_reference(*arrays, K=3, halo=halo)
+        assert torch.equal(x, xr) and torch.equal(n, nr)
     assert TB.jacobi_bundle.launches == before
 
 
