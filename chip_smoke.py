@@ -17,31 +17,50 @@ Phases (any failed check exits non-zero before the last line):
    at the main-path shape (x and norm bit-equal);
 3. the main path: one simulated hour of a 20 mm/h storm on a synthetic
    catchment at the scale of the Ravone benchmark (768 x 768 box of 4 m
-   cells, a disc of 420,836 valid cells, 7 layers, ~2.95M nodes) through
+   cells, a disc of 420,836 valid cells, 7 layers, 2,945,852 nodes) through
    ``compute_period_stats`` under ``SolverParameters.fast_f32(use_pallas=True)``,
    with the kernel's launch count read from that run (at ``--seed 0`` the
    stats must be (91, 92, 193, 1640), the per-sweep design's); then the same hour
    timed ``--timed-hours`` times, and once more under torch.profiler for
    the device-time breakdown; then a small locked-dt hour on the card
    against the same hour on the CPU (the plain twin);
+3b. the production preset ``SolverParameters.fast_f32()`` (CG with the
+   vertical-line preconditioner) on the same storm hour: stats, MBR
+   (|MBR| < 2e-3), the first hour's wall, the median of ``--timed-hours``
+   (each repeat gives the same stats), host syncs, the profiled breakdown
+   and peak memory; no ``jacobi_bundle`` launch, every output on the card;
+3c. the float64 parity path ``SolverParameters()`` (per-sweep float64
+   Jacobi, tolerance 1e-10) on the same storm hour at full size, once
+   (then once more, profiled): stats, MBR (|MBR| < 2e-3), wall, host
+   syncs, the breakdown; no ``jacobi_bundle`` launch, float64 heads on
+   the card;
+3d. small locked-dt hours on the card against the port's CPU path: the
+   float64 path, ``fast_f32()`` CG line, and ``fast_f32()`` CG diag with
+   ``track_link_flow``: the same steps, attempts and approximations; heads
+   within 1e-6 m (f64) or 1e-4 m, link flows within 1e-3 of their max;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, and the per-sweep
    design's time in the same run;
-5. the last line: ``{"ok": true, "device": {...}}``.
+5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX and nothing of the JAX package.
+The profiled hours split device time by layer: the kernels launched inside
+the step's ``c3d.assemble`` and ``c3d.inner_solve`` ranges, and the rest.
+The whole script takes about three minutes on an H100 80GB HBM3 at 700 W
+(161.5 s in one run), the kernel's build included. It imports nothing of
+JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
+import bisect
 import json
-import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 non-tensor rate
@@ -96,46 +115,8 @@ def compare_bundle(shape, seed: int):
     return err, rel, inputs
 
 
-def synthetic_catchment(seed: int, n: int = 768, cell: float = 4.0,
-                        radius: float = 366.0):
-    """A tilted V valley in the form of tests/test_catchment3d.py's
-    valley_dem (5 % down-valley, 8 % across, per metre) plus a smooth seeded
-    perturbation, inside a disc of valid cells centred in an n x n box."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    rows, cols = np.mgrid[0:n, 0:n].astype(np.float64)
-    z = 100.0 + (n - 1 - rows) * 0.05 * cell + np.abs(cols - n // 2) * 0.08 * cell
-    for _ in range(4):
-        kr, kc = rng.uniform(-1, 1, 2) * 2 * np.pi / (100.0 * cell)
-        z += rng.uniform(0.5, 2.0) * np.sin(kr * rows * cell + kc * cols * cell
-                                            + rng.uniform(0, 2 * np.pi))
-    c0 = (n - 1) / 2.0
-    disc = (rows - c0) ** 2 + (cols - c0) ** 2 <= radius ** 2
-    return np.where(disc, z, -9999.0)
-
-
-def build_problem(dem, cell, params, device, *, total_depth=0.8,
-                  min_thickness=0.04, max_thickness=0.25,
-                  max_thickness_depth=0.6, soil=None, psi0=-2.0, rain=0.020):
-    """Grid + initial state + rain, as bench.py builds its storm hour
-    (clay-loam soil of the Ravone study by default)."""
-    import torch
-    from criteria3d_tpu_torch import Grid, SoilFields, WaterState
-    from criteria3d_tpu_torch.solver.step import initialize_balance
-    soil = soil or dict(vg_alpha=1.0, vg_n=1.35, vg_he=0.02, theta_s=0.44,
-                        theta_r=0.06, k_sat=2e-6)
-    grid = Grid.build(dem, cell, SoilFields.uniform(dem.shape, device=device, **soil),
-                      total_depth=total_depth, min_thickness=min_thickness,
-                      max_thickness=max_thickness,
-                      max_thickness_depth=max_thickness_depth, device=device)
-    state = WaterState.initialize(grid, params, matric_potential=psi0, device=device)
-    state = initialize_balance(grid, params, state)
-    sink = torch.zeros_like(state.sink_source)
-    sink[0] = torch.where(grid.mask[0], rain * float(grid.area) / 3600.0, 0.0)
-    return grid, dataclasses.replace(state, sink_source=sink)
-
-
 def tensors_of(obj):
+    import dataclasses
     import torch
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
@@ -150,22 +131,24 @@ JACOBI_KERNELS = ("tile_live_kernel", "tiled_resident_kernel", "tiled_sweeps_ker
                   "plane_sum_kernel", "::sum_kernel(")
 
 
-def breakdown(grid, params, state, wall_s: float) -> float:
-    """One more hour under torch.profiler: device time by kernel, the
-    bundled-Jacobi kernels' share, and the device's idle share.
+def breakdown(label, grid, params, state, wall_s: float):
+    """One more hour under torch.profiler: device time by kernel, by layer
+    (the kernels launched inside the step's assembly and inner-solve
+    ranges) and the device's idle share; returns ``(busy_s, {kernel name:
+    seconds})`` (0.0 and {} when the profiler saw no device activity).
 
     Busy time is the union of the device activity intervals (kernels,
     copies, fills) of the exported trace; host-op annotations, which the
-    trace also places on the device timeline, are left out. The idle share
-    is given against the unprofiled median wall time ``wall_s`` (the
-    profiler slows the host, not the kernels) and against the profiled
-    hour's own wall time. Returns the bundled-Jacobi kernels' device
-    seconds in the hour (0.0 when the profiler saw no device activity)."""
-    import os
-    import tempfile
+    trace also places on the device timeline, are left out. A layer's time
+    is the device time of the activities launched inside its host range
+    (matched through the launch's correlation id). The idle share is given
+    against the unprofiled median wall time ``wall_s`` (the profiler slows
+    the host, not the kernels) and against the profiled hour's own wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    from criteria3d_tpu_torch.solver.step import (ASSEMBLE_RANGE, SOLVE_RANGE,
+                                                  compute_period_stats)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         compute_period_stats(grid, params, state, 3600.0)
@@ -176,16 +159,31 @@ def breakdown(grid, params, state, wall_s: float) -> float:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    spans, per_name = [], {}
+    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+                     e["name"]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e.get("name") in (ASSEMBLE_RANGE, SOLVE_RANGE))
+    starts = [r[0] for r in ranges]
+    layer_of = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
+            i = bisect.bisect_right(starts, float(e["ts"])) - 1
+            if i >= 0 and float(e["ts"]) <= ranges[i][1]:
+                layer_of[corr] = ranges[i][2]
+    spans, per_name, layers = [], {}, {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
                                                    "gpu_memset"):
             ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
             spans.append((ts, ts + dur))
-            per_name[e["name"]] = per_name.get(e["name"], 0.0) + dur
+            per_name[e["name"]] = per_name.get(e["name"], 0.0) + dur * 1e-6
+            layer = layer_of.get(e.get("args", {}).get("correlation"), "other")
+            layers[layer] = layers.get(layer, 0.0) + dur * 1e-6
     if not spans:
-        print("# breakdown: the profiler saw no device activity (not measured)")
-        return 0.0
+        print(f"# {label} breakdown: the profiler saw no device activity "
+              "(not measured)")
+        return 0.0, {}
     spans.sort()
     busy_us, (lo, hi) = 0.0, spans[0]
     for s, t in spans[1:]:
@@ -194,16 +192,89 @@ def breakdown(grid, params, state, wall_s: float) -> float:
         else:
             hi = max(hi, t)
     busy_s = (busy_us + (hi - lo)) * 1e-6
-    jacobi_s = sum(v for k, v in per_name.items()
-                   if any(name in k for name in JACOBI_KERNELS)) * 1e-6
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"# breakdown: {len(spans)} device activities per hour, device busy "
-          f"{busy_s} s; idle share {1.0 - busy_s / wall_s} of the unprofiled "
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    by_layer = ("; ".join(f"{k} {v} s ({v / busy_s:.3f})"
+                          for k, v in sorted(layers.items()))
+                if layer_of else "not measured (no launch matched a range)")
+    print(f"# {label} breakdown: {len(spans)} device activities per hour, device "
+          f"busy {busy_s} s; idle share {1.0 - busy_s / wall_s} of the unprofiled "
           f"{wall_s} s, {1.0 - busy_s / prof_wall_s} of the profiled "
-          f"{prof_wall_s} s; jacobi_bundle kernels {jacobi_s} s "
-          f"({jacobi_s / busy_s} of device busy); top: "
-          + "; ".join(f"{k[:70]} {v * 1e-6:.4f} s" for k, v in top), flush=True)
-    return jacobi_s
+          f"{prof_wall_s} s; device time by layer: " + by_layer
+          + "; top: "
+          + "; ".join(f"{k[:90]} {v:.4f} s ({v / busy_s:.3f})" for k, v in top),
+          flush=True)
+    return busy_s, per_name
+
+
+def timed_hours(grid, params, state0, stats, n: int):
+    """The hour ``n`` more times from the same state; each repeat must give
+    ``stats``. Returns the wall times [s]."""
+    import torch
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        _, stats_t = compute_period_stats(grid, params, state0, 3600.0)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        check(stats_t == stats, f"a repeated hour gave other stats {stats_t}")
+    return walls
+
+
+def first_hour(label, grid, params, state0):
+    """The hour once, with the launch and host-read counts set to 0 just
+    before it and read just after: ``(out, stats, wall_s, launches,
+    host_syncs, mbr)``; checks that every output is on the card and
+    finite and that the whole-period |MBR| < 2e-3."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    torch.cuda.reset_peak_memory_stats()
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    t0 = time.time()
+    out, stats = compute_period_stats(grid, params, state0, 3600.0)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches, syncs = JB.jacobi_bundle.launches, host_read.count
+    mbr = float(out.balance_whole.mbr)
+    print(f"# {label}: stats (steps, attempts, approximations, inner iterations) = "
+          f"{stats} whole-period MBR={mbr} first run {wall_s} s "
+          f"bundle launches={launches} host syncs={syncs}", flush=True)
+    for name, t in tensors_of(out):
+        check(t.device.type == "cuda", f"{label}: output {name} is on {t.device}")
+    check(out.h.dtype == params.dtype, f"{label}: heads are {out.h.dtype}")
+    check(bool(torch.isfinite(out.h).all()), f"{label}: non-finite heads")
+    check(abs(mbr) < 2e-3, f"{label}: |whole-period MBR| {mbr} >= 2e-3")
+    return out, stats, wall_s, launches, syncs, mbr
+
+
+def small_card_vs_cpu(name: str):
+    """phase 3d: a small locked-dt hour on the card and on the CPU."""
+    from criteria3d_tpu_torch.problems import SMALL_CONFIGS, small_hour
+    make, h_tol = SMALL_CONFIGS[name]
+    params = make()
+    res = {dev: small_hour(params, dev) for dev in ("cuda", "cpu")}
+    (oc, sc), (op, sp) = res["cuda"], res["cpu"]
+    dh = float((oc.h.cpu() - op.h).abs().max())
+    line = (f"# small locked hour {name}: card {sc} MBR {float(oc.balance_whole.mbr)}; "
+            f"cpu {sp} MBR {float(op.balance_whole.mbr)}; max |dh| {dh} m "
+            f"(tolerance {h_tol})")
+    if params.track_link_flow:
+        lf_c, lf_p = oc.link_flow_sum.cpu(), op.link_flow_sum
+        scale = float(lf_p.abs().max())
+        lf_rel = float((lf_c - lf_p).abs().max()) / scale
+        line += f"; link flows max |diff| / max |flow| {lf_rel} (tolerance 1e-3)"
+        check(scale > 0 and lf_rel < 1e-3,
+              f"small hour {name}: link flows differ by {lf_rel} of their max")
+    print(line, flush=True)
+    check(sc[:3] == sp[:3], f"small hour {name}: steps/attempts/approximations "
+                            f"differ between card {sc} and CPU {sp}")
+    check(oc.h.dtype == params.dtype, f"small hour {name}: heads are {oc.h.dtype}")
+    check(dh < h_tol, f"small hour {name}: heads differ by {dh} m between card and CPU")
+    return sc, sp, dh
 
 
 def main() -> int:
@@ -220,9 +291,8 @@ def main() -> int:
     try:
         from criteria3d_tpu_torch import SolverParameters
         from criteria3d_tpu_torch.bench_jacobi import cuda_ms
-        from criteria3d_tpu_torch.device import host_read
+        from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
         from criteria3d_tpu_torch.solver import jacobi_bundle as JB
-        from criteria3d_tpu_torch.solver.step import compute_period_stats
     except ImportError as e:
         print(f"chip_smoke: the criteria3d_tpu_torch package is missing ({e}); "
               "run from the repository root", file=sys.stderr)
@@ -233,6 +303,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    t_start = time.time()
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.time()
@@ -270,68 +341,64 @@ def main() -> int:
     for name, t in list(tensors_of(grid)) + list(tensors_of(state0)):
         check(t.device.type == "cuda", f"{name} is on {t.device}, not on the card")
 
-    JB.jacobi_bundle.launches = 0
-    host_read.count = 0
-    t0 = time.time()
-    out, stats = compute_period_stats(grid, params, state0, 3600.0)
-    torch.cuda.synchronize()
-    first_s = time.time() - t0
-    launches = JB.jacobi_bundle.launches
-    syncs = host_read.count
-    mbr = float(out.balance_whole.mbr)
-    print(f"# hour: stats (steps, attempts, approximations, sweeps) = {stats} "
-          f"whole-period MBR={mbr} first run {first_s:.3f} s "
-          f"bundle launches={launches} host syncs={syncs}", flush=True)
-    for name, t in tensors_of(out):
-        check(t.device.type == "cuda", f"output {name} is on {t.device}")
-    check(bool(torch.isfinite(out.h).all()), "non-finite heads after the hour")
-    check(abs(mbr) < 2e-3, f"|whole-period MBR| {mbr} >= 2e-3")
+    out, stats, first_s, launches, syncs, mbr = first_hour(
+        "bundle hour", grid, params, state0)
     check(launches > 0, "the main path launched no jacobi_bundle kernel")
     check(launches * K == stats[3], f"launches {launches} x K != sweeps {stats[3]}")
     if args.seed == 0:   # the per-sweep design's trajectory: x and norm are bit-equal
         check(tuple(stats) == (91, 92, 193, 1640),
               f"seed 0 hour gave stats {stats}, not (91, 92, 193, 1640)")
-
-    walls = []
-    for _ in range(args.timed_hours):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        out_t, stats_t = compute_period_stats(grid, params, state0, 3600.0)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        check(stats_t == stats, f"a repeated hour gave other stats {stats_t}")
+    walls = timed_hours(grid, params, state0, stats, args.timed_hours)
     wall = statistics.median(walls) if walls else first_s
-    print(f"# wall s per simulated hour: median {wall} of {walls}; "
-          f"host syncs per hour {syncs}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    jacobi_s = breakdown(grid, params, state0, wall)
+    print(f"# bundle hour wall s: median {wall} of {walls}; host syncs per hour "
+          f"{syncs}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    busy_s, per_name = breakdown("bundle hour", grid, params, state0, wall)
+    jacobi_s = sum(v for k, v in per_name.items()
+                   if any(name in k for name in JACOBI_KERNELS))
+    print(f"# bundle hour: jacobi_bundle kernels {jacobi_s} s "
+          f"({jacobi_s / max(busy_s, 1e-30)} of device busy)", flush=True)
     check(jacobi_s > 0.0, f"{launches} bundles per hour, but the profiled "
                           "jacobi_bundle kernel time reads 0")
-    del out, state0
+    del out
 
     # small locked-dt hour: the card against the port's CPU path
-    import numpy as np
-    n = 16
-    rows, cols = np.mgrid[0:n, 0:n]
-    small = (100.0 + (n - 1 - rows) * 0.5 + np.abs(cols - n // 2) * 0.8).astype(np.float64)
-    p_lock = SolverParameters.fast_f32(use_pallas=True, delta_t_min=60.0,
-                                       delta_t_max=60.0)
-    soil = dict(vg_alpha=1.2, vg_n=1.5, vg_he=0.02, theta_s=0.41, theta_r=0.04,
-                k_sat=5e-6)
-    res = {}
-    for dev in ("cuda", "cpu"):
-        g, s = build_problem(small, 10.0, p_lock, dev, total_depth=0.6,
-                             min_thickness=0.02, max_thickness=0.1,
-                             max_thickness_depth=0.4, soil=soil, psi0=-1.5,
-                             rain=0.015)
-        o, st = compute_period_stats(g, p_lock, s, 3600.0)
-        res[dev] = (o.h.cpu(), st, float(o.balance_whole.mbr))
-    dh = float((res["cuda"][0] - res["cpu"][0]).abs().max())
-    print(f"# small locked hour: card {res['cuda'][1]} MBR {res['cuda'][2]}; "
-          f"cpu {res['cpu'][1]} MBR {res['cpu'][2]}; max |dh| {dh} m", flush=True)
-    check(res["cuda"][1][:3] == res["cpu"][1][:3],
-          "small hour: steps/attempts/approximations differ between card and CPU")
-    check(dh < 1e-4, f"small hour: heads differ by {dh} m between card and CPU")
+    small_card_vs_cpu("bundle")
+
+    # ---- 3b. the production preset: CG with the line preconditioner ------
+    p_cg = SolverParameters.fast_f32()
+    check(p_cg.inner_solver == "cg" and p_cg.cg_precond == "line" and not p_cg.use_pallas,
+          f"fast_f32() is not CG line: {p_cg}")
+    out, stats_cg, first_cg, launches_cg, syncs_cg, mbr_cg = first_hour(
+        "CG line hour", grid, p_cg, state0)
+    check(launches_cg == 0, f"the CG hour launched {launches_cg} jacobi_bundle kernels")
+    peak_cg = torch.cuda.max_memory_allocated() / 2**30
+    del out
+    walls_cg = timed_hours(grid, p_cg, state0, stats_cg, args.timed_hours)
+    wall_cg = statistics.median(walls_cg) if walls_cg else first_cg
+    print(f"# CG line hour wall s: median {wall_cg} of {walls_cg}; host syncs per "
+          f"hour {syncs_cg}; peak memory {peak_cg:.2f} GiB", flush=True)
+    busy_cg, _ = breakdown("CG line hour", grid, p_cg, state0, wall_cg)
+    check(busy_cg > 0.0, "the profiler saw no device activity in the CG hour")
+    del grid, state0
+    torch.cuda.empty_cache()
+
+    # ---- 3c. the float64 parity path --------------------------------------
+    p64 = SolverParameters()
+    grid64, state64 = build_problem(dem, 4.0, p64, "cuda")
+    out, stats64, wall64, launches64, syncs64, mbr64 = first_hour(
+        "f64 hour", grid64, p64, state64)
+    check(launches64 == 0, f"the f64 hour launched {launches64} jacobi_bundle kernels")
+    print(f"# f64 hour peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    busy64, _ = breakdown("f64 hour", grid64, p64, state64, wall64)
+    check(busy64 > 0.0, "the profiler saw no device activity in the f64 hour")
+    del out, grid64, state64
+    torch.cuda.empty_cache()
+
+    # ---- 3d. small hours on the card against the CPU path ----------------
+    for name in ("f64", "cg_line", "cg_diag_links"):
+        small_card_vs_cpu(name)
 
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
@@ -372,8 +439,11 @@ def main() -> int:
         "modelled_bytes": modelled_bytes,
         "achieved_tb_s": modelled_bytes / (ms * 1e-3) * 1e-12,
     }]
-    print(f"# per simulated hour: n_nodes={grid.n_nodes} stats={list(stats)} "
-          f"mbr={mbr} wall_s={wall} host_syncs={syncs} card={card}")
+    print(f"# per simulated hour ({card}): bundle stats={list(stats)} mbr={mbr} "
+          f"wall_s={wall} host_syncs={syncs}; CG line stats={list(stats_cg)} "
+          f"mbr={mbr_cg} wall_s={wall_cg} host_syncs={syncs_cg}; f64 "
+          f"stats={list(stats64)} mbr={mbr64} wall_s={wall64} "
+          f"host_syncs={syncs64}; script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,12 @@ the same functions with PyTorch tensors and hand-written CUDA kernels for an
 NVIDIA Hopper card (sm_90a). It imports neither JAX nor anything of the JAX
 package.
 
-Ported so far: the water-only simulated hour of the float32 psi-carry preset
-with the bundled Jacobi inner solver,
-``SolverParameters.fast_f32(use_pallas=True)``. Its inner solve runs the
-CUDA kernel ``csrc/jacobi_bundle.cu`` on CUDA tensors and its plain PyTorch
-twin on CPU tensors.
+Ported so far: the water solver -- the float64 parity path
+(``SolverParameters()``), the float32 psi-carry path with CG and the line
+preconditioner (``SolverParameters.fast_f32()``) or the bundled Jacobi
+kernel (``fast_f32(use_pallas=True)``), and per-link flow accounting. The
+bundled Jacobi solve runs the CUDA kernel ``csrc/jacobi_bundle.cu`` on CUDA
+tensors and its plain PyTorch twin on CPU tensors.
 """
 
 from criteria3d_tpu_torch.core.soil import MeanType, SoilFields, WRCModel

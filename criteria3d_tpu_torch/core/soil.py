@@ -18,8 +18,25 @@ from criteria3d_tpu_torch.device import map_tensors, resolve_device
 
 __all__ = [
     "WRCModel", "MeanType", "SoilFields", "se_from_psi", "psi_from_se",
-    "theta_from_se", "mualem_conductivity", "compute_mean", "power",
+    "theta_from_se", "se_from_theta", "mualem_conductivity", "dtheta_dh",
+    "compute_mean", "power",
 ]
+
+
+def _pow_elementwise(x: torch.Tensor, y) -> torch.Tensor:
+    """float64 ``x ** y`` on the CPU through torch's element-by-element
+    loop, which calls the C library's pow, as XLA:CPU does.
+
+    torch's vectorised CPU pow (SLEEF, 1 ulp) differs from it in ~1.7% of
+    elements, and a Python-number exponent takes other special paths
+    (-0.5 becomes rsqrt). Operands that are stride-2 views of one buffer
+    cannot take the vectorised loop, so both are copied into one."""
+    shape = torch.broadcast_shapes(
+        x.shape, y.shape if isinstance(y, torch.Tensor) else ())
+    buf = torch.empty(tuple(shape) + (2,), dtype=x.dtype, device=x.device)
+    buf[..., 0] = x
+    buf[..., 1] = y
+    return torch.pow(buf[..., 0], buf[..., 1])
 
 
 def power(x: torch.Tensor, y) -> torch.Tensor:
@@ -32,7 +49,16 @@ def power(x: torch.Tensor, y) -> torch.Tensor:
     elements, and the capacity secant (se_c - se_p) / dpsi of the assembly
     magnifies such an ulp a thousandfold. A number ``y`` is first rounded to
     the dtype of ``x``, as JAX rounds a weakly typed exponent.
+
+    A float64 power on the CPU runs :func:`_pow_elementwise`: the f64
+    capacity secant takes |se_c - se_p| / dh down to |dpsi| = 1e-12, where
+    one ulp of se is a relative error of up to ~1e-4. On the card it is
+    CUDA's pow.
     """
+    if x.dtype == torch.float64:
+        if x.device.type == "cpu":
+            return _pow_elementwise(x, y)
+        return torch.pow(x, y)
     if x.dtype != torch.float32:
         return torch.pow(x, y)
     if isinstance(y, torch.Tensor):
@@ -91,7 +117,7 @@ class SoilFields:
             return torch.full(tuple(shape), v, dtype=dtype, device=dev)
 
         m_arr, sc_arr = full(m), full(sc)
-        den = 1.0 - (1.0 - sc_arr ** (1.0 / m_arr)) ** m_arr
+        den = 1.0 - power(1.0 - power(sc_arr, 1.0 / m_arr), m_arr)
         return SoilFields(
             vg_alpha=full(vg_alpha), vg_n=full(vg_n), vg_m=m_arr,
             vg_he=full(vg_he), vg_sc=sc_arr,
@@ -131,6 +157,13 @@ def theta_from_se(soil: SoilFields, se: torch.Tensor) -> torch.Tensor:
     return se * (soil.theta_s - soil.theta_r) + soil.theta_r
 
 
+def se_from_theta(soil: SoilFields, theta: torch.Tensor) -> torch.Tensor:
+    """Degree of saturation from volumetric water content
+    (soilPhysics.cpp:123-134)."""
+    se = (theta - soil.theta_r) / (soil.theta_s - soil.theta_r)
+    return torch.clamp(se, 0.0, 1.0)
+
+
 def mualem_conductivity(soil: SoilFields, se: torch.Tensor,
                         model: WRCModel) -> torch.Tensor:
     """Unsaturated hydraulic conductivity K(Se) [m s-1]
@@ -146,6 +179,44 @@ def mualem_conductivity(soil: SoilFields, se: torch.Tensor,
         temp = num / soil.mualem_den
     k = soil.k_sat * power(se_c, soil.mualem_l) * temp * temp
     return torch.where(se >= 1.0, soil.k_sat, k)
+
+
+def dtheta_dh(soil: SoilFields, h: torch.Tensor, h_old: torch.Tensor,
+              z: torch.Tensor, model: WRCModel) -> torch.Tensor:
+    """Differential water capacity dTheta/dH [m-1]: the analytic VG
+    derivative when the potential is (numerically) unchanged, the secant
+    chord |dSe/dH| otherwise (computeNode_dTheta_dH,
+    soilPhysics.cpp:224-279), with its saturation early-outs."""
+    psi_curr = torch.abs(torch.clamp_max(h - z, 0.0))
+    psi_prev = torch.abs(torch.clamp_max(h_old - z, 0.0))
+
+    if model == WRCModel.VAN_GENUCHTEN:
+        saturated = (psi_curr == 0.0) & (psi_prev == 0.0)
+    else:
+        saturated = (psi_curr <= soil.vg_he) & (psi_prev <= soil.vg_he)
+
+    # analytic branch (|psi_curr - psi_prev| < 1e-12)
+    n = soil.vg_n
+    x = soil.vg_alpha * torch.clamp_min(psi_curr, 1e-30)
+    x_pow_n = power(x, n)
+    term1 = power(1.0 + x_pow_n, -(soil.vg_m + 1.0))
+    term2 = power(x, n - 1.0)
+    dse_analytic = soil.vg_alpha * n * soil.vg_m * term1 * term2
+    if model == WRCModel.MODIFIED_VAN_GENUCHTEN:
+        dse_analytic = dse_analytic / soil.vg_sc
+
+    # secant branch: down to |dpsi| = 1e-12 one ulp of se is a relative
+    # error of up to ~1e-4 here, hence power()'s float64 form
+    se_curr = se_from_psi(soil, psi_curr, model)
+    se_prev = se_from_psi(soil, psi_prev, model)
+    dh = h - h_old
+    dh_safe = torch.where(torch.abs(dh) > 0.0, dh, 1.0)
+    dse_secant = torch.abs((se_curr - se_prev) / dh_safe)
+
+    same = torch.abs(psi_curr - psi_prev) < 1e-12
+    dse = torch.where(same, dse_analytic, dse_secant)
+    dse = torch.where(saturated, 0.0, dse)
+    return dse * (soil.theta_s - soil.theta_r)
 
 
 def compute_mean(v1: torch.Tensor, v2: torch.Tensor,

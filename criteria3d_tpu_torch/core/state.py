@@ -26,11 +26,22 @@ class SolverParameters:
     project3D.cpp:619-652); the same fields and defaults as the JAX
     package's, with torch dtypes and without its device ``mesh``.
 
-    The port runs one configuration so far, the float32 psi-carry preset
-    with the bundled Jacobi solver, ``fast_f32(use_pallas=True)``, and the
-    per-sweep float32 Jacobi solver (``fast_f32(inner_solver="jacobi")``).
-    The solver raises ``NotImplementedError`` for the others (see
-    ``criteria3d_tpu_torch.solver.step.check_supported``).
+    The port's water solver runs every configuration the JAX package's
+    does, with the JAX package's solver selection:
+
+    - the float64 parity path (``sweep_dtype`` None or float64, the
+      default): per-sweep float64 Jacobi, or CG with ``inner_solver="cg"``;
+      ``use_pallas`` has no effect there;
+    - the float32 psi-carry path (``sweep_dtype=float32``, the
+      ``fast_f32()`` preset): CG with the line preconditioner by default,
+      the bundled CUDA Jacobi kernel with ``use_pallas=True``, per-sweep
+      float32 Jacobi with ``inner_solver="jacobi"``;
+    - either, with ``track_link_flow`` (per-link flow sums; getters in
+      ``criteria3d_tpu_torch.solver.link_flows``).
+
+    Not ported: the heat-coupling hooks (``extra_flux_fn`` /
+    ``boundary_flux_fn``, which raise ``NotImplementedError``) and the
+    device ``mesh``.
     """
 
     mbr_threshold: float = 1e-3

@@ -1,0 +1,97 @@
+"""Synthetic problems for the on-card checks (``chip_smoke.py``) and the
+card tests (``tests/test_torch_cuda.py``).
+
+- :func:`synthetic_catchment` and :func:`build_problem`: the storm hour of
+  the repository's benchmark on a catchment at the scale of the Ravone
+  benchmark (whose DEM is not in the repository).
+- :func:`small_hour` with :data:`SMALL_CONFIGS`: a 16 x 16 valley hour with
+  dt locked at 60 s, run on the card and on the CPU to hold the two
+  against each other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from criteria3d_tpu_torch.core.grid import Grid
+from criteria3d_tpu_torch.core.soil import SoilFields
+from criteria3d_tpu_torch.core.state import SolverParameters, WaterState
+from criteria3d_tpu_torch.solver.step import (compute_period_stats,
+                                              initialize_balance)
+
+__all__ = ["synthetic_catchment", "build_problem", "small_hour",
+           "SMALL_CONFIGS"]
+
+# clay loam of the Ravone study
+CLAY_LOAM = dict(vg_alpha=1.0, vg_n=1.35, vg_he=0.02, theta_s=0.44,
+                 theta_r=0.06, k_sat=2e-6)
+SMALL_SOIL = dict(vg_alpha=1.2, vg_n=1.5, vg_he=0.02, theta_s=0.41,
+                  theta_r=0.04, k_sat=5e-6)
+
+_LOCKED = dict(delta_t_min=60.0, delta_t_max=60.0)
+# name -> (parameters, head tolerance card vs CPU [m]); link flows are held
+# to 1e-3 of their max |value|
+SMALL_CONFIGS = {
+    "bundle": (lambda: SolverParameters.fast_f32(use_pallas=True, **_LOCKED), 1e-4),
+    "f64": (lambda: SolverParameters(**_LOCKED), 1e-6),
+    "cg_line": (lambda: SolverParameters.fast_f32(**_LOCKED), 1e-4),
+    "cg_diag_links": (lambda: SolverParameters.fast_f32(
+        cg_precond="diag", track_link_flow=True, **_LOCKED), 1e-4),
+}
+
+
+def synthetic_catchment(seed: int, n: int = 768, cell: float = 4.0,
+                        radius: float = 366.0) -> np.ndarray:
+    """A tilted V valley in the form of tests/test_catchment3d.py's
+    valley_dem (5 % down-valley, 8 % across, per metre) plus a smooth seeded
+    perturbation, inside a disc of valid cells centred in an n x n box."""
+    rng = np.random.default_rng(seed)
+    rows, cols = np.mgrid[0:n, 0:n].astype(np.float64)
+    z = 100.0 + (n - 1 - rows) * 0.05 * cell + np.abs(cols - n // 2) * 0.08 * cell
+    for _ in range(4):
+        kr, kc = rng.uniform(-1, 1, 2) * 2 * np.pi / (100.0 * cell)
+        z += rng.uniform(0.5, 2.0) * np.sin(kr * rows * cell + kc * cols * cell
+                                            + rng.uniform(0, 2 * np.pi))
+    c0 = (n - 1) / 2.0
+    disc = (rows - c0) ** 2 + (cols - c0) ** 2 <= radius ** 2
+    return np.where(disc, z, -9999.0)
+
+
+def build_problem(dem, cell, params, device, *, total_depth=0.8,
+                  min_thickness=0.04, max_thickness=0.25,
+                  max_thickness_depth=0.6, soil=None, psi0=-2.0, rain=0.020):
+    """Grid + initial state + uniform rain [m/h] on the surface, as the
+    benchmark builds its storm hour."""
+    grid = Grid.build(dem, cell,
+                      SoilFields.uniform(dem.shape, device=device,
+                                         **(soil or CLAY_LOAM)),
+                      total_depth=total_depth, min_thickness=min_thickness,
+                      max_thickness=max_thickness,
+                      max_thickness_depth=max_thickness_depth, device=device)
+    state = WaterState.initialize(grid, params, matric_potential=psi0,
+                                  device=device)
+    state = initialize_balance(grid, params, state)
+    sink = torch.zeros_like(state.sink_source)
+    # a fill of the state's dtype: torch.where of two Python numbers is
+    # float32
+    sink[0] = torch.where(grid.mask[0],
+                          torch.full_like(sink[0], rain * float(grid.area) / 3600.0),
+                          0.0)
+    return grid, dataclasses.replace(state, sink_source=sink)
+
+
+def small_hour(params: SolverParameters, device, n: int = 16):
+    """One hour of a 15 mm/h storm on an n x n valley (10 m cells, 0.6 m of
+    soil in layers of 0.02-0.1 m, psi0 = -1.5 m); returns
+    ``(final_state, stats)``."""
+    rows, cols = np.mgrid[0:n, 0:n]
+    dem = (100.0 + (n - 1 - rows) * 0.5
+           + np.abs(cols - n // 2) * 0.8).astype(np.float64)
+    grid, state = build_problem(dem, 10.0, params, device, total_depth=0.6,
+                                min_thickness=0.02, max_thickness=0.1,
+                                max_thickness_depth=0.4, soil=SMALL_SOIL,
+                                psi0=-1.5, rain=0.015)
+    return compute_period_stats(grid, params, state, 3600.0)

@@ -83,7 +83,8 @@ def rain_states(jg, jp, tg, tp, *, psi0, rain_mm_h):
     js = dataclasses.replace(js, sink_source=jnp.zeros_like(
         js.sink_source).at[0].set(jnp.where(jg.mask[0], rain, 0.0)))
     sink = torch.zeros_like(ts.sink_source)
-    sink[0] = torch.where(tg.mask[0], rain, 0.0)
+    # a float64 fill: torch.where of two Python numbers is float32
+    sink[0] = torch.where(tg.mask[0], torch.full_like(sink[0], rain), 0.0)
     return js, dataclasses.replace(ts, sink_source=sink)
 
 

@@ -1,7 +1,9 @@
-"""The CUDA kernels of the port against their plain PyTorch twins, and the
-tiled bundled-Jacobi design against the per-sweep one, on the card. Every test here carries the ``cuda`` marker and skips where there is
-no card; the file imports neither JAX nor the JAX package, so it runs on a
-machine without them:
+"""The CUDA kernels of the port against their plain PyTorch twins, the
+tiled bundled-Jacobi design against the per-sweep one, and small hours of
+the float64 and CG paths on the card against the CPU path. Every test
+here carries the ``cuda`` marker and skips where there is no card; the
+file imports neither JAX nor the JAX package, so it runs on a machine
+without them:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -134,3 +136,30 @@ def test_cuda_kernel_halo_matches_plain_version():
     torch.cuda.synchronize()
     assert torch.equal(xk, xp)
     assert float(nk) == pytest.approx(float(np_), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["f64", "cg_line", "cg_diag_links"])
+def test_small_hour_on_card_matches_cpu(config):
+    """chip_smoke.py phase 3d as a test: a 16 x 16 valley hour with dt
+    locked at 60 s on the card and on the CPU -- the float64 path,
+    fast_f32() CG line, fast_f32() CG diag with track_link_flow: the same
+    steps, attempts and approximations; heads within 1e-6 m (f64) or
+    1e-4 m; link flows within 1e-3 of their max |value|; no bundle
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only on the card")
+    from criteria3d_tpu_torch.problems import SMALL_CONFIGS, small_hour
+    make, h_tol = SMALL_CONFIGS[config]
+    params = make()
+    before = TB.jacobi_bundle.launches
+    oc, sc = small_hour(params, "cuda")
+    op, sp = small_hour(params, "cpu")
+    assert TB.jacobi_bundle.launches == before
+    assert sc[:3] == sp[:3]
+    assert oc.h.device.type == "cuda" and oc.h.dtype == params.dtype
+    assert float((oc.h.cpu() - op.h).abs().max()) < h_tol
+    if params.track_link_flow:
+        scale = float(op.link_flow_sum.abs().max())
+        assert scale > 0
+        assert float((oc.link_flow_sum.cpu() - op.link_flow_sum).abs().max()) < 1e-3 * scale

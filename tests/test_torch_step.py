@@ -1,7 +1,9 @@
-"""The port's slice as a whole against the JAX package: one adaptive step
-and whole simulated hours of the float32 psi-carry path, with the bundled
-Jacobi solver (``use_pallas=True``; the plain twin on the CPU, the Pallas
-kernel in interpret mode on the JAX side) and with per-sweep Jacobi."""
+"""The port's first slice as a whole against the JAX package: one adaptive
+step and whole simulated hours of the float32 psi-carry path, with the
+bundled Jacobi solver (``use_pallas=True``; the plain twin on the CPU, the
+Pallas kernel in interpret mode on the JAX side) and with per-sweep Jacobi;
+and what the port still refuses. The float64 path, CG and link flows are in
+tests/test_torch_f64.py, test_torch_cg.py and test_torch_link_flows.py."""
 
 import dataclasses
 
@@ -14,6 +16,7 @@ from criteria3d_tpu.solver.step import compute_period_stats as j_period_stats
 import criteria3d_tpu_torch as T
 from criteria3d_tpu_torch.device import host_read
 from criteria3d_tpu_torch.solver import jacobi_bundle as TB
+from criteria3d_tpu_torch.solver import step as TSt
 from criteria3d_tpu_torch.solver import water as TW
 from tests.test_catchment3d import valley_dem
 from tests.test_torch_core import build_grids, rain_states
@@ -116,29 +119,24 @@ def test_host_syncs_are_counted():
     assert host_read.count >= bundles + stats[2]
 
 
-@pytest.mark.parametrize("config", ["f64", "cg", "link_flow", "extra_flux"])
+@pytest.mark.parametrize("config", ["extra_flux", "f64_hooks"])
 def test_unported_configurations_raise(config):
-    """What this slice does not run fails loudly; nothing falls back."""
+    """What the port does not run yet fails loudly; nothing falls back.
+    The heat-coupling hooks come with the heat slice: ``assemble_fast``
+    refuses them on the fast path, and the step (the entry that
+    solver/coupled.py calls with them) refuses them on the float64 path."""
     _, tg = build_grids(valley_dem(6), total_depth=0.4)
-    p = {"f64": T.SolverParameters(),
-         "cg": T.SolverParameters.fast_f32(),
-         "link_flow": T.SolverParameters.fast_f32(use_pallas=True,
-                                                  track_link_flow=True),
-         "extra_flux": T.SolverParameters.fast_f32(use_pallas=True)}[config]
+    p = (T.SolverParameters.fast_f32(use_pallas=True) if config == "extra_flux"
+         else T.SolverParameters())
     state = T.initialize_balance(tg, p, T.WaterState.initialize(
         tg, p, matric_potential=-1.0, device="cpu"))
-    with pytest.raises(NotImplementedError):
-        if config == "extra_flux":
-            psi = torch.zeros(tg.shape, dtype=torch.float32)
-            TW.assemble_fast(tg, p, psi, psi, psi, state.sink_source,
-                             state.pond, 0, 60.0,
-                             extra_flux_fn=lambda psi, k: torch.zeros_like(psi))
-        else:
-            T.compute_period_stats(tg, p, state, 600.0)
-    with pytest.raises(NotImplementedError):
-        if config == "extra_flux":
-            TW.assemble_fast(tg, p, psi, psi, psi, state.sink_source,
-                             state.pond, 0, 60.0,
-                             boundary_flux_fn=lambda psi, dt: psi)
-        else:
-            T.compute_step(tg, p, state, 600.0)
+    hooks = (dict(extra_flux_fn=lambda psi, k: torch.zeros_like(psi)),
+             dict(boundary_flux_fn=lambda psi, dt: psi))
+    for kw in hooks:
+        with pytest.raises(NotImplementedError):
+            if config == "extra_flux":
+                psi = torch.zeros(tg.shape, dtype=torch.float32)
+                TW.assemble_fast(tg, p, psi, psi, psi, state.sink_source,
+                                 state.pond, 0, 60.0, **kw)
+            else:
+                TSt._compute_step(tg, p, state, 600.0, 600.0, **kw)
