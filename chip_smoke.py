@@ -38,6 +38,19 @@ Phases (any failed check exits non-zero before the last line):
    float64 path, ``fast_f32()`` CG line, and ``fast_f32()`` CG diag with
    ``track_link_flow``: the same steps, attempts and approximations; heads
    within 1e-6 m (f64) or 1e-4 m, link flows within 1e-3 of their max;
+3e. the coupled water + heat storm hour of bench.py's coupled leg
+   (``fast_f32(heat_vapor=True, heat_frozen_props=True)``, every layer-1
+   node a HeatSurface) on the same catchment, once with every count read
+   (water steps, attempts, approximations, CG iterations; heat chunks,
+   accepted and rejected sub-steps, heat sweeps; host syncs, wall, peak
+   memory, water and heat MBR), then once profiled; checks every output on
+   the card, |water MBR| < 2e-3, a finite heat MBR and heat-node
+   temperatures finite within [200, 330] K. If the hour takes more than
+   300 s it runs again on a 384 box;
+3f. small coupled hours of a 6 x 6 heat column on the card against the
+   port's CPU path, float64 with vapor and ``fast_f32`` frozen with vapor:
+   the same water steps and heat sub-steps, T within 1e-6 K / 1e-3 K,
+   heads within 1e-6 m / 1e-4 m;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, and the per-sweep
@@ -45,10 +58,9 @@ Phases (any failed check exits non-zero before the last line):
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
-the step's ``c3d.assemble`` and ``c3d.inner_solve`` ranges, and the rest.
-The whole script takes about three minutes on an H100 80GB HBM3 at 700 W
-(161.5 s in one run), the kernel's build included. It imports nothing of
-JAX and nothing of the JAX package.
+the step's ``c3d.assemble`` and ``c3d.inner_solve`` ranges, the heat
+sub-steps' ``c3d.heat_assemble`` and ``c3d.heat_solve`` ranges, and the
+rest. It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -131,11 +144,19 @@ JACOBI_KERNELS = ("tile_live_kernel", "tiled_resident_kernel", "tiled_sweeps_ker
                   "plane_sum_kernel", "::sum_kernel(")
 
 
-def breakdown(label, grid, params, state, wall_s: float):
-    """One more hour under torch.profiler: device time by kernel, by layer
-    (the kernels launched inside the step's assembly and inner-solve
-    ranges) and the device's idle share; returns ``(busy_s, {kernel name:
-    seconds})`` (0.0 and {} when the profiler saw no device activity).
+def water_hour(grid, params, state):
+    """The water hour as a zero-argument call, for :func:`breakdown`."""
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    return lambda: compute_period_stats(grid, params, state, 3600.0)
+
+
+def breakdown(label, run, wall_s: float):
+    """``run()`` (one more hour) under torch.profiler: device time by
+    kernel, by layer (the kernels launched inside the step's assembly and
+    inner-solve ranges, and the heat sub-steps' assembly and solve ranges)
+    and the device's idle share; returns ``(busy_s, {kernel name:
+    seconds}, {layer: seconds})`` (0.0, {} and {} when the profiler saw no
+    device activity).
 
     Busy time is the union of the device activity intervals (kernels,
     copies, fills) of the exported trace; host-op annotations, which the
@@ -147,11 +168,12 @@ def breakdown(label, grid, params, state, wall_s: float):
     time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from criteria3d_tpu_torch.solver.step import (ASSEMBLE_RANGE, SOLVE_RANGE,
-                                                  compute_period_stats)
+    from criteria3d_tpu_torch.solver.heat import HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE
+    from criteria3d_tpu_torch.solver.step import ASSEMBLE_RANGE, SOLVE_RANGE
+    range_names = (ASSEMBLE_RANGE, SOLVE_RANGE, HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        compute_period_stats(grid, params, state, 3600.0)
+        run()
         torch.cuda.synchronize()
         prof_wall_s = time.time() - t0
     with tempfile.TemporaryDirectory() as tmp:
@@ -162,7 +184,7 @@ def breakdown(label, grid, params, state, wall_s: float):
     ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
                      e["name"]) for e in events
                     if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                    and e.get("name") in (ASSEMBLE_RANGE, SOLVE_RANGE))
+                    and e.get("name") in range_names)
     starts = [r[0] for r in ranges]
     layer_of = {}
     for e in events:
@@ -183,7 +205,7 @@ def breakdown(label, grid, params, state, wall_s: float):
     if not spans:
         print(f"# {label} breakdown: the profiler saw no device activity "
               "(not measured)")
-        return 0.0, {}
+        return 0.0, {}, {}
     spans.sort()
     busy_us, (lo, hi) = 0.0, spans[0]
     for s, t in spans[1:]:
@@ -203,7 +225,7 @@ def breakdown(label, grid, params, state, wall_s: float):
           + "; top: "
           + "; ".join(f"{k[:90]} {v:.4f} s ({v / busy_s:.3f})" for k, v in top),
           flush=True)
-    return busy_s, per_name
+    return busy_s, per_name, layers
 
 
 def timed_hours(grid, params, state0, stats, n: int):
@@ -275,6 +297,81 @@ def small_card_vs_cpu(name: str):
     check(oc.h.dtype == params.dtype, f"small hour {name}: heads are {oc.h.dtype}")
     check(dh < h_tol, f"small hour {name}: heads differ by {dh} m between card and CPU")
     return sc, sp, dh
+
+
+def coupled_hour(label, grid, params, water0, heat0, boundary):
+    """The coupled water + heat hour once, with every count (the coupled
+    step's, the heat sweeps, the bundle launches, the host reads) set to 0
+    just before it and read just after. Checks that every output is on the
+    card, the water whole-period |MBR| < 2e-3, the heat MBR (bench.py's
+    whole-period formula) is finite, and every heat-node temperature is
+    finite and within [200, 330] K. Returns a dict of what it measured."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import coupled as C
+    from criteria3d_tpu_torch.solver import heat as H
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_counts()
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    t0 = time.time()
+    w, h = C.compute_period_coupled(grid, params, water0, heat0, boundary, 3600.0)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts, syncs, launches = C.counts(), host_read.count, JB.jacobi_bundle.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mbr = float(w.balance_whole.mbr)
+    # whole-period heat balance (bench.py:279-282)
+    st_end = H.heat_storage(grid, params, h, w)
+    heat_mbr = float((st_end - h.storage_whole - h.sink_whole)
+                     / torch.clamp_min(torch.abs(h.sink_whole), 1.0))
+    heat_mask = grid.mask.clone()
+    heat_mask[0] = False
+    t_nodes = h.t[heat_mask]
+    t_min, t_max = float(t_nodes.min()), float(t_nodes.max())
+    cold = float((t_nodes < 273.15).double().mean())
+    print(f"# {label}: water steps, attempts, approximations, CG iterations = "
+          f"({counts['steps']}, {counts['attempts']}, {counts['approximations']}, "
+          f"{counts['inner_iterations']}); heat chunks {counts['chunks']}, sub-steps "
+          f"accepted {counts['substeps_accepted']} rejected {counts['substeps_rejected']}, "
+          f"heat sweeps {counts['heat_sweeps']}; host syncs {syncs}; wall {wall_s} s; "
+          f"peak memory {peak:.2f} GiB; water whole-period MBR {mbr}; heat MBR "
+          f"{heat_mbr}; heat-node T {t_min}..{t_max} K, share below 273.15 K {cold}; "
+          f"bundle launches {launches}", flush=True)
+    for name, t in list(tensors_of(w)) + list(tensors_of(h)):
+        check(t.device.type == "cuda", f"{label}: output {name} is on {t.device}")
+    check(launches == 0, f"{label}: the CG coupled hour launched {launches} bundles")
+    check(counts["heat_sweeps"] > 0 and counts["chunks"] > 0, f"{label}: no heat sub-step ran")
+    check(abs(mbr) < 2e-3, f"{label}: |water whole-period MBR| {mbr} >= 2e-3")
+    check(math.isfinite(heat_mbr), f"{label}: heat MBR {heat_mbr} is not finite")
+    check(bool(torch.isfinite(t_nodes).all()) and 200.0 <= t_min and t_max <= 330.0,
+          f"{label}: heat-node temperatures {t_min}..{t_max} K")
+    return dict(counts=counts, syncs=syncs, wall_s=wall_s, peak_gib=peak, mbr=mbr,
+                heat_mbr=heat_mbr, t_min=t_min, t_max=t_max, cold_share=cold)
+
+
+def small_coupled_card_vs_cpu(name: str):
+    """phase 3f: a coupled hour of the 6 x 6 heat column on the card and on
+    the CPU."""
+    from criteria3d_tpu_torch.problems import SMALL_COUPLED_CONFIGS, small_coupled_hour
+    make, t_tol, h_tol = SMALL_COUPLED_CONFIGS[name]
+    params = make()
+    (wc, hc, cc), (wp, hp, cp) = (small_coupled_hour(params, dev) for dev in ("cuda", "cpu"))
+    dT = float((hc.t.cpu() - hp.t).abs().max())
+    dh = float((wc.h.cpu() - wp.h).abs().max())
+    print(f"# small coupled hour {name}: card {cc}; cpu {cp}; max |dT| {dT} K "
+          f"(tolerance {t_tol}), max |dh| {dh} m (tolerance {h_tol})", flush=True)
+    for key in ("steps", "attempts", "approximations", "chunks",
+                "substeps_accepted", "substeps_rejected"):
+        check(cc[key] == cp[key], f"small coupled hour {name}: {key} differ "
+                                  f"between card {cc[key]} and CPU {cp[key]}")
+    check(hc.t.device.type == "cuda" and hc.t.dtype == params.dtype,
+          f"small coupled hour {name}: T is {hc.t.dtype} on {hc.t.device}")
+    check(dT < t_tol, f"small coupled hour {name}: T differs by {dT} K")
+    check(dh < h_tol, f"small coupled hour {name}: heads differ by {dh} m")
+    return dT, dh
 
 
 def main() -> int:
@@ -353,7 +450,7 @@ def main() -> int:
     print(f"# bundle hour wall s: median {wall} of {walls}; host syncs per hour "
           f"{syncs}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    busy_s, per_name = breakdown("bundle hour", grid, params, state0, wall)
+    busy_s, per_name, _ = breakdown("bundle hour", water_hour(grid, params, state0), wall)
     jacobi_s = sum(v for k, v in per_name.items()
                    if any(name in k for name in JACOBI_KERNELS))
     print(f"# bundle hour: jacobi_bundle kernels {jacobi_s} s "
@@ -378,7 +475,7 @@ def main() -> int:
     wall_cg = statistics.median(walls_cg) if walls_cg else first_cg
     print(f"# CG line hour wall s: median {wall_cg} of {walls_cg}; host syncs per "
           f"hour {syncs_cg}; peak memory {peak_cg:.2f} GiB", flush=True)
-    busy_cg, _ = breakdown("CG line hour", grid, p_cg, state0, wall_cg)
+    busy_cg, _, _ = breakdown("CG line hour", water_hour(grid, p_cg, state0), wall_cg)
     check(busy_cg > 0.0, "the profiler saw no device activity in the CG hour")
     del grid, state0
     torch.cuda.empty_cache()
@@ -391,7 +488,7 @@ def main() -> int:
     check(launches64 == 0, f"the f64 hour launched {launches64} jacobi_bundle kernels")
     print(f"# f64 hour peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    busy64, _ = breakdown("f64 hour", grid64, p64, state64, wall64)
+    busy64, _, _ = breakdown("f64 hour", water_hour(grid64, p64, state64), wall64)
     check(busy64 > 0.0, "the profiler saw no device activity in the f64 hour")
     del out, grid64, state64
     torch.cuda.empty_cache()
@@ -399,6 +496,48 @@ def main() -> int:
     # ---- 3d. small hours on the card against the CPU path ----------------
     for name in ("f64", "cg_line", "cg_diag_links"):
         small_card_vs_cpu(name)
+
+    # ---- 3e. the coupled water + heat storm hour --------------------------
+    from criteria3d_tpu_torch.problems import build_coupled_problem
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver.heat import HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE
+    from criteria3d_tpu_torch.solver.step import ASSEMBLE_RANGE, SOLVE_RANGE
+    p_cp = SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=True)
+    gc, wc0, hc0, bc = build_coupled_problem(dem, 4.0, p_cp, "cuda")
+    cp = coupled_hour("coupled hour", gc, p_cp, wc0, hc0, bc)
+    full_wall_s = cp["wall_s"]
+    box = "768 box (2,945,852 nodes)"
+    if full_wall_s > 300.0:
+        # cut to a 384 box, as the time limit requires
+        del gc, wc0, hc0, bc
+        torch.cuda.empty_cache()
+        gc, wc0, hc0, bc = build_coupled_problem(
+            synthetic_catchment(args.seed, n=384, radius=183.0), 4.0, p_cp, "cuda")
+        box = f"384 box ({gc.n_nodes} nodes; the full box took {full_wall_s} s)"
+        cp = coupled_hour("coupled hour, 384 box", gc, p_cp, wc0, hc0, bc)
+    busy_cp, _, layers_cp = breakdown(
+        "coupled hour", lambda: CP.compute_period_coupled(gc, p_cp, wc0, hc0, bc, 3600.0),
+        cp["wall_s"])
+    check(busy_cp > 0.0, "the profiler saw no device activity in the coupled hour")
+    named = {"water assembly": ASSEMBLE_RANGE, "water inner solve": SOLVE_RANGE,
+             "heat assembly": HEAT_ASSEMBLE_RANGE, "heat solve": HEAT_SOLVE_RANGE,
+             "other": "other"}
+    sweeps = cp["counts"]["heat_sweeps"]
+    heat_solve_s = layers_cp.get(HEAT_SOLVE_RANGE, 0.0)
+    # a heat sweep's least bytes: b, c_up, c_down, 8 c_lat and x read as
+    # float32, the bool mask, x written
+    sweep_bytes = gc.mask.numel() * (12 * 4 + 1 + 4)
+    print(f"# coupled hour on the {box}: device time by layer "
+          + "; ".join(f"{k} {layers_cp.get(v, 0.0)} s" for k, v in named.items())
+          + f"; heat sweep {heat_solve_s / max(sweeps, 1) * 1e3} ms of device time "
+          f"per sweep against a {sweep_bytes / HBM_BYTES_PER_S * 1e3} ms bound "
+          f"(bytes), {sweeps} sweeps per hour", flush=True)
+    del gc, wc0, hc0, bc
+    torch.cuda.empty_cache()
+
+    # ---- 3f. small coupled hours on the card against the CPU path --------
+    for name in ("f64_vapor", "frozen_vapor"):
+        small_coupled_card_vs_cpu(name)
 
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
@@ -443,7 +582,9 @@ def main() -> int:
           f"wall_s={wall} host_syncs={syncs}; CG line stats={list(stats_cg)} "
           f"mbr={mbr_cg} wall_s={wall_cg} host_syncs={syncs_cg}; f64 "
           f"stats={list(stats64)} mbr={mbr64} wall_s={wall64} "
-          f"host_syncs={syncs64}; script {time.time() - t_start:.1f} s")
+          f"host_syncs={syncs64}; coupled ({box}) counts={cp['counts']} "
+          f"mbr={cp['mbr']} heat_mbr={cp['heat_mbr']} wall_s={cp['wall_s']} "
+          f"host_syncs={cp['syncs']}; script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,15 +8,21 @@ package.
 Ported so far: the water solver -- the float64 parity path
 (``SolverParameters()``), the float32 psi-carry path with CG and the line
 preconditioner (``SolverParameters.fast_f32()``) or the bundled Jacobi
-kernel (``fast_f32(use_pallas=True)``), and per-link flow accounting. The
-bundled Jacobi solve runs the CUDA kernel ``csrc/jacobi_bundle.cu`` on CUDA
-tensors and its plain PyTorch twin on CPU tensors.
+kernel (``fast_f32(use_pallas=True)``), and per-link flow accounting; soil
+heat and the coupled water + heat step (``solver/heat.py``,
+``solver/coupled.py``). The bundled Jacobi solve runs the CUDA kernel
+``csrc/jacobi_bundle.cu`` on CUDA tensors and its plain PyTorch twin on CPU
+tensors.
 """
 
 from criteria3d_tpu_torch.core.soil import MeanType, SoilFields, WRCModel
 from criteria3d_tpu_torch.core.grid import BoundaryType, Grid
 from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
                                              WaterState)
+from criteria3d_tpu_torch.solver.coupled import (compute_period_coupled,
+                                                 compute_step_coupled)
+from criteria3d_tpu_torch.solver.heat import (HeatBoundary, HeatState,
+                                              heat_storage, initialize_heat)
 from criteria3d_tpu_torch.solver.step import (compute_period,
                                               compute_period_stats,
                                               compute_step,
@@ -26,4 +32,6 @@ __all__ = [
     "SoilFields", "WRCModel", "MeanType", "Grid", "BoundaryType",
     "WaterState", "BalanceData", "SolverParameters", "compute_step",
     "compute_period", "compute_period_stats", "initialize_balance",
+    "HeatState", "HeatBoundary", "initialize_heat", "heat_storage",
+    "compute_step_coupled", "compute_period_coupled",
 ]

@@ -1,4 +1,4 @@
-"""Numeric sentinels and solver epsilons used by the water path.
+"""Physical constants, numeric sentinels and solver epsilons.
 
 The port's own copy of the values it needs from
 ``criteria3d_tpu/constants.py`` (the reference's commonConstants.h and the
@@ -6,6 +6,14 @@ solver-local epsilons of water.cpp).
 """
 
 NODATA = -9999.0
+
+# --- physics (commonConstants.h), used by the heat process ---
+GRAVITY = 9.80665            # [m s-2]
+WATER_DENSITY = 1000.0       # [kg m-3]
+ZEROCELSIUS = 273.15         # [K]
+R_GAS = 8.31447215           # [J K-1 mol-1]
+MH2O = 0.018                 # [kg mol-1] molecular mass of water
+VON_KARMAN = 0.41
 
 # --- solver epsilons ---
 EPSILON = 1e-5               # commonConstants.h:252

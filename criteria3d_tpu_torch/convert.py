@@ -1,6 +1,8 @@
-"""Carry a grid and a water state across from plain arrays.
+"""Carry a grid, a water state and the heat state and forcing across from
+plain arrays.
 
-The JAX package's ``Grid`` and ``WaterState`` become numpy arrays and
+The JAX package's ``Grid``, ``WaterState``, ``HeatState`` and
+``HeatBoundary`` become numpy arrays and
 Python scalars on the caller's side (``np.asarray`` of every field); these
 functions turn them into the port's objects without importing JAX, so that
 both implementations can run from exactly the same inputs.
@@ -17,8 +19,10 @@ from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.core.soil import SoilFields
 from criteria3d_tpu_torch.core.state import BalanceData, WaterState
 from criteria3d_tpu_torch.device import resolve_device
+from criteria3d_tpu_torch.solver.heat import HeatBoundary, HeatState
 
-__all__ = ["grid_from_arrays", "state_from_arrays", "GRID_META"]
+__all__ = ["grid_from_arrays", "state_from_arrays", "heat_state_from_arrays",
+           "heat_boundary_from_arrays", "GRID_META"]
 
 # the Grid fields that are Python scalars, not tensors
 GRID_META = ("has_prescribed", "has_culvert", "cell_size", "n_layers",
@@ -60,3 +64,19 @@ def state_from_arrays(arrays: dict, *, device=None) -> WaterState:
         else:
             fields[f.name] = _tensor(v, dev)
     return WaterState(**fields)
+
+
+def heat_state_from_arrays(arrays: dict, *, device=None) -> HeatState:
+    """A :class:`HeatState` from ``arrays`` (every field by name). Dtypes
+    are kept. ``device=None`` means the CUDA card."""
+    dev = resolve_device(device)
+    return HeatState(**{f.name: _tensor(arrays[f.name], dev)
+                        for f in dataclasses.fields(HeatState)})
+
+
+def heat_boundary_from_arrays(arrays: dict, *, device=None) -> HeatBoundary:
+    """A :class:`HeatBoundary` from ``arrays`` (every (R, C) map by name).
+    Dtypes are kept. ``device=None`` means the CUDA card."""
+    dev = resolve_device(device)
+    return HeatBoundary(**{f.name: _tensor(arrays[f.name], dev)
+                           for f in dataclasses.fields(HeatBoundary)})

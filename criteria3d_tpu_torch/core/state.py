@@ -37,11 +37,12 @@ class SolverParameters:
       the bundled CUDA Jacobi kernel with ``use_pallas=True``, per-sweep
       float32 Jacobi with ``inner_solver="jacobi"``;
     - either, with ``track_link_flow`` (per-link flow sums; getters in
-      ``criteria3d_tpu_torch.solver.link_flows``).
+      ``criteria3d_tpu_torch.solver.link_flows``);
+    - either, coupled to soil heat (``criteria3d_tpu_torch.solver.coupled``)
+      with the ``heat_*`` fields: ``heat_vapor``, ``heat_advection`` and,
+      on the float32 path, ``heat_frozen_props``.
 
-    Not ported: the heat-coupling hooks (``extra_flux_fn`` /
-    ``boundary_flux_fn``, which raise ``NotImplementedError``) and the
-    device ``mesh``.
+    Not ported: the device ``mesh``.
     """
 
     mbr_threshold: float = 1e-3

@@ -7,6 +7,10 @@ card tests (``tests/test_torch_cuda.py``).
 - :func:`small_hour` with :data:`SMALL_CONFIGS`: a 16 x 16 valley hour with
   dt locked at 60 s, run on the card and on the CPU to hold the two
   against each other.
+- :func:`build_coupled_problem`: the benchmark's coupled water + heat storm
+  hour on the same catchment; :func:`small_coupled_hour` with
+  :data:`SMALL_COUPLED_CONFIGS`: a coupled hour of a 6 x 6 heat column, for
+  the card against the CPU.
 """
 
 from __future__ import annotations
@@ -16,14 +20,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from criteria3d_tpu_torch.core.grid import Grid
+from criteria3d_tpu_torch.core.grid import BoundaryType, Grid
 from criteria3d_tpu_torch.core.soil import SoilFields
 from criteria3d_tpu_torch.core.state import SolverParameters, WaterState
+from criteria3d_tpu_torch.solver import coupled as C
+from criteria3d_tpu_torch.solver import heat as H
 from criteria3d_tpu_torch.solver.step import (compute_period_stats,
                                               initialize_balance)
 
 __all__ = ["synthetic_catchment", "build_problem", "small_hour",
-           "SMALL_CONFIGS"]
+           "SMALL_CONFIGS", "build_coupled_problem", "heat_column",
+           "small_coupled_hour", "SMALL_COUPLED_CONFIGS"]
 
 # clay loam of the Ravone study
 CLAY_LOAM = dict(vg_alpha=1.0, vg_n=1.35, vg_he=0.02, theta_s=0.44,
@@ -95,3 +102,84 @@ def small_hour(params: SolverParameters, device, n: int = 16):
                                 max_thickness_depth=0.4, soil=SMALL_SOIL,
                                 psi0=-1.5, rain=0.015)
     return compute_period_stats(grid, params, state, 3600.0)
+
+
+# ----------------------------------------------------------------------
+# coupled water + heat
+# ----------------------------------------------------------------------
+
+def with_heat_surface(grid: Grid) -> Grid:
+    """Every valid layer-1 node becomes an atmospheric HeatSurface node
+    with a boundary the size of the cell."""
+    btype, bsize = grid.btype.clone(), grid.bsize.clone()
+    btype[1] = torch.where(grid.mask[1], int(BoundaryType.HEAT_SURFACE), btype[1])
+    bsize[1] = torch.where(grid.mask[1], torch.full_like(bsize[1], float(grid.area)),
+                           bsize[1])
+    return dataclasses.replace(grid, btype=btype, bsize=bsize)
+
+
+def initial_heat(grid: Grid, params: SolverParameters, water: WaterState,
+                 t0: float, **forcing):
+    """Uniform temperature ``t0`` [K] with the storage balance set to the
+    initial storage, and uniform atmospheric forcing on the HeatSurface
+    nodes (``forcing``: HeatBoundary.uniform's keywords)."""
+    heat = H.initialize_heat(grid, t0)
+    storage = H.heat_storage(grid, params, heat, water)
+    heat = dataclasses.replace(heat, storage_prev=storage, storage_whole=storage)
+    mask = grid.btype[1] == int(BoundaryType.HEAT_SURFACE)
+    return heat, H.HeatBoundary.uniform(grid.shape[1:], mask=mask,
+                                        device=grid.device, **forcing)
+
+
+def build_coupled_problem(dem, cell, params, device, **kw):
+    """The coupled storm hour of the repository's benchmark (bench.py's
+    coupled leg): build_problem's storm with every valid layer-1 node a
+    HeatSurface, soil at 288.15 K, air at 291.15 K, 85 % relative
+    humidity, 3 m/s wind and 80 W/m2 net irradiance. Returns ``(grid,
+    water, heat, boundary)``."""
+    grid, water = build_problem(dem, cell, params, device, **kw)
+    grid = with_heat_surface(grid)
+    heat, boundary = initial_heat(grid, params, water, 288.15,
+                                  air_temperature=291.15, rel_humidity=85.0,
+                                  wind_speed=3.0, net_irradiance=80.0)
+    return grid, water, heat, boundary
+
+
+def heat_column(params: SolverParameters, device, n: int = 6,
+                total_depth: float = 0.6):
+    """tests/test_coupled.py's heat-parity column: an n x n plot (2 m
+    cells, a 0.1 m step per column), no drainage boundaries, HeatSurface
+    layer 1, psi0 = -2 m, soil at 283.15 K under air at 298.15 K, 50 %
+    relative humidity, 2 m/s wind and 300 W/m2. Returns ``(grid, water,
+    heat, boundary)``."""
+    dem = np.zeros((n, n)) + np.arange(n)[None, :] * 0.1
+    soil = SoilFields.uniform((n, n), device=device, vg_alpha=1.4, vg_n=1.6,
+                              vg_he=0.02, theta_s=0.43, theta_r=0.05, k_sat=1e-5)
+    grid = with_heat_surface(Grid.build(
+        dem, 2.0, soil, total_depth=total_depth, free_catchment_runoff=False,
+        free_bottom_drainage=False, free_lateral_drainage=False, device=device))
+    water = initialize_balance(grid, params, WaterState.initialize(
+        grid, params, matric_potential=-2.0, device=device))
+    heat, boundary = initial_heat(grid, params, water, 283.15,
+                                  air_temperature=298.15, rel_humidity=50.0,
+                                  wind_speed=2.0, net_irradiance=300.0)
+    return grid, water, heat, boundary
+
+
+# name -> (parameters, temperature tolerance [K], head tolerance [m]) of
+# the small coupled hours held card against CPU
+SMALL_COUPLED_CONFIGS = {
+    "f64_vapor": (lambda: SolverParameters(heat_vapor=True), 1e-6, 1e-6),
+    "frozen_vapor": (lambda: SolverParameters.fast_f32(
+        heat_vapor=True, heat_frozen_props=True), 1e-3, 1e-4),
+}
+
+
+def small_coupled_hour(params: SolverParameters, device):
+    """One coupled hour of :func:`heat_column`; returns ``(water, heat,
+    counts)`` with the coupled step's counts of that hour."""
+    grid, water, heat, boundary = heat_column(params, device)
+    C.reset_counts()
+    water, heat = C.compute_period_coupled(grid, params, water, heat,
+                                           boundary, 3600.0)
+    return water, heat, C.counts()

@@ -5,7 +5,8 @@ PyTorch counterpart of ``criteria3d_tpu/solver/step.py``
 cpusolver.cpp:143-468,672-703, and evaluateWaterBalance,
 water.cpp:165-227): the float64 parity path and the float32 psi-carry path,
 with per-sweep Jacobi, the bundled Jacobi kernel or conjugate gradient as
-the inner solver, and the per-link flow accounting.
+the inner solver, the per-link flow accounting, and the heat-coupling
+hooks that solver/coupled.py passes to every Picard iteration.
 
 The JAX package runs the nested loops (period -> step retry -> Picard ->
 inner solve) on the device inside ``lax.while_loop``s. Here they are Python
@@ -58,17 +59,9 @@ def _is_fast(params: SolverParameters) -> bool:
     return params.sweep_dtype is not None and params.sweep_dtype != params.dtype
 
 
-def check_supported(params: SolverParameters, extra_flux_fn=None,
-                    boundary_flux_fn=None) -> None:
-    """Raise for a configuration this port does not run:
-    ``NotImplementedError`` for the heat-coupling hooks (they come with the
-    heat and coupling slice), ``ValueError`` for an unknown sweep dtype,
-    inner solver or CG preconditioner."""
-    if extra_flux_fn is not None or boundary_flux_fn is not None:
-        raise NotImplementedError(
-            "extra_flux_fn / boundary_flux_fn (the heat-coupling water "
-            "fluxes) are not ported yet: they come with the heat and "
-            "coupling slice (ROADMAP.md queue A, heat and coupling)")
+def check_supported(params: SolverParameters) -> None:
+    """Raise ``ValueError`` for a configuration no solver runs: an unknown
+    sweep dtype, inner solver or CG preconditioner."""
     if params.sweep_dtype not in (None, torch.float32, torch.float64):
         raise ValueError(f"sweep_dtype={params.sweep_dtype}: float32, float64 "
                          "or None")
@@ -276,7 +269,8 @@ class _ApproxCarry:
 def restore_best_step(grid: Grid, params: SolverParameters,
                       h_r: torch.Tensor, h_old: torch.Tensor,
                       sink_source: torch.Tensor, pond: torch.Tensor,
-                      prev_storage: torch.Tensor, dt: float, approx: int):
+                      prev_storage: torch.Tensor, dt: float, approx: int,
+                      boundary_flux_fn=None):
     """restoreBestStep (water.cpp:253-267): saturation, conductivity,
     boundary flows and balance of the best iterate ``h_r``, without the
     linear system; returns ``(h_r, se_r, k_r, flow_r, rate_r, balance)``.
@@ -284,13 +278,15 @@ def restore_best_step(grid: Grid, params: SolverParameters,
     On the fast path ``h_r``/``h_old`` are float32 psi and the fused
     assembly recomputes flows and k (its stencil is discarded); on the
     float64 path capacity, boundary flows and balance are recomputed.
-    Restores are rare: ``restore_best_step.count`` counts them (reset it to
-    0 before a run)."""
+    ``boundary_flux_fn`` (the heat-coupling boundary hook) joins the flows
+    on either path. Restores are rare: ``restore_best_step.count`` counts
+    them (reset it to 0 before a run)."""
     restore_best_step.count += 1
     if _is_fast(params):
         se_r = W.compute_se_psi(grid, params, h_r)
         _, flow_r, rate_r, k_r = W.assemble_fast(
-            grid, params, h_r, h_old, se_r, sink_source, pond, approx, dt)
+            grid, params, h_r, h_old, se_r, sink_source, pond, approx, dt,
+            boundary_flux_fn=boundary_flux_fn)
         bal = W.current_mass_balance_psi(grid, params, h_r, se_r, flow_r,
                                          prev_storage, dt)
     else:
@@ -298,6 +294,10 @@ def restore_best_step(grid: Grid, params: SolverParameters,
         _, k_r = W.compute_capacity(grid, params, h_r, h_old, se_r)
         flow_r, rate_r = W.update_boundary_water(
             grid, params, h_r, h_old, k_r, sink_source, pond, dt)
+        if boundary_flux_fn is not None:
+            br_r = boundary_flux_fn(h_r - grid.z, dt)
+            flow_r = flow_r + br_r
+            rate_r = rate_r + br_r
         bal = W.current_mass_balance(grid, params, h_r, se_r, flow_r,
                                      prev_storage, dt)
     return h_r, se_r, k_r, flow_r, rate_r, bal
@@ -310,13 +310,22 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
                         h: torch.Tensor, h_old: torch.Tensor,
                         se: torch.Tensor, sink_source: torch.Tensor,
                         pond: torch.Tensor, prev_storage: torch.Tensor,
-                        dt: float, dt_curr: float) -> _ApproxCarry:
+                        dt: float, dt_curr: float, extra_flux_fn=None,
+                        boundary_flux_fn=None) -> _ApproxCarry:
     """One attempt at time step ``dt`` (waterApproximationLoop,
     cpusolver.cpp:392-468). On the fast path ``h``/``h_old``/``se`` are
     the float32 psi-carry fields of the attempt's start and the whole loop
     runs in that representation; on the float64 path they are total heads
     and the loop runs compute_capacity + update_boundary_water +
-    assemble_system."""
+    assemble_system.
+
+    The heat-coupling hooks are re-evaluated at every Picard iteration
+    from SIGNED psi (float32 on the fast path, float64 otherwise):
+    ``extra_flux_fn(psi, k)`` (the invariantFluxes mechanism,
+    water.cpp:329-341, cpusolver.cpp:388) enters the RHS only;
+    ``boundary_flux_fn(psi, dt)`` (the HeatSurface evaporative sink,
+    water.cpp:708-747) enters the RHS and the balance, and the restore
+    branch too. ``dt`` reaches it as a Python float."""
     fast = _is_fast(params)
     dev = h.device
     zero = torch.zeros((), dtype=params.dtype, device=dev)
@@ -373,7 +382,7 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
             (c.h, c.se, c.k, c.water_flow, c.boundary_rate,
              c.balance) = restore_best_step(grid, params, c.best_h, h_old,
                                             sink_source, pond, prev_storage,
-                                            dt, approx)
+                                            dt, approx, boundary_flux_fn)
         else:
             c.balance = (storage, sink, mbe, mbr)
         c.result, c.dt_curr = result, dt_new
@@ -386,14 +395,23 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
                 # stencil)
                 system, flow, rate, k = W.assemble_fast(
                     grid, params, c.h, h_old, c.se, sink_source, pond, approx,
-                    dt)
+                    dt, extra_flux_fn=extra_flux_fn,
+                    boundary_flux_fn=boundary_flux_fn)
             else:
                 capacity, k = W.compute_capacity(grid, params, c.h, h_old,
                                                  c.se)
                 flow, rate = W.update_boundary_water(
                     grid, params, c.h, h_old, k, sink_source, pond, dt)
-                system = W.assemble_system(grid, params, c.h, h_old, k, flow,
-                                           capacity, pond, approx, dt)
+                if boundary_flux_fn is not None or extra_flux_fn is not None:
+                    psi64 = c.h - grid.z
+                if boundary_flux_fn is not None:
+                    br = boundary_flux_fn(psi64, dt)
+                    flow = flow + br
+                    rate = rate + br
+                flow_rhs = flow if extra_flux_fn is None else \
+                    flow + extra_flux_fn(psi64, k)
+                system = W.assemble_system(grid, params, c.h, h_old, k,
+                                           flow_rhs, capacity, pond, approx, dt)
         courant = host_read(system.courant)
 
         if courant >= 1.01 and dt > params.delta_t_min:
@@ -467,10 +485,11 @@ def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
 
     ``dt_curr`` is ``state.dt_curr`` already on the host. Returns
     ``(state, dt_accepted, (n_attempts, n_approx, n_sweeps),
-    boundary_rate, dt_curr)`` with the host copy of the new step size. The
-    heat-coupling hooks are the JAX function's and raise
-    ``NotImplementedError`` until the heat slice."""
-    check_supported(params, extra_flux_fn, boundary_flux_fn)
+    boundary_rate, dt_curr)`` with the host copy of the new step size;
+    ``boundary_rate`` is the last assembly's, which the heat boundary of
+    the coupled step reads. The heat-coupling hooks go to every Picard
+    iteration (see :func:`_approximation_loop`)."""
+    check_supported(params)
     dtype = params.dtype
     fast = _is_fast(params)
     mask, z = grid.mask, grid.z
@@ -486,12 +505,14 @@ def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
             se_seed = W.compute_se_psi(grid, params, psi_seed)
             out = _approximation_loop(
                 grid, params, psi_seed, psi_seed, se_seed, st.sink_source,
-                st.pond, st.balance_prev.storage, dt, dt_curr)
+                st.pond, st.balance_prev.storage, dt, dt_curr,
+                extra_flux_fn, boundary_flux_fn)
         else:
             se = W.compute_se(grid, params, st.h)
             out = _approximation_loop(
                 grid, params, st.h, h_old, se, st.sink_source, st.pond,
-                st.balance_prev.storage, dt, dt_curr)
+                st.balance_prev.storage, dt, dt_curr,
+                extra_flux_fn, boundary_flux_fn)
 
         accepted = out.result == ACCEPTED
         # NAN is fatal; a RUNNING leak is treated as fatal too

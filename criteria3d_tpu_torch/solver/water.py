@@ -445,12 +445,13 @@ def assemble_fast(grid: Grid, params: SolverParameters,
     returns ``(system, water_flow, boundary_rate, k)`` in float32 with a
     float64 ``system.courant``. ``approx`` is the Picard iteration index and
     ``dt`` the step [s] (a number or a 0-d tensor).
+
+    The heat-coupling hooks receive SIGNED psi: ``boundary_flux_fn(psi,
+    dt)`` is a boundary flow (the HeatSurface evaporative sink) added to
+    the boundary rate, so it enters the RHS and the balance;
+    ``extra_flux_fn(psi, k)`` (the thermal water flows) enters the RHS
+    only. Both are cast to the sweep dtype.
     """
-    if extra_flux_fn is not None or boundary_flux_fn is not None:
-        raise NotImplementedError(
-            "extra_flux_fn / boundary_flux_fn (the heat-coupling water "
-            "fluxes) are not ported yet: they come with the heat and "
-            "coupling slice (ROADMAP.md queue A, heat and coupling)")
     sd = params.sweep_dtype
     dev = psi.device
     mask = grid.mask
@@ -583,6 +584,10 @@ def assemble_fast(grid: Grid, params: SolverParameters,
         rate = torch.where(bt == BoundaryType.CULVERT, culvert_rate, rate)
     rate = torch.where(torch.abs(rate) < DBL_EPSILON, 0.0, rate)
     rate = torch.where(mask, rate, 0.0)
+    if boundary_flux_fn is not None:
+        # per-iteration boundary flow (HeatSurface evaporative water sink,
+        # water.cpp:708-747): enters RHS and balance like any boundary rate
+        rate = rate + boundary_flux_fn(psi, dt).to(sd)
     water_flow = flow + rate
 
     # --- vertical conductances (offset-space infiltration) --------------
@@ -678,8 +683,15 @@ def assemble_fast(grid: Grid, params: SolverParameters,
     diag = capacity / dt32 + sum_a
     diag = torch.where(mask, diag, 1.0)
 
+    # RHS-only extra flux (the invariantFluxes mechanism,
+    # cpusolver.cpp:388): the thermal water flows enter b but not the
+    # balance sums (water.cpp:130-141)
+    rhs_flow = water_flow
+    if extra_flux_fn is not None:
+        rhs_flow = water_flow + extra_flux_fn(psi, k).to(sd)
+
     vd_down = torch.roll(vd32, -1, dims=0)
-    b = (capacity / dt32) * psi_old + water_flow
+    b = (capacity / dt32) * psi_old + rhs_flow
     b = b + a_up * vd32 - a_down * vd_down
     for idx in range(8):
         b = b + a_lat[idx] * dz_lat32[idx]

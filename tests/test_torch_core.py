@@ -242,14 +242,19 @@ def test_grid_to_device_keeps_fields():
 
 def test_port_imports_no_jax():
     """A fresh interpreter runs the port's CPU entry points (grid, state,
-    one hour of the bundled-Jacobi path) without loading JAX or the JAX
-    package."""
+    one hour of the bundled-Jacobi path, one coupled water + heat step on a
+    tiny column) without loading JAX or the JAX package."""
     code = textwrap.dedent("""
         import dataclasses, sys
         import numpy as np, torch
         import criteria3d_tpu_torch as T
-        from criteria3d_tpu_torch import convert
-        from criteria3d_tpu_torch.solver import jacobi_bundle, shifts, step, water
+        from criteria3d_tpu_torch import convert, problems
+        from criteria3d_tpu_torch.solver import (coupled, heat, jacobi_bundle,
+                                                 shifts, step, water)
+        pc = T.SolverParameters(heat_vapor=True)
+        g, w, h, b = problems.heat_column(pc, "cpu", n=2)
+        w, h, dt = T.compute_step_coupled(g, pc, w, h, b, 600.0)
+        assert dt > 0 and bool(torch.isfinite(h.t).all())
         n = 6
         r, c = np.mgrid[0:n, 0:n]
         dem = 100.0 + (n - 1 - r) * 0.5 + np.abs(c - n // 2) * 0.8
@@ -286,6 +291,8 @@ def test_entry_points_default_to_cuda():
         T.Grid.build(dem, 10.0, soil_cpu, total_depth=0.4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.SoilFields.uniform(dem.shape, **SOIL)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.HeatBoundary.uniform(dem.shape)
     grid = T.Grid.build(dem, 10.0, soil_cpu, total_depth=0.4, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.WaterState.initialize(grid, T.SolverParameters(), matric_potential=-1.0)

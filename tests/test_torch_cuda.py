@@ -1,6 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
 tiled bundled-Jacobi design against the per-sweep one, and small hours of
-the float64 and CG paths on the card against the CPU path. Every test
+the float64, CG and coupled water + heat paths on the card against the CPU
+path. Every test
 here carries the ``cuda`` marker and skips where there is no card; the
 file imports neither JAX nor the JAX package, so it runs on a machine
 without them:
@@ -163,3 +164,27 @@ def test_small_hour_on_card_matches_cpu(config):
         scale = float(op.link_flow_sum.abs().max())
         assert scale > 0
         assert float((oc.link_flow_sum.cpu() - op.link_flow_sum).abs().max()) < 1e-3 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["f64_vapor", "frozen_vapor"])
+def test_small_coupled_hour_on_card_matches_cpu(config):
+    """chip_smoke.py phase 3f as a test: a coupled water + heat hour of the
+    6 x 6 heat column on the card and on the CPU -- float64 with vapor, and
+    fast_f32 with vapor and heat_frozen_props: the same water steps and
+    heat sub-steps; T within 1e-6 K (f64) or 1e-3 K, heads within 1e-6 m
+    or 1e-4 m; every output on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only on the card")
+    from criteria3d_tpu_torch.problems import (SMALL_COUPLED_CONFIGS,
+                                               small_coupled_hour)
+    make, t_tol, h_tol = SMALL_COUPLED_CONFIGS[config]
+    params = make()
+    wc, hc, cc = small_coupled_hour(params, "cuda")
+    wp, hp, cp = small_coupled_hour(params, "cpu")
+    for key in ("steps", "attempts", "approximations", "chunks",
+                "substeps_accepted", "substeps_rejected"):
+        assert cc[key] == cp[key], key
+    assert hc.t.device.type == "cuda" and wc.h.device.type == "cuda"
+    assert float((hc.t.cpu() - hp.t).abs().max()) < t_tol
+    assert float((wc.h.cpu() - wp.h).abs().max()) < h_tol

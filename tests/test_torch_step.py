@@ -121,22 +121,31 @@ def test_host_syncs_are_counted():
 
 @pytest.mark.parametrize("config", ["extra_flux", "f64_hooks"])
 def test_unported_configurations_raise(config):
-    """What the port does not run yet fails loudly; nothing falls back.
-    The heat-coupling hooks come with the heat slice: ``assemble_fast``
-    refuses them on the fast path, and the step (the entry that
-    solver/coupled.py calls with them) refuses them on the float64 path."""
+    """What no solver runs fails loudly; nothing falls back. The
+    heat-coupling hooks, refused before the heat slice, now run:
+    ``assemble_fast`` takes them on the fast path and the step (the entry
+    solver/coupled.py calls with them) on the float64 path, and hooks that
+    add nothing give the hook-free result bit for bit. An unknown sweep
+    dtype, inner solver or CG preconditioner still raises ``ValueError``."""
     _, tg = build_grids(valley_dem(6), total_depth=0.4)
     p = (T.SolverParameters.fast_f32(use_pallas=True) if config == "extra_flux"
          else T.SolverParameters())
     state = T.initialize_balance(tg, p, T.WaterState.initialize(
         tg, p, matric_potential=-1.0, device="cpu"))
-    hooks = (dict(extra_flux_fn=lambda psi, k: torch.zeros_like(psi)),
-             dict(boundary_flux_fn=lambda psi, dt: psi))
-    for kw in hooks:
-        with pytest.raises(NotImplementedError):
-            if config == "extra_flux":
-                psi = torch.zeros(tg.shape, dtype=torch.float32)
-                TW.assemble_fast(tg, p, psi, psi, psi, state.sink_source,
-                                 state.pond, 0, 60.0, **kw)
-            else:
-                TSt._compute_step(tg, p, state, 600.0, 600.0, **kw)
+    hooks = dict(extra_flux_fn=lambda psi, k: torch.zeros_like(psi),
+                 boundary_flux_fn=lambda psi, dt: torch.zeros_like(psi))
+    if config == "extra_flux":
+        psi = torch.where(tg.mask, -1.0, 0.0).to(torch.float32)
+        se = TW.compute_se_psi(tg, p, psi)
+        args = (tg, p, psi, psi, se, state.sink_source, state.pond, 0, 60.0)
+        with_hooks, plain = TW.assemble_fast(*args, **hooks), TW.assemble_fast(*args)
+        assert all(torch.equal(a, b) for a, b in zip(with_hooks[0], plain[0]))
+    else:
+        with_hooks = TSt._compute_step(tg, p, state, 600.0, 600.0, **hooks)
+        plain = TSt._compute_step(tg, p, state, 600.0, 600.0)
+        assert with_hooks[1:3] == plain[1:3]
+        assert torch.equal(with_hooks[0].h, plain[0].h)
+    for bad in (dict(inner_solver="gmres"), dict(sweep_dtype=torch.float16),
+                dict(inner_solver="cg", cg_precond="ilu")):
+        with pytest.raises(ValueError):
+            TSt._compute_step(tg, dataclasses.replace(p, **bad), state, 600.0, 600.0)
