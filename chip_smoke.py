@@ -51,16 +51,41 @@ Phases (any failed check exits non-zero before the last line):
    port's CPU path, float64 with vapor and ``fast_f32`` frozen with vapor:
    the same water steps and heat sub-steps, T within 1e-6 K / 1e-3 K,
    heads within 1e-6 m / 1e-4 m;
+3g. the hourly model cycle (``Criteria3DModel.run_hour``) at full size on
+   the same catchment under ``fast_f32()`` with snow, crop, evaporation,
+   interception and cracking, slope and aspect from the DEM: six hours of a
+   cold day (2023-03-21, hours 6-11: the sun rising, snow, rain on the
+   pack, a dry late morning), each with its wall, host syncs, solver
+   stats, MBR and catchment means; checks every output and state on the
+   card, |MBR| < 2e-3, radiation finite, 0 before sunrise and within
+   [0, 1400] W/m2, SWE >= 0 and a pack after hour 7, ET0 >= 0, no bundle
+   launch; then the peak memory and one more hour profiled. If hours 6-8
+   take more than 50 s, hours 9-11 run on a 384 box;
+3h. one coupled model hour (``compute_heat`` under
+   ``fast_f32(heat_vapor=True, heat_frozen_props=True)``, every layer-1
+   node a HeatSurface) at full size, hour 10 from a fresh model: water and
+   heat counts and MBRs, wall, host syncs, heat-node T; 3e's checks, the
+   water MBR in its |sink| form (a dry hour's net sink is negative, and the
+   coupled period's own signed-sink MBR then divides by 0.001 m3);
+3i. one model hour (hour 8) under ``fast_f32(use_pallas=True)``: the model
+   cycle launches the CUDA kernel (launches x K = sweeps), |MBR| < 2e-3;
+3j. ``run_period`` over the whole day on a 32 box on the card and on the
+   CPU, under ``SolverParameters()`` and ``fast_f32()``, saving the daily
+   state: the daily MBR, dt_curr, heads, degree days, LAI and SWE agree,
+   and ``load_state`` of the card's rasters gives its heads to float32
+   rounding;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
-   sweeps it keeps on chip, its modelled bytes and rate, and the per-sweep
-   design's time in the same run;
+   sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
+   design's time in the same run and its launches in the 3i model hour;
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
 the step's ``c3d.assemble`` and ``c3d.inner_solve`` ranges, the heat
-sub-steps' ``c3d.heat_assemble`` and ``c3d.heat_solve`` ranges, and the
-rest. It imports nothing of JAX and nothing of the JAX package.
+sub-steps' ``c3d.heat_assemble`` and ``c3d.heat_solve`` ranges, the model
+cycle's ``c3d.radiation`` (shadow march included), ``c3d.snow``,
+``c3d.et0`` and ``c3d.sinks`` ranges, and the rest. It imports nothing of
+JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -150,11 +175,24 @@ def water_hour(grid, params, state):
     return lambda: compute_period_stats(grid, params, state, 3600.0)
 
 
+def layer_ranges() -> tuple:
+    """The record_function ranges that name the layers of an hour: the
+    water step's assembly and inner solve, the heat sub-steps' assembly and
+    solve, and the model cycle's radiation, snow, ET0 and sinks."""
+    from criteria3d_tpu_torch.model import ET0_RANGE
+    from criteria3d_tpu_torch.physics.crop import SINKS_RANGE
+    from criteria3d_tpu_torch.physics.radiation import RADIATION_RANGE
+    from criteria3d_tpu_torch.physics.snow import SNOW_RANGE
+    from criteria3d_tpu_torch.solver.heat import HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE
+    from criteria3d_tpu_torch.solver.step import ASSEMBLE_RANGE, SOLVE_RANGE
+    return (ASSEMBLE_RANGE, SOLVE_RANGE, HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE,
+            RADIATION_RANGE, SNOW_RANGE, ET0_RANGE, SINKS_RANGE)
+
+
 def breakdown(label, run, wall_s: float):
     """``run()`` (one more hour) under torch.profiler: device time by
-    kernel, by layer (the kernels launched inside the step's assembly and
-    inner-solve ranges, and the heat sub-steps' assembly and solve ranges)
-    and the device's idle share; returns ``(busy_s, {kernel name:
+    kernel, by layer (the kernels launched inside the ranges of
+    :func:`layer_ranges`) and the device's idle share; returns ``(busy_s, {kernel name:
     seconds}, {layer: seconds})`` (0.0, {} and {} when the profiler saw no
     device activity).
 
@@ -168,9 +206,7 @@ def breakdown(label, run, wall_s: float):
     time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from criteria3d_tpu_torch.solver.heat import HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE
-    from criteria3d_tpu_torch.solver.step import ASSEMBLE_RANGE, SOLVE_RANGE
-    range_names = (ASSEMBLE_RANGE, SOLVE_RANGE, HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE)
+    range_names = layer_ranges()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         run()
@@ -309,7 +345,6 @@ def coupled_hour(label, grid, params, water0, heat0, boundary):
     import torch
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.solver import coupled as C
-    from criteria3d_tpu_torch.solver import heat as H
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -323,15 +358,7 @@ def coupled_hour(label, grid, params, water0, heat0, boundary):
     counts, syncs, launches = C.counts(), host_read.count, JB.jacobi_bundle.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     mbr = float(w.balance_whole.mbr)
-    # whole-period heat balance (bench.py:279-282)
-    st_end = H.heat_storage(grid, params, h, w)
-    heat_mbr = float((st_end - h.storage_whole - h.sink_whole)
-                     / torch.clamp_min(torch.abs(h.sink_whole), 1.0))
-    heat_mask = grid.mask.clone()
-    heat_mask[0] = False
-    t_nodes = h.t[heat_mask]
-    t_min, t_max = float(t_nodes.min()), float(t_nodes.max())
-    cold = float((t_nodes < 273.15).double().mean())
+    heat_mbr, t_min, t_max, cold = heat_outcome(label, grid, params, w, h)
     print(f"# {label}: water steps, attempts, approximations, CG iterations = "
           f"({counts['steps']}, {counts['attempts']}, {counts['approximations']}, "
           f"{counts['inner_iterations']}); heat chunks {counts['chunks']}, sub-steps "
@@ -340,16 +367,40 @@ def coupled_hour(label, grid, params, water0, heat0, boundary):
           f"peak memory {peak:.2f} GiB; water whole-period MBR {mbr}; heat MBR "
           f"{heat_mbr}; heat-node T {t_min}..{t_max} K, share below 273.15 K {cold}; "
           f"bundle launches {launches}", flush=True)
-    for name, t in list(tensors_of(w)) + list(tensors_of(h)):
+    check_coupled(label, list(tensors_of(w)) + list(tensors_of(h)), counts, launches,
+                  mbr, heat_mbr, t_min, t_max)
+    return dict(counts=counts, syncs=syncs, wall_s=wall_s, peak_gib=peak, mbr=mbr,
+                heat_mbr=heat_mbr, t_min=t_min, t_max=t_max, cold_share=cold)
+
+
+def heat_outcome(label, grid, params, water, heat):
+    """The whole-period heat MBR (bench.py:279-282), the heat nodes' T
+    range [K] and their share below 273.15 K."""
+    import torch
+    from criteria3d_tpu_torch.solver import heat as H
+    st_end = H.heat_storage(grid, params, heat, water)
+    heat_mbr = float((st_end - heat.storage_whole - heat.sink_whole)
+                     / torch.clamp_min(torch.abs(heat.sink_whole), 1.0))
+    heat_mask = grid.mask.clone()
+    heat_mask[0] = False
+    t_nodes = heat.t[heat_mask]
+    check(bool(torch.isfinite(t_nodes).all()), f"{label}: non-finite heat-node temperatures")
+    return (heat_mbr, float(t_nodes.min()), float(t_nodes.max()),
+            float((t_nodes < 273.15).double().mean()))
+
+
+def check_coupled(label, tensors, counts, launches, mbr, heat_mbr, t_min, t_max):
+    """The checks of a coupled hour: every output on the card, no bundle
+    launch, a heat sub-step ran, |water MBR| < 2e-3, a finite heat MBR and
+    heat-node temperatures within [200, 330] K."""
+    for name, t in tensors:
         check(t.device.type == "cuda", f"{label}: output {name} is on {t.device}")
     check(launches == 0, f"{label}: the CG coupled hour launched {launches} bundles")
     check(counts["heat_sweeps"] > 0 and counts["chunks"] > 0, f"{label}: no heat sub-step ran")
     check(abs(mbr) < 2e-3, f"{label}: |water whole-period MBR| {mbr} >= 2e-3")
     check(math.isfinite(heat_mbr), f"{label}: heat MBR {heat_mbr} is not finite")
-    check(bool(torch.isfinite(t_nodes).all()) and 200.0 <= t_min and t_max <= 330.0,
+    check(200.0 <= t_min and t_max <= 330.0,
           f"{label}: heat-node temperatures {t_min}..{t_max} K")
-    return dict(counts=counts, syncs=syncs, wall_s=wall_s, peak_gib=peak, mbr=mbr,
-                heat_mbr=heat_mbr, t_min=t_min, t_max=t_max, cold_share=cold)
 
 
 def small_coupled_card_vs_cpu(name: str):
@@ -372,6 +423,266 @@ def small_coupled_card_vs_cpu(name: str):
     check(dT < t_tol, f"small coupled hour {name}: T differs by {dT} K")
     check(dh < h_tol, f"small coupled hour {name}: heads differ by {dh} m")
     return dT, dh
+
+
+# the model cycle's day: 2023-03-21 (problems.model_day_forcing)
+MODEL_DATE = (2023, 3, 21)
+MODEL_MEANS = ("global_radiation", "et0", "swe", "snow_melt", "evaporation",
+               "transpiration")
+
+
+def model_tensors(model):
+    """Every tensor of a model's state, by name."""
+    yield from (("water." + n, t) for n, t in tensors_of(model.water))
+    for part in ("snow", "heat"):
+        if getattr(model, part) is not None:
+            yield from ((f"{part}.{n}", t) for n, t in tensors_of(getattr(model, part)))
+    for name in ("lai", "degree_days", "canopy_storage", "slope_deg", "aspect_deg",
+                 "total_evaporation_mm", "total_transpiration_mm",
+                 "total_precipitation_m3"):
+        yield name, getattr(model, name)
+
+
+def model_hour(label, model, hour, card):
+    """One ``run_hour`` of problems.model_day_forcing with the bundle
+    launches and host reads set to 0 just before it and read just after.
+    Prints the hour's wall, host syncs, solver stats, MBR, catchment means
+    and shadowed share; checks every output and state tensor on the card,
+    |MBR| < 2e-3, radiation finite within [0, 1400] W/m2 (0 before
+    sunrise), SWE >= 0, ET0 >= 0. Returns a dict of what it measured."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.model import masked_mean
+    from criteria3d_tpu_torch.problems import model_day_forcing
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    forcing = model_day_forcing(model.grid, None, hour)
+    torch.cuda.synchronize()
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    t0 = time.time()
+    out = model.run_hour(forcing, *MODEL_DATE, hour)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    launches, syncs = JB.jacobi_bundle.launches, host_read.count
+    valid = model.grid.mask[0]
+    means = {k: float(masked_mean(out[k], valid, device=True)) for k in MODEL_MEANS}
+    shaded = float(masked_mean(out["shadow"].double(), valid, device=True))
+    mbr = float(out["mbr"])
+    glob = out["global_radiation"]
+    g_min, g_max = float(glob.min()), float(glob.max())
+    print(f"# {label} hour {hour} ({card}): wall {wall_s} s, host syncs {syncs}, "
+          f"stats {out.get('solver_stats')}, MBR {mbr}, bundle launches {launches}; "
+          "catchment means " + ", ".join(f"{k} {v}" for k, v in means.items())
+          + f"; max SWE {float(out['swe'].max())} mm; global radiation "
+          f"{g_min}..{g_max} W/m2; shadowed share of valid cells {shaded}", flush=True)
+    for name, t in list(model_tensors(model)) + [
+            (k, v) for k, v in out.items() if isinstance(v, torch.Tensor)]:
+        check(t.device.type == "cuda", f"{label} hour {hour}: {name} is on {t.device}")
+    check(abs(mbr) < 2e-3, f"{label} hour {hour}: |MBR| {mbr} >= 2e-3")
+    check(bool(torch.isfinite(glob).all()) and g_min >= 0.0 and g_max <= 1400.0,
+          f"{label} hour {hour}: global radiation {g_min}..{g_max} W/m2")
+    if hour <= 6:
+        check(g_max == 0.0, f"{label} hour {hour}: radiation {g_max} before sunrise")
+    check(float(out["swe"].min()) >= 0.0, f"{label} hour {hour}: negative SWE")
+    check(float(out["et0"].min()) >= 0.0, f"{label} hour {hour}: negative ET0")
+    return dict(out=out, wall_s=wall_s, syncs=syncs, launches=launches, mbr=mbr,
+                means=means, shaded=shaded)
+
+
+def model_hours(label, model, hours, card):
+    """:func:`model_hour` for each hour in turn; checks a snow pack after
+    hour 7 and no bundle launch. Returns the per-hour dicts."""
+    runs = []
+    for hour in hours:
+        r = model_hour(label, model, hour, card)
+        check(r["launches"] == 0, f"{label} hour {hour}: {r['launches']} bundle launches")
+        if hour == 7:
+            check(float(r["out"]["swe"].max()) > 0.0, f"{label}: no snow after hour 7")
+        runs.append(r)
+    return runs
+
+
+def model_coupled_hour(label, model, hour, card):
+    """One coupled ``run_hour`` (compute_heat) with the coupled step's
+    counts, the bundle launches and the host reads set to 0 just before
+    it; the checks of :func:`coupled_hour`, the water MBR in its |sink|
+    form. Returns what it measured."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.problems import model_day_forcing
+    from criteria3d_tpu_torch.solver import coupled as C
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    forcing = model_day_forcing(model.grid, None, hour)
+    grid, params = model.grid, model.params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    C.reset_counts()
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    t0 = time.time()
+    out = model.run_hour(forcing, *MODEL_DATE, hour)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    counts, syncs, launches = C.counts(), host_read.count, JB.jacobi_bundle.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    w, h = model.water, model.heat
+    # the coupled period's own MBR divides by max(0.001, sink) without abs
+    # (the JAX package's coupled.py:269): in a dry hour the net sink is
+    # evaporation, negative, and that MBR is mbe / 0.001 m3; the mass gate
+    # is held with |sink|, as compute_period_stats closes a water period
+    mbr_signed = float(out["mbr"])
+    bw = w.balance_whole
+    mbr = float(bw.mbe / torch.clamp_min(torch.abs(bw.sink_source), 0.001))
+    heat_mbr, t_min, t_max, _ = heat_outcome(label, grid, params, w, h)
+    print(f"# {label} hour {hour} ({card}): water steps, attempts, approximations, CG "
+          f"iterations = ({counts['steps']}, {counts['attempts']}, "
+          f"{counts['approximations']}, {counts['inner_iterations']}); heat chunks "
+          f"{counts['chunks']}, sub-steps accepted {counts['substeps_accepted']} "
+          f"rejected {counts['substeps_rejected']}, heat sweeps {counts['heat_sweeps']}; "
+          f"host syncs {syncs}; wall {wall_s} s; peak memory {peak:.2f} GiB; water "
+          f"whole-period MBR {mbr} (|sink| form; the coupled period's signed-sink "
+          f"MBR {mbr_signed}, sink {float(bw.sink_source)} m3); heat MBR {heat_mbr}; "
+          f"heat-node T {t_min}..{t_max} K; bundle launches {launches}", flush=True)
+    check_coupled(label, list(model_tensors(model)) + [
+        (k, v) for k, v in out.items() if isinstance(v, torch.Tensor)],
+        counts, launches, mbr, heat_mbr, t_min, t_max)
+    return dict(counts=counts, syncs=syncs, wall_s=wall_s, peak_gib=peak, mbr=mbr,
+                mbr_signed=mbr_signed, heat_mbr=heat_mbr, t_min=t_min, t_max=t_max)
+
+
+# 3j: preset -> tolerances card vs CPU of the daily MBR [-], heads [m] and
+# SWE [mm]
+DAY_TOLERANCES = {"f64": (1e-8, 1e-6, 1e-6), "fast_f32": (1e-5, 1e-4, 1e-3)}
+
+
+def model_day_card_vs_cpu(name: str, card: str):
+    """phase 3j: ``run_period`` over the whole model day on a 32 box on the
+    card and on the CPU, saving the daily state; the card's rasters read
+    back by ``load_state``. Returns the card's and the CPU's wall [s]."""
+    import datetime
+    import torch
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.io.state_io import load_state, state_dir_name
+    from criteria3d_tpu_torch.problems import model_day_forcing, small_model
+    mbr_tol, h_tol, swe_tol = DAY_TOLERANCES[name]
+    params = SolverParameters() if name == "f64" else SolverParameters.fast_f32()
+    first = datetime.date(*MODEL_DATE)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            m = small_model(params, dev)
+            t0 = time.time()
+            log = m.run_period(first, 1, lambda d, h, g=m.grid: model_day_forcing(g, d, h),
+                               state_save_dir=os.path.join(tmp, dev), save_daily_state=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            runs[dev] = (m, log, time.time() - t0)
+        (mc, lc, wc), (mp, lp, wp) = runs["cuda"], runs["cpu"]
+        d_mbr = abs(lc[0]["mbr"] - lp[0]["mbr"])
+        dh = float((mc.water.h.cpu() - mp.water.h).abs().max())
+        d_swe = float((mc.snow.swe.cpu() - mp.snow.swe).abs().max())
+        lai_rel = float(((mc.lai.cpu() - mp.lai).abs() / mp.lai.abs()).max())
+        path = os.path.join(tmp, "cuda", state_dir_name(*MODEL_DATE, 23))
+        w, _, extras = load_state(path, mc.grid, params)
+    soil = mc.grid.mask.clone()
+    soil[0] = False
+    psi = (mc.water.h - mc.grid.z)[soil]
+    d_file = (w.h[soil] - mc.water.h[soil]).abs()
+    file_ok = bool((d_file <= psi.abs() * 2.0 ** -24 + 1e-12).all())
+    print(f"# model day {name} ({card}): card {wc} s, CPU {wp} s; daily MBR card "
+          f"{lc[0]['mbr']} CPU {lp[0]['mbr']} (|diff| {d_mbr}, tolerance {mbr_tol}); "
+          f"dt_curr {float(mc.water.dt_curr)} / {float(mp.water.dt_curr)}; max |dh| "
+          f"{dh} m (tolerance {h_tol}); max |dSWE| {d_swe} mm (tolerance {swe_tol}); "
+          f"LAI rel {lai_rel}; max SWE {float(mp.snow.swe.max())} mm; rasters read back: "
+          f"max |dh| {float(d_file.max())} m", flush=True)
+    check(d_mbr < mbr_tol, f"model day {name}: daily MBR differs by {d_mbr}")
+    check(float(mc.water.dt_curr) == float(mp.water.dt_curr),
+          f"model day {name}: dt_curr differs")
+    check(dh < h_tol, f"model day {name}: heads differ by {dh} m")
+    check(torch.equal(mc.degree_days.cpu(), mp.degree_days),
+          f"model day {name}: degree days differ")
+    check(lai_rel < 1e-12, f"model day {name}: LAI differs by rel {lai_rel}")
+    check(d_swe < swe_tol, f"model day {name}: SWE differs by {d_swe} mm")
+    check(file_ok and sorted(extras) == ["degreeDays", "lai"] and w.h.is_cuda,
+          f"model day {name}: the saved rasters do not give the heads back")
+    return wc, wp
+
+
+def model_phases(dem, seed: int, card: str) -> dict:
+    """Phases 3g-3j on the catchment ``dem``; returns what they measured
+    (the per-hour walls and host syncs of 3g, its peak memory, 3h's dict,
+    3i's solver stats and bundle launches, 3j's walls)."""
+    import dataclasses
+    import torch
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.model import ModelConfig
+    from criteria3d_tpu_torch.problems import (MODEL_CONFIG, build_model_problem,
+                                               model_day_forcing, synthetic_catchment)
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    K = JB.SWEEPS_PER_BUNDLE
+
+    # ---- 3g. the hourly model cycle at full size -------------------------
+    t_model = time.time()
+    p_model = SolverParameters.fast_f32()
+    cfg = ModelConfig(**MODEL_CONFIG)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model_problem(dem, 4.0, p_model, "cuda", cfg)
+    model_box = "768 box (2,945,852 nodes)"
+    runs_3g = model_hours("model cycle", model, range(6, 9), card)
+    if sum(r["wall_s"] for r in runs_3g) > 50.0:
+        # cut to a 384 box, as the time limit requires
+        full_s = sum(r["wall_s"] for r in runs_3g)
+        del model
+        torch.cuda.empty_cache()
+        model = build_model_problem(synthetic_catchment(seed, n=384, radius=183.0),
+                                    4.0, p_model, "cuda", cfg)
+        model_box = (f"384 box ({model.grid.n_nodes} nodes) for hours 9-11: hours 6-8 "
+                     f"took {full_s} s on the full box")
+        model_hours("model cycle, 384 box", model, range(6, 9), card)
+    runs_3g += model_hours("model cycle", model, range(9, 12), card)
+    peak_model = torch.cuda.max_memory_allocated() / 2**30
+    walls_3g = [r["wall_s"] for r in runs_3g]
+    wall_model = statistics.median(walls_3g)
+    print(f"# model cycle on the {model_box} ({card}): walls {walls_3g} s (median "
+          f"{wall_model}); host syncs {[r['syncs'] for r in runs_3g]}; peak memory "
+          f"{peak_model:.2f} GiB", flush=True)
+    busy_model, _, layers_model = breakdown(
+        "model hour 12", lambda: dataclasses.replace(model).run_hour(
+            model_day_forcing(model.grid, None, 12), *MODEL_DATE, 12), wall_model)
+    check(busy_model > 0.0, "the profiler saw no device activity in the model hour")
+    print(f"# model hour 12 ({card}): device time by layer "
+          + "; ".join(f"{k} {layers_model.get(k, 0.0)} s" for k in layer_ranges()
+                      + ("other",)), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 3h. one coupled model hour at full size --------------------------
+    p_mh = SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=True)
+    model = build_model_problem(dem, 4.0, p_mh, "cuda",
+                                ModelConfig(compute_heat=True, **MODEL_CONFIG))
+    mh = model_coupled_hour("coupled model", model, 10, card)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 3i. one model hour through the CUDA bundle ----------------------
+    model = build_model_problem(dem, 4.0, SolverParameters.fast_f32(use_pallas=True),
+                                "cuda", cfg)
+    r_3i = model_hour("model cycle, bundle", model, 8, card)
+    launches_model = r_3i["launches"]
+    stats_3i = r_3i["out"]["solver_stats"]
+    check(launches_model > 0, "the model hour launched no jacobi_bundle kernel")
+    check(launches_model * K == stats_3i[3],
+          f"model hour: launches {launches_model} x K != sweeps {stats_3i[3]}")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 3j. a whole day on the card against the CPU ---------------------
+    walls_3j = {name: model_day_card_vs_cpu(name, card) for name in DAY_TOLERANCES}
+    model_s = time.time() - t_model
+    print(f"# phases 3g-3j took {model_s} s ({card})", flush=True)
+    return dict(box=model_box, walls=walls_3g, syncs=[r["syncs"] for r in runs_3g],
+                peak_gib=peak_model, coupled=mh, stats_bundle=stats_3i,
+                launches_bundle=launches_model, walls_day=walls_3j, seconds=model_s)
 
 
 def main() -> int:
@@ -539,6 +850,9 @@ def main() -> int:
     for name in ("f64_vapor", "frozen_vapor"):
         small_coupled_card_vs_cpu(name)
 
+    # ---- 3g-3j. the hourly model cycle ------------------------------------
+    mp = model_phases(dem, args.seed, card)
+
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
     runs = {"tiled": [], "per_sweep": []}
@@ -572,6 +886,8 @@ def main() -> int:
         # device time per bundle in the profiled hour, on the catchment's own
         # systems (whose all-masked tiles the kernel skips)
         "ms_in_hour": jacobi_s / launches * 1e3,
+        # launches in the model-cycle hour of phase 3i
+        "launches_model_hour": mp["launches_bundle"],
         "variant": JB.tiled_variant(*inputs),
         "tile": TI,
         "sweeps_on_chip": S,
@@ -584,7 +900,13 @@ def main() -> int:
           f"stats={list(stats64)} mbr={mbr64} wall_s={wall64} "
           f"host_syncs={syncs64}; coupled ({box}) counts={cp['counts']} "
           f"mbr={cp['mbr']} heat_mbr={cp['heat_mbr']} wall_s={cp['wall_s']} "
-          f"host_syncs={cp['syncs']}; script {time.time() - t_start:.1f} s")
+          f"host_syncs={cp['syncs']}; model cycle ({mp['box']}) walls={mp['walls']} "
+          f"host_syncs={mp['syncs']} peak_gib={mp['peak_gib']:.2f}; coupled model hour "
+          f"counts={mp['coupled']['counts']} mbr={mp['coupled']['mbr']} "
+          f"heat_mbr={mp['coupled']['heat_mbr']} wall_s={mp['coupled']['wall_s']}; "
+          f"bundle model hour stats={list(mp['stats_bundle'])} "
+          f"launches={mp['launches_bundle']}; model day card/CPU walls={mp['walls_day']}; "
+          f"phases 3g-3j {mp['seconds']:.1f} s; script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

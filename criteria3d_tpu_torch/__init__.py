@@ -10,7 +10,9 @@ Ported so far: the water solver -- the float64 parity path
 preconditioner (``SolverParameters.fast_f32()``) or the bundled Jacobi
 kernel (``fast_f32(use_pallas=True)``), and per-link flow accounting; soil
 heat and the coupled water + heat step (``solver/heat.py``,
-``solver/coupled.py``). The bundled Jacobi solve runs the CUDA kernel
+``solver/coupled.py``); the hourly model cycle (``model.py``: radiation,
+snow, ET0, interception, cracking and crop from ``physics/``) with its
+state checkpoints (``io/``). The bundled Jacobi solve runs the CUDA kernel
 ``csrc/jacobi_bundle.cu`` on CUDA tensors and its plain PyTorch twin on CPU
 tensors.
 """
@@ -19,6 +21,8 @@ from criteria3d_tpu_torch.core.soil import MeanType, SoilFields, WRCModel
 from criteria3d_tpu_torch.core.grid import BoundaryType, Grid
 from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
                                              WaterState)
+from criteria3d_tpu_torch.model import (Criteria3DModel, HourlyForcing,
+                                        ModelConfig)
 from criteria3d_tpu_torch.solver.coupled import (compute_period_coupled,
                                                  compute_step_coupled)
 from criteria3d_tpu_torch.solver.heat import (HeatBoundary, HeatState,
@@ -34,4 +38,5 @@ __all__ = [
     "compute_period", "compute_period_stats", "initialize_balance",
     "HeatState", "HeatBoundary", "initialize_heat", "heat_storage",
     "compute_step_coupled", "compute_period_coupled",
+    "Criteria3DModel", "HourlyForcing", "ModelConfig",
 ]

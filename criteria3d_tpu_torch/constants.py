@@ -7,13 +7,17 @@ solver-local epsilons of water.cpp).
 
 NODATA = -9999.0
 
-# --- physics (commonConstants.h), used by the heat process ---
+# --- physics (commonConstants.h) ---
 GRAVITY = 9.80665            # [m s-2]
 WATER_DENSITY = 1000.0       # [kg m-3]
 ZEROCELSIUS = 273.15         # [K]
 R_GAS = 8.31447215           # [J K-1 mol-1]
 MH2O = 0.018                 # [kg mol-1] molecular mass of water
 VON_KARMAN = 0.41
+STEFAN_BOLTZMANN = 5.670373e-8    # [W m-2 K-4]
+
+DAY_SECONDS = 86400.0
+HOUR_SECONDS = 3600.0
 
 # --- solver epsilons ---
 EPSILON = 1e-5               # commonConstants.h:252
@@ -24,3 +28,4 @@ DBL_EPSILON = 2.220446049250313e-16
 
 PI = 3.141592653589793
 DEG_TO_RAD = PI / 180.0
+RAD_TO_DEG = 180.0 / PI

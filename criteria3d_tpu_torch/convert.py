@@ -1,11 +1,12 @@
-"""Carry a grid, a water state and the heat state and forcing across from
-plain arrays.
+"""Carry a grid, a water state, the heat state and forcing, and a whole
+hourly model across from plain arrays.
 
-The JAX package's ``Grid``, ``WaterState``, ``HeatState`` and
-``HeatBoundary`` become numpy arrays and
-Python scalars on the caller's side (``np.asarray`` of every field); these
+The JAX package's ``Grid``, ``WaterState``, ``HeatState``, ``HeatBoundary``,
+``SnowState`` and ``Criteria3DModel`` become numpy arrays and Python
+scalars on the caller's side (``np.asarray`` of every field); these
 functions turn them into the port's objects without importing JAX, so that
-both implementations can run from exactly the same inputs.
+both implementations can run from exactly the same inputs (also from the
+same mid-run state).
 """
 
 from __future__ import annotations
@@ -17,12 +18,19 @@ import torch
 
 from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.core.soil import SoilFields
-from criteria3d_tpu_torch.core.state import BalanceData, WaterState
+from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
+                                             WaterState)
 from criteria3d_tpu_torch.device import resolve_device
+from criteria3d_tpu_torch.model import Criteria3DModel, HourlyForcing, ModelConfig
+from criteria3d_tpu_torch.physics.crop import CropParameters
+from criteria3d_tpu_torch.physics.snow import SnowState
 from criteria3d_tpu_torch.solver.heat import HeatBoundary, HeatState
 
 __all__ = ["grid_from_arrays", "state_from_arrays", "heat_state_from_arrays",
-           "heat_boundary_from_arrays", "GRID_META"]
+           "heat_boundary_from_arrays", "snow_state_from_arrays",
+           "forcing_from_arrays",
+           "model_from_arrays", "GRID_META", "MODEL_MAPS",
+           "MODEL_ACCUMULATORS"]
 
 # the Grid fields that are Python scalars, not tensors
 GRID_META = ("has_prescribed", "has_culvert", "cell_size", "n_layers",
@@ -80,3 +88,57 @@ def heat_boundary_from_arrays(arrays: dict, *, device=None) -> HeatBoundary:
     dev = resolve_device(device)
     return HeatBoundary(**{f.name: _tensor(arrays[f.name], dev)
                            for f in dataclasses.fields(HeatBoundary)})
+
+
+# ----------------------------------------------------------------------
+# the hourly model cycle
+# ----------------------------------------------------------------------
+
+def snow_state_from_arrays(arrays: dict, *, device=None) -> SnowState:
+    """A :class:`SnowState` from ``arrays`` (every (R, C) map by name).
+    Dtypes are kept. ``device=None`` means the CUDA card."""
+    dev = resolve_device(device)
+    return SnowState(**{f.name: _tensor(arrays[f.name], dev)
+                        for f in dataclasses.fields(SnowState)})
+
+
+def forcing_from_arrays(arrays: dict, *, device=None) -> HourlyForcing:
+    """:class:`HourlyForcing` with every field a float64 tensor on
+    ``device`` (None means the CUDA card)."""
+    dev = resolve_device(device)
+    return HourlyForcing(**{
+        f.name: torch.as_tensor(np.asarray(arrays[f.name], dtype=np.float64),
+                                device=dev)
+        for f in dataclasses.fields(HourlyForcing)})
+
+
+# the model's map fields carried by model_from_arrays (None stays None)
+MODEL_MAPS = ("lai", "degree_days", "canopy_storage", "slope_deg", "aspect_deg")
+MODEL_ACCUMULATORS = ("total_evaporation_mm", "total_transpiration_mm",
+                      "total_precipitation_m3")
+
+
+def model_from_arrays(arrays: dict, meta: dict, params: SolverParameters,
+                      *, device=None) -> Criteria3DModel:
+    """A :class:`Criteria3DModel` rebuilt from a model's fields as numpy.
+
+    ``arrays`` holds ``grid`` and ``water`` (as :func:`grid_from_arrays` and
+    :func:`state_from_arrays` take them), ``heat`` and ``snow`` (dicts of
+    arrays, or None), ``config`` and ``crop`` (``dataclasses.asdict`` of the
+    model's ModelConfig and CropParameters; ``crop`` may be None), the maps
+    named in :data:`MODEL_MAPS` (arrays or None) and the accumulators named
+    in :data:`MODEL_ACCUMULATORS` (numbers or 0-d arrays); ``meta`` is the
+    grid's scalar fields. ``device=None`` means the CUDA card."""
+    dev = resolve_device(device)
+    heat, snow, crop = arrays.get("heat"), arrays.get("snow"), arrays.get("crop")
+    fields = {name: (None if arrays.get(name) is None
+                     else _tensor(arrays[name], dev)) for name in MODEL_MAPS}
+    fields.update({name: _tensor(arrays[name], dev)
+                   for name in MODEL_ACCUMULATORS})
+    return Criteria3DModel(
+        grid=grid_from_arrays(arrays["grid"], meta, device=dev),
+        params=params, config=ModelConfig(**arrays["config"]),
+        water=state_from_arrays(arrays["water"], device=dev),
+        heat=None if heat is None else heat_state_from_arrays(heat, device=dev),
+        snow=None if snow is None else snow_state_from_arrays(snow, device=dev),
+        crop=None if crop is None else CropParameters(**crop), **fields)

@@ -11,6 +11,10 @@ card tests (``tests/test_torch_cuda.py``).
   hour on the same catchment; :func:`small_coupled_hour` with
   :data:`SMALL_COUPLED_CONFIGS`: a coupled hour of a 6 x 6 heat column, for
   the card against the CPU.
+- :func:`build_model_problem` and :func:`model_day_forcing`: the hourly
+  model cycle on the same catchment (slope and aspect from the DEM) and a
+  cold late-winter day of forcing: snow in the early morning, rain on the
+  pack, then a dry afternoon.
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from criteria3d_tpu_torch.core.grid import BoundaryType, Grid
+from criteria3d_tpu_torch.core.grid import BoundaryType, Grid, slope_aspect
 from criteria3d_tpu_torch.core.soil import SoilFields
 from criteria3d_tpu_torch.core.state import SolverParameters, WaterState
+from criteria3d_tpu_torch.model import Criteria3DModel, HourlyForcing, ModelConfig
+from criteria3d_tpu_torch.physics.snow import SnowState
 from criteria3d_tpu_torch.solver import coupled as C
 from criteria3d_tpu_torch.solver import heat as H
 from criteria3d_tpu_torch.solver.step import (compute_period_stats,
@@ -30,7 +36,9 @@ from criteria3d_tpu_torch.solver.step import (compute_period_stats,
 
 __all__ = ["synthetic_catchment", "build_problem", "small_hour",
            "SMALL_CONFIGS", "build_coupled_problem", "heat_column",
-           "small_coupled_hour", "SMALL_COUPLED_CONFIGS"]
+           "small_coupled_hour", "SMALL_COUPLED_CONFIGS",
+           "catchment_grid", "build_model_problem", "model_day_forcing",
+           "MODEL_CONFIG", "small_model"]
 
 # clay loam of the Ravone study
 CLAY_LOAM = dict(vg_alpha=1.0, vg_n=1.35, vg_he=0.02, theta_s=0.44,
@@ -67,17 +75,23 @@ def synthetic_catchment(seed: int, n: int = 768, cell: float = 4.0,
     return np.where(disc, z, -9999.0)
 
 
-def build_problem(dem, cell, params, device, *, total_depth=0.8,
-                  min_thickness=0.04, max_thickness=0.25,
-                  max_thickness_depth=0.6, soil=None, psi0=-2.0, rain=0.020):
-    """Grid + initial state + uniform rain [m/h] on the surface, as the
-    benchmark builds its storm hour."""
-    grid = Grid.build(dem, cell,
+def catchment_grid(dem, cell, device, *, total_depth=0.8, min_thickness=0.04,
+                   max_thickness=0.25, max_thickness_depth=0.6, soil=None) -> Grid:
+    """The benchmark's grid on ``dem``: clay loam (or ``soil``), 0.8 m of
+    soil in layers of 0.04-0.25 m."""
+    return Grid.build(dem, cell,
                       SoilFields.uniform(dem.shape, device=device,
                                          **(soil or CLAY_LOAM)),
                       total_depth=total_depth, min_thickness=min_thickness,
                       max_thickness=max_thickness,
                       max_thickness_depth=max_thickness_depth, device=device)
+
+
+def build_problem(dem, cell, params, device, *, psi0=-2.0, rain=0.020, **grid_kw):
+    """Grid + initial state + uniform rain [m/h] on the surface, as the
+    benchmark builds its storm hour (``grid_kw``: :func:`catchment_grid`'s
+    layers and soil)."""
+    grid = catchment_grid(dem, cell, device, **grid_kw)
     state = WaterState.initialize(grid, params, matric_potential=psi0,
                                   device=device)
     state = initialize_balance(grid, params, state)
@@ -183,3 +197,83 @@ def small_coupled_hour(params: SolverParameters, device):
     water, heat = C.compute_period_coupled(grid, params, water, heat,
                                            boundary, 3600.0)
     return water, heat, C.counts()
+
+
+# ----------------------------------------------------------------------
+# the hourly model cycle
+# ----------------------------------------------------------------------
+
+# every process the port runs (HYDRALL and RothC are not ported), at
+# ModelConfig's site: 44.5 N, 11.3 E, UTC+1
+MODEL_CONFIG = dict(compute_snow=True, compute_crop=True,
+                    compute_evaporation=True, compute_interception=True,
+                    compute_cracking=True)
+# the snow model's ground [degC]: frozen after a frosty night, so that the
+# morning's snow settles
+GROUND_TEMPERATURE = -2.0
+
+
+def build_model_problem(dem, cell, params, device,
+                        config: ModelConfig) -> Criteria3DModel:
+    """A :class:`Criteria3DModel` on ``dem`` (:func:`catchment_grid`,
+    psi0 = -2 m, the default crop, the snow ground at
+    :data:`GROUND_TEMPERATURE`), with ``slope_deg`` and ``aspect_deg`` from
+    :func:`slope_aspect` of the DEM as the JAX package's project loader
+    sets them (project.py:344-345), so that the inclined-surface radiation
+    runs. ``config.compute_heat`` makes every valid layer-1 node a
+    HeatSurface."""
+    grid = catchment_grid(dem, cell, device)
+    if config.compute_heat:
+        grid = with_heat_surface(grid)
+    model = Criteria3DModel.create(grid, params, config, matric_potential=-2.0)
+    if config.compute_snow:
+        model.snow = SnowState.zero(dem.shape, surface_temp=GROUND_TEMPERATURE,
+                                    device=grid.device)
+    valid = ~np.isclose(dem, -9999.0)
+    slope, aspect = slope_aspect(dem, cell)
+    model.slope_deg = torch.tensor(np.where(valid, slope, 0.0), device=grid.device)
+    model.aspect_deg = torch.tensor(np.where(valid, aspect, 0.0), device=grid.device)
+    return model
+
+
+# the day of model_day_forcing, hour by hour: air temperature at the
+# catchment's mean valid elevation [degC]; precipitation [mm/h] (snow at
+# 6-7, rain on the pack at 8-9, dry otherwise)
+DAY_AIR_TEMPERATURE = (-2.5, -2.8, -3.0, -3.2, -3.0, -2.2, -1.5, -1.0, 1.5,
+                       2.5, 5.0, 7.0, 8.0, 8.5, 8.5, 8.0, 7.0, 5.5, 4.0, 2.5,
+                       1.5, 0.5, -0.5, -1.5)
+DAY_PRECIPITATION = {6: 3.0, 7: 3.0, 8: 8.0, 9: 8.0}
+LAPSE_RATE = 0.0065   # [K m-1]
+
+
+def model_day_forcing(grid: Grid, date, hour: int) -> HourlyForcing:
+    """The hourly forcing of a cold day (``date`` sets nothing; the
+    signature is run_period's provider's): air temperature from
+    :data:`DAY_AIR_TEMPERATURE` at the mean valid elevation, less 0.0065 K
+    for every metre above it; 90 % relative humidity and transmissivity
+    0.3 while it precipitates, 65 % and 0.7 otherwise; wind 2 m/s (3 m/s
+    in the rain). Maps on the grid's device."""
+    valid = grid.mask[0]
+    z = grid.z[0]
+    mean_z = torch.sum(torch.where(valid, z, 0.0)) / torch.sum(valid)
+    t = DAY_AIR_TEMPERATURE[hour] - LAPSE_RATE * (z - mean_z)
+    prec = DAY_PRECIPITATION.get(hour, 0.0)
+    wet = prec > 0.0
+
+    def full(v):
+        return torch.full_like(z, v)
+
+    return HourlyForcing(
+        air_temperature=torch.where(valid, t, DAY_AIR_TEMPERATURE[hour]),
+        precipitation=full(prec),
+        rel_humidity=full(90.0 if wet else 65.0),
+        wind_speed=full(3.0 if prec > 5.0 else 2.0),
+        transmissivity=full(0.3 if wet else 0.7))
+
+
+def small_model(params: SolverParameters, device, n: int = 32) -> Criteria3DModel:
+    """:func:`build_model_problem` with :data:`MODEL_CONFIG` on the
+    synthetic catchment cut to an n x n box (4 m cells, the disc scaled
+    with the box), for the card against the CPU."""
+    dem = synthetic_catchment(0, n=n, radius=n * 366.0 / 768)
+    return build_model_problem(dem, 4.0, params, device, ModelConfig(**MODEL_CONFIG))

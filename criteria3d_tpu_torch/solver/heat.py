@@ -9,7 +9,7 @@ float64 form and the float32 ("fast") form with a float64 balance, plus the
 chunk-frozen system of ``heat_frozen_props``. Every function evaluates the
 same expressions, in the same order and dtypes, as its JAX twin.
 
-The dtype rules of solver/water.py hold here too: a 0-d float64 tensor
+The dtype rules of solver/water.py and ops.py hold here too: a 0-d float64 tensor
 times a float32 tensor is float64 in JAX but float32 in torch, so such
 products cast first (:func:`_mul0`); and a tensor is divided by a Python
 constant through a 0-d tensor of its own dtype (:func:`_div`, :func:`_rdiv`),
@@ -28,7 +28,6 @@ Python floats (float64 on the host, as JAX computes them).
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import NamedTuple
 
@@ -44,6 +43,15 @@ from criteria3d_tpu_torch.core.soil import (MeanType, compute_mean, power,
 from criteria3d_tpu_torch.core.state import SolverParameters, WaterState
 from criteria3d_tpu_torch.device import (host_read, map_tensors,
                                          resolve_device, scalar)
+from criteria3d_tpu_torch.ops import div as _div
+from criteria3d_tpu_torch.ops import mul0 as _mul0
+from criteria3d_tpu_torch.ops import rdiv as _rdiv
+from criteria3d_tpu_torch.ops import sq as _sq
+from criteria3d_tpu_torch.physics.meteo import (
+    P0, pressure_from_altitude, saturation_vapor_pressure,
+    vapor_concentration_from_pressure)
+from criteria3d_tpu_torch.physics.meteo import (
+    latent_heat_vaporization as latent_vaporization_heat)
 from criteria3d_tpu_torch.solver import water as W
 from criteria3d_tpu_torch.solver.step import _is_fast
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
@@ -71,40 +79,6 @@ HEAT_CAPACITY_AIR_MOLAR = 29.31  # [J mol-1 K-1]
 VAPOR_DIFFUSIVITY0 = 2.12e-5     # [m2 s-1]
 GAMMA0 = 71.89                   # [g s-2] surface tension at 25 degC
 THETAMIN = 0.15
-P0 = 101325.0
-TP0 = 293.16
-LAPSE_RATE_MOIST_AIR = 0.0065
-R_DRY_AIR = 287.058
-
-
-# ----------------------------------------------------------------------
-# arithmetic helpers (the dtype rules of the module docstring)
-# ----------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=None)
-def _const(v: float, dtype, device) -> torch.Tensor:
-    """A cached 0-d tensor holding the Python number ``v``."""
-    return torch.full((), v, dtype=dtype, device=device)
-
-
-def _div(a: torch.Tensor, v: float) -> torch.Tensor:
-    """``a / v`` for a Python number ``v``, as a true division."""
-    return a / _const(float(v), a.dtype, a.device)
-
-
-def _rdiv(v: float, a: torch.Tensor) -> torch.Tensor:
-    """``v / a`` for a Python number ``v``, as a true division."""
-    return _const(float(v), a.dtype, a.device) / a
-
-
-def _mul0(a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """``a * s`` for a 0-d tensor ``s`` with JAX's promotion (a float32
-    field times a float64 0-d array is float64)."""
-    return a.to(torch.promote_types(a.dtype, s.dtype)) * s
-
-
-def _sq(x: torch.Tensor) -> torch.Tensor:
-    return x * x
 
 
 def _heat_mask(grid: Grid) -> torch.Tensor:
@@ -193,19 +167,6 @@ def initialize_heat(grid: Grid, temperature_k, dtype=torch.float64) -> HeatState
 # material properties (heat.cpp:700-1250)
 # ----------------------------------------------------------------------
 
-def pressure_from_altitude(z):
-    return P0 * power(1.0 + _div(z * LAPSE_RATE_MOIST_AIR, TP0),
-                      -GRAVITY / (LAPSE_RATE_MOIST_AIR * R_DRY_AIR))
-
-
-def saturation_vapor_pressure(t_c):
-    return 611.0 * torch.exp(17.502 * t_c / (t_c + 240.97))
-
-
-def vapor_concentration_from_pressure(p, t_k):
-    return p * MH2O / (R_GAS * t_k)
-
-
 def soil_relative_humidity(h, t_k):
     """Kelvin equation (heat.cpp:1143-1146); h = matric potential [m]."""
     return torch.exp(MH2O * h * GRAVITY / (R_GAS * t_k))
@@ -214,10 +175,6 @@ def soil_relative_humidity(h, t_k):
 def vapor_from_psi_temp(h, t_k):
     svp = saturation_vapor_pressure(t_k - ZEROCELSIUS)
     return vapor_concentration_from_pressure(svp, t_k) * soil_relative_humidity(h, t_k)
-
-
-def latent_vaporization_heat(t_c):
-    return 2501000.0 - 2369.2 * t_c
 
 
 def air_molar_density(pressure, t_k):

@@ -241,16 +241,34 @@ def test_grid_to_device_keeps_fields():
 # ----------------------------------------------------------------------
 
 def test_port_imports_no_jax():
-    """A fresh interpreter runs the port's CPU entry points (grid, state,
-    one hour of the bundled-Jacobi path, one coupled water + heat step on a
-    tiny column) without loading JAX or the JAX package."""
+    """A fresh interpreter imports every module of the port and runs its
+    CPU entry points (grid, state, one hour of the bundled-Jacobi path, one
+    coupled water + heat step on a tiny column, one model-cycle hour with
+    every ported process and its state checkpoint) without loading JAX or
+    the JAX package."""
     code = textwrap.dedent("""
-        import dataclasses, sys
+        import dataclasses, sys, tempfile
         import numpy as np, torch
         import criteria3d_tpu_torch as T
-        from criteria3d_tpu_torch import convert, problems
+        from criteria3d_tpu_torch import (bench_jacobi, constants, convert,
+                                          device, model, ops, problems)
+        from criteria3d_tpu_torch.core import grid, soil, state
+        from criteria3d_tpu_torch.io import esri, state_io
+        from criteria3d_tpu_torch.physics import (cracking, crop,
+                                                  interception, meteo,
+                                                  radiation, snow)
         from criteria3d_tpu_torch.solver import (coupled, heat, jacobi_bundle,
-                                                 shifts, step, water)
+                                                 link_flows, shifts, step,
+                                                 water)
+        m = problems.small_model(T.SolverParameters.fast_f32(), "cpu", n=12)
+        out = m.run_hour(problems.model_day_forcing(m.grid, None, 8),
+                         2023, 3, 21, 8)
+        assert bool(torch.isfinite(m.water.h).all()) and out["solver_stats"][0] > 0
+        with tempfile.TemporaryDirectory() as d:
+            state_io.save_state(d, m.grid, m.water, snow=m.snow,
+                                degree_days=m.degree_days, lai=m.lai)
+            w, sn, ex = state_io.load_state(d, m.grid, m.params)
+            assert sorted(ex) == ["degreeDays", "lai"] and sn is not None
         pc = T.SolverParameters(heat_vapor=True)
         g, w, h, b = problems.heat_column(pc, "cpu", n=2)
         w, h, dt = T.compute_step_coupled(g, pc, w, h, b, 600.0)

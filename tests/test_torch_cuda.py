@@ -1,7 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
-tiled bundled-Jacobi design against the per-sweep one, and small hours of
-the float64, CG and coupled water + heat paths on the card against the CPU
-path. Every test
+tiled bundled-Jacobi design against the per-sweep one, small hours of
+the float64, CG and coupled water + heat paths, and the model cycle's
+physics maps and hours, on the card against the CPU path. Every test
 here carries the ``cuda`` marker and skips where there is no card; the
 file imports neither JAX nor the JAX package, so it runs on a machine
 without them:
@@ -188,3 +188,95 @@ def test_small_coupled_hour_on_card_matches_cpu(config):
     assert hc.t.device.type == "cuda" and wc.h.device.type == "cuda"
     assert float((hc.t.cpu() - hp.t).abs().max()) < t_tol
     assert float((wc.h.cpu() - wp.h).abs().max()) < h_tol
+
+
+def _close(card, cpu, rtol, name):
+    a = cpu.numpy()
+    np.testing.assert_allclose(card.cpu().numpy(), a, rtol=rtol,
+                               atol=rtol * float(np.abs(a).max()), err_msg=name)
+
+
+@pytest.mark.cuda
+def test_model_physics_maps_on_card_match_cpu():
+    """The model cycle's physics on the card against the CPU on the
+    synthetic catchment cut to a 64 box, slope/aspect from the DEM:
+    radiation at a low and a high sun (shadow maps equal, every map rel
+    1e-12), one snow step of a cold pack under rain, the atom root density
+    and the transpiration and evaporation sinks (rel 1e-12)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only on the card")
+    import dataclasses
+    from criteria3d_tpu_torch import SolverParameters, problems
+    from criteria3d_tpu_torch.core.soil import theta_from_se
+    from criteria3d_tpu_torch.physics import crop as C
+    from criteria3d_tpu_torch.physics import radiation as R
+    from criteria3d_tpu_torch.physics import snow as S
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = problems.small_model(SolverParameters(), dev, n=64)
+        g, out = m.grid, {}
+        for hour in (7, 12):
+            rad = R.compute_radiation_dem(
+                g.z[0], g.mask[0], g.cell_size, torch.full_like(g.z[0], 44.5),
+                torch.full_like(g.z[0], 11.3), m.slope_deg, m.aspect_deg, 1,
+                2023, 3, 21, hour, transmissivity=torch.full_like(g.z[0], 0.6))
+            out.update({f"{k}{hour}": getattr(rad, k) for k in
+                        ("global_irr", "beam", "diffuse", "reflected", "shadow")})
+        f = problems.model_day_forcing(g, None, 8)
+        sf = S.SnowForcing(air_temp=f.air_temperature, precipitation=f.precipitation,
+                           rel_humidity=f.rel_humidity, wind_speed=f.wind_speed,
+                           global_radiation=out["global_irr12"],
+                           beam_radiation=out["beam12"],
+                           transmissivity=f.transmissivity,
+                           clear_sky_transmissivity=torch.full_like(g.z[0], 0.75),
+                           surface_water=torch.zeros_like(g.z[0]))
+        snow = dataclasses.replace(m.snow, swe=torch.full_like(g.z[0], 20.0))
+        new, so = S.snow_step(snow, sf)
+        out.update({f"snow_{k.name}": getattr(new, k.name) for k in dataclasses.fields(new)})
+        out["snow_melt"] = so["snow_melt"]
+        length = C.root_length(m.crop, m.degree_days, 0.8)
+        out["roots"] = C.root_density_atoms(m.crop, g, length)
+        theta = torch.where(g.mask, theta_from_se(g.soil, m.water.se), 0.0)
+        et0 = torch.full_like(g.z[0], 0.3)
+        out["transpiration"] = C.transpiration_sink(g, m.params, m.crop, theta, et0,
+                                                    m.lai, m.degree_days)[0]
+        out["evaporation"] = C.evaporation_sink(g, m.params, theta,
+                                                torch.zeros_like(et0), et0, m.lai)[0]
+        res[dev] = out
+    assert bool(res["cuda"]["shadow7"].is_cuda)
+    for k, v in res["cpu"].items():
+        if v.dtype == torch.bool:
+            assert torch.equal(res["cuda"][k].cpu(), v), k
+        else:
+            _close(res["cuda"][k], v, 1e-12, k)
+
+
+@pytest.mark.cuda
+def test_small_model_hours_on_card_match_cpu():
+    """Hours 6-9 of problems.model_day_forcing (snow, then rain on the
+    pack) through Criteria3DModel.run_hour on a 32 box under
+    SolverParameters(), on the card and on the CPU: the same dt_curr and
+    solver stats, heads within 1e-6 m, SWE within 1e-6 mm, every output
+    on the card, no bundle launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only on the card")
+    from criteria3d_tpu_torch import SolverParameters, problems
+    before = TB.jacobi_bundle.launches
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = problems.small_model(SolverParameters(), dev)
+        stats = []
+        for hour in range(6, 10):
+            out = m.run_hour(problems.model_day_forcing(m.grid, None, hour),
+                             2023, 3, 21, hour)
+            stats.append(out["solver_stats"])
+            for v in out.values():
+                assert not isinstance(v, torch.Tensor) or v.device.type == dev
+        runs[dev] = (m, stats)
+    (mc, sc), (mp, sp) = runs["cuda"], runs["cpu"]
+    assert TB.jacobi_bundle.launches == before
+    assert sc == sp
+    assert float(mc.water.dt_curr) == float(mp.water.dt_curr)
+    assert float((mc.water.h.cpu() - mp.water.h).abs().max()) < 1e-6
+    assert float((mc.snow.swe.cpu() - mp.snow.swe).abs().max()) < 1e-6
+    assert float(mp.snow.swe.max()) > 0.0
