@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
-    python3 chip_smoke.py [--seed 0] [--timed-hours 3]
+    python3 chip_smoke.py [--seed 0] [--timed-hours 1]
 
 Phases (any failed check exits non-zero before the last line):
 
@@ -74,6 +74,23 @@ Phases (any failed check exits non-zero before the last line):
    state: the daily MBR, dt_curr, heads, degree days, LAI and SWE agree,
    and ``load_state`` of the card's rasters gives its heads to float32
    rounding;
+3k. the project stack at full size: ``problems.write_project`` (the same
+   catchment at n = 768 with 20 stations, two soils, land units, output
+   points and maps), ``Criteria3DProject.load`` and
+   ``initialize(fast=True)`` on the card, ``run_period`` over hours 6-11
+   with outputs: per hour the wall, host reads, solver stats and MBR;
+   the peak memory, the readings spatial QC turned away, the rasters and
+   output-DB rows written; checks |MBR| < 2e-3, no bundle launch, every
+   raster read back finite on the catchment and one row per point and
+   hour; then one more hour profiled, with the device time of the
+   ``c3d.interpolation`` and ``c3d.outputs`` ranges;
+3l. a 32 box project (float64) on the card and on the CPU: the whole day
+   from 00 h through ``run_period`` (the forcing maps rel 1e-12, the same
+   steps, attempts and approximations, heads 1e-6 m, hourly MBRs 1e-8, the
+   23 h daily update's Tmin / Tmax maps, degree days and LAI rel 1e-12,
+   rasters within one float32 ulp, output-DB values rel 1e-9), then three
+   coupled hours of the same project with ``compute_heat`` (heat vapor and
+   advection): the same counts, T within 1e-6 K, heads within 1e-6 m;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
@@ -84,7 +101,8 @@ The profiled hours split device time by layer: the kernels launched inside
 the step's ``c3d.assemble`` and ``c3d.inner_solve`` ranges, the heat
 sub-steps' ``c3d.heat_assemble`` and ``c3d.heat_solve`` ranges, the model
 cycle's ``c3d.radiation`` (shadow march included), ``c3d.snow``,
-``c3d.et0`` and ``c3d.sinks`` ranges, and the rest. It imports nothing of
+``c3d.et0`` and ``c3d.sinks`` ranges, the project's ``c3d.interpolation``
+and ``c3d.outputs`` ranges, and the rest. It imports nothing of
 JAX and nothing of the JAX package.
 """
 
@@ -189,12 +207,12 @@ def layer_ranges() -> tuple:
             RADIATION_RANGE, SNOW_RANGE, ET0_RANGE, SINKS_RANGE)
 
 
-def breakdown(label, run, wall_s: float):
+def breakdown(label, run, wall_s: float, ranges=None):
     """``run()`` (one more hour) under torch.profiler: device time by
     kernel, by layer (the kernels launched inside the ranges of
-    :func:`layer_ranges`) and the device's idle share; returns ``(busy_s, {kernel name:
-    seconds}, {layer: seconds})`` (0.0, {} and {} when the profiler saw no
-    device activity).
+    :func:`layer_ranges`, or of ``ranges``) and the device's idle share;
+    returns ``(busy_s, {kernel name: seconds}, {layer: seconds})`` (0.0, {}
+    and {} when the profiler saw no device activity).
 
     Busy time is the union of the device activity intervals (kernels,
     copies, fills) of the exported trace; host-op annotations, which the
@@ -206,7 +224,7 @@ def breakdown(label, run, wall_s: float):
     time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    range_names = layer_ranges()
+    range_names = ranges or layer_ranges()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         run()
@@ -685,10 +703,291 @@ def model_phases(dem, seed: int, card: str) -> dict:
                 launches_bundle=launches_model, walls_day=walls_3j, seconds=model_s)
 
 
+# the project phases: problems.write_project's day, 2023-03-21 (local time)
+PROJECT_3K_HOURS = (6, 6)          # first hour, hours
+# the coupled hours: the frosty night from 00 h (from a fresh model the
+# morning's snow and rain hours take 2,000 heat sub-steps each)
+PROJECT_3L_HEAT_HOURS = (0, 3)
+
+
+def instrument_run_hour(prj, records: list, keep_forcing: bool = False) -> None:
+    """Wrap the project's ``run_hour`` so that each hour appends its wall
+    (the card synchronised before and after), host reads, solver stats and
+    MBR (a 0-d tensor, read later) to ``records``; with ``keep_forcing``
+    also the hour's forcing maps, copied to the host."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    inner = prj.run_hour
+
+    def run_hour(when, **kw):
+        torch.cuda.synchronize()
+        host_read.count = 0
+        t0 = time.time()
+        out = inner(when, **kw)
+        torch.cuda.synchronize()
+        rec = dict(when=when, wall_s=time.time() - t0, syncs=host_read.count,
+                   stats=out.get("solver_stats"), mbr=out["mbr"])
+        if keep_forcing:
+            f = out["forcing"]
+            rec["forcing"] = {k: getattr(f, k).cpu() for k in
+                              ("air_temperature", "precipitation", "rel_humidity",
+                               "wind_speed")}
+            rec["transmissivity"] = f.transmissivity
+        records.append(rec)
+        return out
+
+    prj.run_hour = run_hour
+
+
+def record_daily_update(model, updates: list) -> None:
+    """Wrap the model's ``daily_update`` so that each call appends its date
+    and its Tmin / Tmax maps, copied to the host, to ``updates``."""
+    inner = model.daily_update
+
+    def daily_update(t_min, t_max, *, date=None):
+        updates.append((date, t_min.cpu(), t_max.cpu()))
+        return inner(t_min, t_max, date=date)
+
+    model.daily_update = daily_update
+
+
+def project_files(prj):
+    """The project's output rasters (path -> array read back) and
+    output-point tables (name -> rows)."""
+    import sqlite3
+    from criteria3d_tpu_torch.io.esri import read_flt
+    rasters = {}
+    root = os.path.join(prj.output_dir, "rasters")
+    for day in sorted(os.listdir(root)):
+        for f in sorted(os.listdir(os.path.join(root, day))):
+            if f.endswith(".flt"):
+                rasters[f"{day}/{f}"] = read_flt(os.path.join(root, day, f))
+    con = sqlite3.connect(prj.config.output_db_path)
+    tables = {t: con.execute(f'SELECT * FROM "{t}" ORDER BY time').fetchall()
+              for (t,) in con.execute("SELECT name FROM sqlite_master WHERE type='table'")}
+    con.close()
+    return rasters, tables
+
+
+def project_full_size(seed: int, card: str, tmp: str) -> dict:
+    """phase 3k: problems.write_project at n = 768 with 20 stations, then
+    Criteria3DProject.load, initialize(fast=True) on the card and
+    run_period over hours 6-11 with outputs; one more hour profiled."""
+    import datetime
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.outputs import OUTPUTS_RANGE
+    from criteria3d_tpu_torch.problems import PROJECT_DATE, write_project
+    from criteria3d_tpu_torch.project import INTERPOLATION_RANGE, Criteria3DProject
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    t0 = time.time()
+    ini = write_project(os.path.join(tmp, "p768"), n=768, seed=seed, n_stations=20)
+    write_s = time.time() - t0
+    t0 = time.time()
+    prj = Criteria3DProject.load(ini, output_dir=os.path.join(tmp, "out768"))
+    load_s = time.time() - t0
+    t0 = time.time()
+    prj.initialize(fast=True)
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    g = prj.grid
+    check(g.device.type == "cuda" and prj.model.water.h.is_cuda,
+          "3k: the project did not build on the card")
+    check(prj.params.inner_solver == "cg" and prj.params.cg_precond == "line",
+          f"3k: initialize(fast=True) gave {prj.params}")
+    print(f"# project 768 ({card}): wrote the project in {write_s:.1f} s, loaded in "
+          f"{load_s:.1f} s (stations {len(prj.stations)}), initialized in {init_s:.1f} s; "
+          f"grid {g.shape} nodes {g.n_nodes} surface {g.n_surface_nodes}; forest cells "
+          f"{int(prj.model.forest_mask.sum())}", flush=True)
+
+    first, n_hours = PROJECT_3K_HOURS
+    start = datetime.datetime(*PROJECT_DATE, first)
+    records = []
+    instrument_run_hour(prj, records)
+    torch.cuda.reset_peak_memory_stats()
+    JB.jacobi_bundle.launches = 0
+    t0 = time.time()
+    log = prj.run_period(start, n_hours)
+    period_s = time.time() - t0
+    launches = JB.jacobi_bundle.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for rec, e in zip(records, log):
+        print(f"# project 768 hour {rec['when'].hour} ({card}): wall {rec['wall_s']} s, "
+              f"host reads {rec['syncs']}, stats {rec['stats']}, MBR {e['mbr']}", flush=True)
+        check(abs(e["mbr"]) < 2e-3, f"3k hour {rec['when'].hour}: |MBR| {e['mbr']} >= 2e-3")
+    check(launches == 0, f"3k: the project hours launched {launches} jacobi_bundle kernels")
+    rasters, tables = project_files(prj)
+    n_vars = sum(len(d) for d in prj.output_variables().values())
+    check(len(rasters) == n_hours * n_vars,
+          f"3k: {len(rasters)} rasters written, expected {n_hours * n_vars}")
+    valid = prj.grid.mask[0].cpu().numpy()
+    for name, (data, hdr) in rasters.items():
+        check(data.shape == (768, 768) and hdr.cellsize == 4.0, f"3k: {name} reads back {data.shape}")
+        inside = data[valid & (data != -9999.0)]
+        check(inside.size > 0 and bool(np.isfinite(inside).all()),
+              f"3k: {name} has no finite values on the catchment")
+    rows = sum(len(r) for r in tables.values())
+    check(len(tables) == len(prj.output_points.ids) and rows == n_hours * len(tables),
+          f"3k: output DB has {len(tables)} tables and {rows} rows")
+    walls = [r["wall_s"] for r in records]
+    print(f"# project 768 ({card}): run_period {period_s} s for {n_hours} hours (walls {walls}); "
+          f"peak memory {peak:.2f} GiB; spatial QC turned away {prj.qc_rejected} "
+          f"station readings; {len(rasters)} rasters ({2 * len(rasters)} files) and "
+          f"{rows} output-DB rows in {len(tables)} tables written; bundle launches "
+          f"{launches}", flush=True)
+
+    # one more hour (12) profiled, its outputs staged and flushed
+    when = start + datetime.timedelta(hours=n_hours)
+    ranges = layer_ranges() + (INTERPOLATION_RANGE, OUTPUTS_RANGE)
+    busy, _, layers = breakdown(
+        "project hour 12", lambda: (prj.run_hour(when), prj.flush_outputs()),
+        statistics.median(walls), ranges=ranges)
+    check(busy > 0.0, "the profiler saw no device activity in the project hour")
+    interp_s, out_s = layers.get(INTERPOLATION_RANGE, 0.0), layers.get(OUTPUTS_RANGE, 0.0)
+    check(interp_s > 0.0 and out_s > 0.0,
+          f"3k: no device time in the interpolation ({interp_s}) or outputs ({out_s}) range")
+    print(f"# project hour 12 ({card}): device time by layer "
+          + "; ".join(f"{k} {layers.get(k, 0.0)} s" for k in ranges + ("other",)), flush=True)
+    return dict(walls=walls, syncs=[r["syncs"] for r in records],
+                stats=[r["stats"] for r in records], mbrs=[e["mbr"] for e in log],
+                peak_gib=peak, launches=launches, qc_rejected=prj.qc_rejected,
+                rasters=len(rasters), rows=rows, busy_s=busy, interpolation_s=interp_s,
+                outputs_s=out_s, nodes=g.n_nodes)
+
+
+def project_day_card_vs_cpu(seed: int, card: str, tmp: str) -> dict:
+    """phase 3l: a 32 box project under its float64 parameters on the card
+    and on the CPU, the whole day from 00 h (the daily update at 23 h),
+    then three coupled hours of the same project with compute_heat (heat
+    vapor and advection on)."""
+    import datetime
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.problems import PROJECT_DATE, write_project
+    from criteria3d_tpu_torch.project import Criteria3DProject
+    from criteria3d_tpu_torch.solver import coupled as C
+    day = datetime.datetime(*PROJECT_DATE)
+    ini = write_project(os.path.join(tmp, "p32"), n=32, seed=seed, n_stations=6)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        prj = Criteria3DProject.load(ini, output_dir=os.path.join(tmp, f"out32_{dev}"))
+        prj.initialize(device=dev)
+        records, updates = [], []
+        instrument_run_hour(prj, records, keep_forcing=True)
+        record_daily_update(prj.model, updates)
+        t0 = time.time()
+        log = prj.run_period(day, 24)
+        runs[dev] = (prj, records, log, time.time() - t0)
+        check(len(updates) == 1 and updates[0][0] == day.date(),
+              f"3l: daily_update ran {len(updates)} times ({dev})")
+        runs[dev] += (updates[0],)
+    (pc, rc, lc, wc, uc), (pp, rp, lp, wp, up) = runs["cuda"], runs["cpu"]
+    check(pc.params.sweep_dtype is None and pc.model.water.h.is_cuda,
+          "3l: the day is not the float64 path on the card")
+    f_rel = 0.0
+    for a, b in zip(rc, rp):
+        for k, v in b["forcing"].items():
+            d = float((a["forcing"][k] - v).abs().max())
+            f_rel = max(f_rel, d / max(float(v.abs().max()), 1e-300))
+        t_rel = abs(a["transmissivity"] - b["transmissivity"]) / b["transmissivity"]
+        f_rel = max(f_rel, t_rel)
+        check(a["stats"][:3] == b["stats"][:3],
+              f"3l hour {a['when'].hour}: stats {a['stats']} (card) {b['stats']} (CPU)")
+    d_mbr = max(abs(a["mbr"] - b["mbr"]) for a, b in zip(lc, lp))
+    dh = float((pc.model.water.h.cpu() - pp.model.water.h).abs().max())
+    # the daily update's per-cell Tmin / Tmax maps, then its degree days and LAI
+    tx_rel = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                 for a, b in zip(uc[1:], up[1:]))
+    valid = pp.grid.mask[0]
+    t_span = float((up[2] - up[1])[valid].max())
+    dd_rel = max(float(((getattr(pc.model, k).cpu() - getattr(pp.model, k)).abs()
+                        / getattr(pp.model, k).abs().clamp_min(1e-300)).max())
+                 for k in ("degree_days", "lai"))
+    (rast_c, tab_c), (rast_p, tab_p) = project_files(pc), project_files(pp)
+    check(sorted(rast_c) == sorted(rast_p) and len(rast_c) == 24 * 4,
+          f"3l: rasters differ in name or number ({len(rast_c)}, {len(rast_p)})")
+    ulp = 0
+    for name, (a, _) in rast_c.items():
+        b = rast_p[name][0].astype(np.float32)
+        a = a.astype(np.float32)
+        check(bool((np.isnan(a) == np.isnan(b)).all()), f"3l: {name} NaN cells differ")
+        fin = ~np.isnan(a)
+        ulp = max(ulp, int(np.abs(a[fin].view(np.int32).astype(np.int64)
+                                 - b[fin].view(np.int32).astype(np.int64)).max()))
+    db_rel = 0.0
+    check(sorted(tab_c) == sorted(tab_p), "3l: output DB tables differ")
+    for t, rows in tab_c.items():
+        check(len(rows) == len(tab_p[t]) == 24, f"3l: {t} has {len(rows)} rows")
+        for r, q in zip(rows, tab_p[t]):
+            check(r[0] == q[0], f"3l: {t} times differ")
+            a, b = np.asarray(r[1:], float), np.asarray(q[1:], float)
+            db_rel = max(db_rel, float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max()))
+    print(f"# project day 32 box ({card}): card {wc} s, CPU {wp} s; {pc.grid.n_nodes} nodes; "
+          f"stats card {[r['stats'] for r in rc]}; max |dMBR| per hour {d_mbr} (tolerance "
+          f"1e-8); max |dh| {dh} m (1e-6); forcing maps and transmissivity rel {f_rel} "
+          f"(1e-12); the 23 h update's Tmin / Tmax maps rel {tx_rel} (1e-12, daily span up "
+          f"to {t_span} K), degree days and LAI rel {dd_rel}; rasters within {ulp} "
+          f"float32 ulp (1); output DB rel {db_rel} (1e-9); spatial QC turned away "
+          f"{pc.qc_rejected} readings", flush=True)
+    check(f_rel <= 1e-12, f"3l: forcing maps differ by rel {f_rel}")
+    check(d_mbr < 1e-8, f"3l: hourly MBRs differ by {d_mbr}")
+    check(dh < 1e-6, f"3l: heads differ by {dh} m")
+    check(tx_rel <= 1e-12 and t_span > 0.0 and dd_rel <= 1e-12,
+          f"3l: the daily update did not run alike (Tmin / Tmax rel {tx_rel}, "
+          f"span {t_span} K, degree days and LAI rel {dd_rel})")
+    check(ulp <= 1, f"3l: rasters differ by {ulp} float32 ulp")
+    check(db_rel < 1e-9, f"3l: output DB values differ by rel {db_rel}")
+
+    # three coupled hours: compute_heat turns on heat vapor and advection
+    ini_h = write_project(os.path.join(tmp, "p32h"), n=32, seed=seed, n_stations=6,
+                          compute_heat=True)
+    first, n_hours = PROJECT_3L_HEAT_HOURS
+    heat = {}
+    for dev in ("cuda", "cpu"):
+        prj = Criteria3DProject.load(ini_h, output_dir=os.path.join(tmp, f"out32h_{dev}"))
+        prj.initialize(device=dev)
+        check(prj.params.heat_vapor and prj.params.heat_advection and prj.model.heat is not None,
+              "3l: compute_heat did not turn on vapor and advection")
+        C.reset_counts()
+        t0 = time.time()
+        log = prj.run_period(day + datetime.timedelta(hours=first), n_hours)
+        heat[dev] = (prj, log, C.counts(), time.time() - t0)
+    (hc, lhc, cc, whc), (hp, lhp, cp, whp) = heat["cuda"], heat["cpu"]
+    dT = float((hc.model.heat.t.cpu() - hp.model.heat.t).abs().max())
+    dh_h = float((hc.model.water.h.cpu() - hp.model.water.h).abs().max())
+    print(f"# project coupled hours {first}-{first + n_hours - 1}, 32 box ({card}): card "
+          f"{whc} s, CPU {whp} s; counts card {cc} CPU {cp}; MBR card "
+          f"{[e['mbr'] for e in lhc]} CPU {[e['mbr'] for e in lhp]}; max |dT| {dT} K "
+          f"(tolerance 1e-6), max |dh| {dh_h} m (1e-6)", flush=True)
+    for key in ("steps", "attempts", "approximations", "chunks",
+                "substeps_accepted", "substeps_rejected"):
+        check(cc[key] == cp[key], f"3l coupled: {key} differ, card {cc[key]} CPU {cp[key]}")
+    check(cc["heat_sweeps"] > 0 and hc.model.heat.t.is_cuda, "3l coupled: no heat sweep on the card")
+    check(dT < 1e-6, f"3l coupled: T differs by {dT} K")
+    check(dh_h < 1e-6, f"3l coupled: heads differ by {dh_h} m")
+    return dict(walls_day=(wc, wp), d_mbr=d_mbr, dh=dh, f_rel=f_rel, ulp=ulp, db_rel=db_rel,
+                walls_heat=(whc, whp), dT=dT, dh_heat=dh_h, counts_heat=cc)
+
+
+def project_phases(seed: int, card: str) -> dict:
+    """Phases 3k and 3l (the project stack); returns what they measured."""
+    import torch
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        full = project_full_size(seed, card, tmp)
+        torch.cuda.empty_cache()
+        small = project_day_card_vs_cpu(seed, card, tmp)
+    seconds = time.time() - t0
+    print(f"# phases 3k-3l took {seconds} s ({card})", flush=True)
+    return dict(full=full, small=small, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--timed-hours", type=int, default=3)
+    # one timed repeat of the bundle and CG-line storm hours (three until
+    # the project phases joined the run): the script stays near 600 s
+    ap.add_argument("--timed-hours", type=int, default=1)
     args = ap.parse_args()
 
     import torch
@@ -853,6 +1152,9 @@ def main() -> int:
     # ---- 3g-3j. the hourly model cycle ------------------------------------
     mp = model_phases(dem, args.seed, card)
 
+    # ---- 3k-3l. the project stack -----------------------------------------
+    pp = project_phases(args.seed, card)
+
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
     runs = {"tiled": [], "per_sweep": []}
@@ -906,7 +1208,12 @@ def main() -> int:
           f"heat_mbr={mp['coupled']['heat_mbr']} wall_s={mp['coupled']['wall_s']}; "
           f"bundle model hour stats={list(mp['stats_bundle'])} "
           f"launches={mp['launches_bundle']}; model day card/CPU walls={mp['walls_day']}; "
-          f"phases 3g-3j {mp['seconds']:.1f} s; script {time.time() - t_start:.1f} s")
+          f"phases 3g-3j {mp['seconds']:.1f} s; project 768 walls={pp['full']['walls']} "
+          f"host_reads={pp['full']['syncs']} peak_gib={pp['full']['peak_gib']:.2f} "
+          f"bundle_launches={pp['full']['launches']}; project day card/CPU "
+          f"walls={pp['small']['walls_day']}; coupled project hours card/CPU "
+          f"walls={pp['small']['walls_heat']}; phases 3k-3l {pp['seconds']:.1f} s; "
+          f"script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Carry a grid, a water state, the heat state and forcing, and a whole
-hourly model across from plain arrays.
+"""Carry a grid, a water state, the heat state and forcing, a whole hourly
+model and a project's running model across from plain arrays.
 
 The JAX package's ``Grid``, ``WaterState``, ``HeatState``, ``HeatBoundary``,
 ``SnowState`` and ``Criteria3DModel`` become numpy arrays and Python
@@ -28,8 +28,8 @@ from criteria3d_tpu_torch.solver.heat import HeatBoundary, HeatState
 
 __all__ = ["grid_from_arrays", "state_from_arrays", "heat_state_from_arrays",
            "heat_boundary_from_arrays", "snow_state_from_arrays",
-           "forcing_from_arrays",
-           "model_from_arrays", "GRID_META", "MODEL_MAPS",
+           "forcing_from_arrays", "model_from_arrays",
+           "project_model_from_arrays", "GRID_META", "MODEL_MAPS",
            "MODEL_ACCUMULATORS"]
 
 # the Grid fields that are Python scalars, not tensors
@@ -113,7 +113,8 @@ def forcing_from_arrays(arrays: dict, *, device=None) -> HourlyForcing:
 
 
 # the model's map fields carried by model_from_arrays (None stays None)
-MODEL_MAPS = ("lai", "degree_days", "canopy_storage", "slope_deg", "aspect_deg")
+MODEL_MAPS = ("lai", "degree_days", "canopy_storage", "slope_deg", "aspect_deg",
+              "forest_mask")
 MODEL_ACCUMULATORS = ("total_evaporation_mm", "total_transpiration_mm",
                       "total_precipitation_m3")
 
@@ -142,3 +143,19 @@ def model_from_arrays(arrays: dict, meta: dict, params: SolverParameters,
         heat=None if heat is None else heat_state_from_arrays(heat, device=dev),
         snow=None if snow is None else snow_state_from_arrays(snow, device=dev),
         crop=None if crop is None else CropParameters(**crop), **fields)
+
+
+def project_model_from_arrays(project, arrays: dict, meta: dict, *,
+                              station_trans: dict | None = None) -> None:
+    """Carry a running model into an initialised port project (a
+    ``Criteria3DProject``), so that the project goes on from another
+    run's state: ``arrays`` and ``meta`` as :func:`model_from_arrays` takes
+    them, on the project's device with the project's solver parameters;
+    the project's grid becomes the model's. ``station_trans`` is the
+    stations' last transmissivity (``{station id: value}``), which the
+    project carries through the night hours."""
+    project.model = model_from_arrays(arrays, meta, project.params,
+                                      device=project.device)
+    project.grid = project.model.grid
+    if station_trans is not None:
+        project._station_trans = {k: float(v) for k, v in station_trans.items()}

@@ -8,9 +8,11 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "map_tensors", "scalar", "host_read"]
+__all__ = ["resolve_device", "map_tensors", "scalar", "host_read",
+           "host_array"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,3 +61,11 @@ def host_read(t: torch.Tensor):
 
 
 host_read.count = 0
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array on the host. Like
+    :func:`host_read` it adds one to ``host_read.count``: on the card the
+    copy waits for the work that makes ``t``."""
+    host_read.count += 1
+    return t.detach().cpu().numpy()

@@ -131,6 +131,9 @@ class Criteria3DModel:
     config: ModelConfig
     water: WaterState
     heat: H.HeatState | None = None
+    # (R,C) forest land-use cells; the project sets it, and nothing reads
+    # it until HYDRALL is ported (ROADMAP A8)
+    forest_mask: torch.Tensor | None = None
     snow: SnowState | None = None
     crop: crop_mod.CropParameters | None = None
     lai: torch.Tensor | None = None            # (R,C)

@@ -277,3 +277,309 @@ def small_model(params: SolverParameters, device, n: int = 32) -> Criteria3DMode
     with the box), for the card against the CPU."""
     dem = synthetic_catchment(0, n=n, radius=n * 366.0 / 768)
     return build_model_problem(dem, 4.0, params, device, ModelConfig(**MODEL_CONFIG))
+
+
+# ----------------------------------------------------------------------
+# a project on disk
+# ----------------------------------------------------------------------
+
+PROJECT_DATE = (2023, 3, 21)
+PROJECT_SITE = (44.5, 11.3)      # lat, lon [deg]: UTM zone 32, UTC+1
+# hour, station index and excess [degC] of the broken reading that spatial
+# QC turns away
+PROJECT_OUTLIER = (8, 1, 25.0)
+# output points (ids) and the [output] depth lists [cm]
+PROJECT_OUTPUTS = dict(watercontent="10, 30", waterpotential="10",
+                       factorofsafety="30")
+
+# USDA texture class -> van Genuchten defaults (alpha [kPa-1], n, he
+# [kPa], theta_r, theta_s, k_sat [cm/d], l), the layout of the
+# reference's van_genuchten table
+_VG_CLASSES = {
+    1: (1.46, 2.68, 0.05, 0.045, 0.43, 712.8, 0.5),
+    2: (1.26, 2.28, 0.05, 0.057, 0.41, 350.2, 0.5),
+    3: (0.77, 1.89, 0.1, 0.065, 0.41, 106.1, 0.5),
+    4: (0.20, 1.41, 0.2, 0.067, 0.45, 10.8, 0.5),
+    5: (0.36, 1.56, 0.2, 0.078, 0.43, 24.96, 0.5),
+    6: (0.16, 1.37, 0.3, 0.034, 0.46, 6.0, 0.5),
+    7: (0.60, 1.48, 0.3, 0.1, 0.39, 31.44, 0.5),
+    8: (0.10, 1.23, 0.5, 0.089, 0.43, 1.68, 0.5),
+    9: (0.19, 1.31, 0.5, 0.095, 0.41, 6.24, 0.5),
+    10: (0.27, 1.23, 0.5, 0.1, 0.38, 2.88, 0.5),
+    11: (0.05, 1.09, 0.8, 0.07, 0.36, 0.48, 0.5),
+    12: (0.08, 1.09, 0.8, 0.068, 0.38, 4.8, 0.5),
+}
+# (soil_code, id_soil, [(horizon, upper cm, lower cm, sand, silt, clay,
+# k_sat [cm/d] or None for the texture class's)]); the clay loam's
+# measured k_sat lets the day's 8 mm/h rain soak in
+_SOILS = [
+    ("CL", 1, [(1, 0, 20, 30.0, 35.0, 35.0, 25.0), (2, 20, 50, 25.0, 40.0, 35.0, 20.0),
+               (3, 50, 80, 20.0, 45.0, 35.0, 15.0)]),
+    ("SL", 2, [(1, 0, 10, 65.0, 25.0, 10.0, None), (2, 10, 25, 60.0, 28.0, 12.0, None)]),
+]
+
+
+def _write_soil_db(path: str) -> None:
+    """soils, horizons, van_genuchten and, for horizon 2 of the clay loam,
+    water_retention (six points of a van Genuchten curve, so that
+    ``read_soil_db`` fits it)."""
+    import sqlite3
+    con = sqlite3.connect(path)
+    con.execute("CREATE TABLE soils (id_soil INTEGER, soil_code TEXT, "
+                "name TEXT, info TEXT)")
+    con.execute("CREATE TABLE horizons (soil_code TEXT, horizon_nr INTEGER, "
+                "upper_depth REAL, lower_depth REAL, coarse_fragment REAL, "
+                "organic_matter REAL, sand REAL, silt REAL, clay REAL, "
+                "bulk_density REAL, theta_sat REAL, k_sat REAL, "
+                "effective_cohesion REAL, friction_angle REAL)")
+    con.execute("CREATE TABLE van_genuchten (id_texture INTEGER, alpha REAL, "
+                "n REAL, he REAL, theta_r REAL, theta_s REAL, k_sat REAL, "
+                "l REAL)")
+    con.execute("CREATE TABLE water_retention (soil_code TEXT, "
+                "horizon_nr INTEGER, water_potential REAL, water_content REAL)")
+    con.executemany("INSERT INTO van_genuchten VALUES (?,?,?,?,?,?,?,?)",
+                    [(k,) + v for k, v in _VG_CLASSES.items()])
+    for code, id_soil, horizons in _SOILS:
+        con.execute("INSERT INTO soils VALUES (?,?,?,?)",
+                    (id_soil, code, f"synthetic {code}", ""))
+        for nr, up, low, sand, silt, clay, k_sat in horizons:
+            con.execute("INSERT INTO horizons VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                        (code, nr, up, low, 0.05, 2.0, sand, silt, clay, 1.35,
+                         None, k_sat, 5.0, 30.0))
+    kpa = np.array([1.0, 10.0, 33.0, 100.0, 500.0, 1500.0])
+    psi = kpa / 9.80665
+    theta = 0.07 + 0.37 * (1.0 + (1.1 * psi) ** 1.35) ** (-(1.0 - 1.0 / 1.35))
+    con.executemany("INSERT INTO water_retention VALUES (?,?,?,?)",
+                    [("CL", 2, float(p), float(t)) for p, t in zip(kpa, theta)])
+    con.commit()
+    con.close()
+
+
+def _write_crop_db(path: str) -> None:
+    """crop (one grass) and land_units: the crop unit, an URBAN strip, a
+    ROAD line and a FOREST patch (ids 1-4 of the land-use map)."""
+    import sqlite3
+    con = sqlite3.connect(path)
+    con.execute("CREATE TABLE crop (id_crop TEXT, crop_name TEXT, lai_min REAL, "
+                "lai_max REAL, thermal_threshold REAL, upper_thermal_threshold "
+                "REAL, degree_days_emergence REAL, degree_days_lai_increase "
+                "REAL, degree_days_lai_decrease REAL, lai_curve_factor_a REAL, "
+                "lai_curve_factor_b REAL, root_depth_zero REAL, root_depth_max "
+                "REAL, root_shape_deformation REAL, degree_days_root_increase "
+                "REAL, kc_max REAL, raw_fraction REAL)")
+    con.execute("INSERT INTO crop VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                ("GRASS", "meadow", 1.0, 3.5, 5.0, 30.0, 50.0, 900.0, 2000.0,
+                 4.0, 0.012, 0.05, 0.6, 1.2, 800.0, 1.1, 0.5))
+    con.execute("CREATE TABLE land_units (id_unit INTEGER, name TEXT, "
+                "id_landuse TEXT, id_crop TEXT, roughness REAL, pond REAL)")
+    con.executemany("INSERT INTO land_units VALUES (?,?,?,?,?,?)", [
+        (1, "meadow", "HERBACEOUS", "GRASS", 0.24, 0.002),
+        (2, "village", "URBAN", None, 0.015, 0.0005),
+        (3, "road", "ROAD", None, 0.013, 0.0002),
+        (4, "wood", "FOREST", None, 0.4, 0.004)])
+    con.commit()
+    con.close()
+
+
+def _station_weather(rng, hour: int, z: float, pot: float) -> dict:
+    """One station's observations at ``hour`` of the cold day of
+    :func:`model_day_forcing`, at altitude ``z`` [m]: a thermal inversion
+    (warming 8 K/km up to 400 m) before 9 h, 6.5 K/km cooling after;
+    precipitation at 6-9 h; ``pot`` the site's clear-sky irradiance."""
+    base = DAY_AIR_TEMPERATURE[hour]
+    if hour < 9:
+        t = base + 0.008 * (min(z, 400.0) - 200.0) - 0.0065 * max(z - 400.0, 0.0)
+    else:
+        t = base - 0.0065 * (z - 200.0)
+    prec = DAY_PRECIPITATION.get(hour, 0.0)
+    wet = prec > 0.0
+    return {
+        "t": t + rng.normal(0.0, 0.15),
+        "prec": max(prec * (1.0 + 0.1 * rng.normal()), 0.0),
+        "rh": float(np.clip((90.0 if wet else 65.0) + rng.normal(0.0, 3.0),
+                            30.0, 100.0)),
+        "wind": (3.0 if prec > 5.0 else 2.0) + rng.uniform(-0.5, 0.5),
+        "rad": max(pot * (0.3 if wet else 0.7) * (1.0 + 0.05 * rng.normal()), 0.0),
+    }
+
+
+def write_project(dirpath: str, *, n: int, seed: int, n_stations: int,
+                  compute_heat: bool = False) -> str:
+    """Write a synthetic CRITERIA3D project under ``dirpath`` with numpy
+    and sqlite3 only, so that the JAX package and the port load the same
+    files; returns the path of its ini.
+
+    - MAPS/: the DEM (:func:`synthetic_catchment` on an n x n box of 4 m
+      cells in UTM zone 32 at 44.5 N, 11.3 E), a two-soil map (clay loam
+      west, sandy loam east) and a land-use map (a meadow with an URBAN
+      strip, a ROAD line and a FOREST patch), as .flt;
+    - DATA/soil.db (soils, horizons, van_genuchten, water_retention for one
+      horizon), DATA/crop.db (crop, land_units), DATA/meteo.db (the
+      stations, written by :class:`MeteoPointsDB`) and
+      DATA/output_points.csv (three points);
+    - <name>.ini ([location], [project], [settings], [simulation],
+      [output]) and parameters.ini ([soilWaterFluxes] at a 0.35 m
+      computation depth and accuracy 3, [radiation], [interpolation],
+      [meteo], [climate]).
+
+    The ``n_stations`` stations stand on a lattice at half the box's width
+    (tied distances; some stand outside the DEM) at altitudes spread over
+    60-660 m, and report the 24 hours of 2023-03-21 (local time, UTC+1):
+    the cold day of :func:`model_day_forcing` with a thermal inversion
+    before 9 h, and at :data:`PROJECT_OUTLIER` one broken temperature."""
+    import datetime
+    import os
+
+    from criteria3d_tpu_torch.core.geo import latlon_to_utm, utm_to_latlon
+    from criteria3d_tpu_torch.core.meteo import MeteoVariable
+    from criteria3d_tpu_torch.io.esri import RasterHeader, write_flt
+    from criteria3d_tpu_torch.io.meteopoints import MeteoPointsDB
+    from criteria3d_tpu_torch.physics import radiation as rad_mod
+
+    cell = 4.0
+    lat0, lon0 = PROJECT_SITE
+    x0, y0, zone = latlon_to_utm(lat0, lon0, 32)
+    width = n * cell
+    hdr = RasterHeader(nrows=n, ncols=n, xllcorner=float(round(float(x0) - width / 2)),
+                       yllcorner=float(round(float(y0) - width / 2)), cellsize=cell)
+    cx, cy = hdr.xllcorner + width / 2, hdr.yllcorner + width / 2
+    for sub in ("MAPS", "DATA"):
+        os.makedirs(os.path.join(dirpath, sub), exist_ok=True)
+
+    # --- maps
+    dem = synthetic_catchment(seed, n=n, radius=n * 366.0 / 768)
+    valid = dem != -9999.0
+    rows, cols = np.mgrid[0:n, 0:n]
+    soil_map = np.where(cols < 0.6 * n, 1.0, 2.0)
+    land = np.ones((n, n))
+    land[(rows >= 0.15 * n) & (rows < 0.2 * n + 1)] = 2.0
+    land[:, int(0.7 * n)] = 3.0
+    land[(rows >= 0.6 * n) & (rows < 0.8 * n) & (cols >= 0.2 * n) & (cols < 0.4 * n)] = 4.0
+    for name, data in (("dem", dem), ("soil", np.where(valid, soil_map, -9999.0)),
+                       ("landuse", np.where(valid, land, -9999.0))):
+        write_flt(os.path.join(dirpath, "MAPS", name), data, hdr)
+
+    # --- databases and the output points
+    _write_soil_db(os.path.join(dirpath, "DATA", "soil.db"))
+    _write_crop_db(os.path.join(dirpath, "DATA", "crop.db"))
+    with open(os.path.join(dirpath, "DATA", "output_points.csv"), "w") as f:
+        f.write("id,utm_x,utm_y\n")
+        for pid, (r, c) in zip(("P1", "P2", "P3"),
+                               ((n // 2, n // 2), (n // 2 + n // 8, n // 4 + 1),
+                                (n // 2 - n // 8, 3 * n // 4))):
+            x, y = hdr.xy(r, c)
+            f.write(f"{pid},{x},{y}\n")
+
+    # --- stations
+    rng = np.random.default_rng(seed)
+    n_cols = int(np.ceil(np.sqrt(n_stations)))
+    n_rows = int(np.ceil(n_stations / n_cols))
+    spacing = width / 2
+    alt = 60.0 + 600.0 * np.arange(n_stations) / max(n_stations - 1, 1)
+    alt = rng.permutation(alt)
+    date = datetime.datetime(*PROJECT_DATE)
+    sun = rad_mod.sun_position(torch.tensor(lat0, dtype=torch.float64), lon0, 1,
+                               *PROJECT_DATE, 0)
+    pots = []
+    for hour in range(24):
+        sun = rad_mod.sun_position(torch.tensor(lat0, dtype=torch.float64), lon0, 1,
+                                   *PROJECT_DATE, hour)
+        pots.append(float(rad_mod.clear_sky_beam_horizontal(4.0, sun)
+                          + rad_mod.clear_sky_diffuse_horizontal(4.0, sun)))
+    o_hour, o_station, o_excess = PROJECT_OUTLIER
+    variables = (("t", MeteoVariable.AIR_TEMPERATURE),
+                 ("prec", MeteoVariable.PRECIPITATION),
+                 ("rh", MeteoVariable.AIR_REL_HUMIDITY),
+                 ("wind", MeteoVariable.WIND_SCALAR_INTENSITY),
+                 ("rad", MeteoVariable.GLOBAL_IRRADIANCE))
+    with MeteoPointsDB(os.path.join(dirpath, "DATA", "meteo.db"), create=True) as db:
+        for i in range(n_stations):
+            r, c = divmod(i, n_cols)
+            x = cx + (c - (n_cols - 1) / 2) * spacing
+            y = cy + (r - (n_rows - 1) / 2) * spacing
+            lat, lon = utm_to_latlon(zone, lat0, x, y)
+            sid = f"S{i:02d}"
+            db.write_point_properties(id_point=sid, name=f"station {i}",
+                                      latitude=float(lat), longitude=float(lon),
+                                      utm_x=x, utm_y=y, altitude=float(alt[i]))
+            series = {k: [] for k, _ in variables}
+            for hour in range(24):
+                w = _station_weather(rng, hour, float(alt[i]), pots[hour])
+                if (hour, i) == (o_hour, o_station):
+                    w["t"] += o_excess
+                for k, _ in variables:
+                    series[k].append(w[k])
+            for k, var in variables:
+                db.write_hourly(sid, var, date, series[k])
+
+    # --- the ini files
+    ini = os.path.join(dirpath, "synthetic.ini")
+    with open(ini, "w") as f:
+        f.write(f"""[location]
+lat = {lat0}
+lon = {lon0}
+utm_zone = {zone}
+time_zone = 1
+is_utc = false
+
+[project]
+name = synthetic
+dem = MAPS/dem
+meteo_points = DATA/meteo.db
+soil_map = MAPS/soil
+soil_db = DATA/soil.db
+landuse_map = MAPS/landuse
+crop_db = DATA/crop.db
+output_points = DATA/output_points.csv
+output_db = OUTPUT/output_points.db
+
+[settings]
+parameters_file = parameters.ini
+
+[simulation]
+compute_heat = {str(compute_heat).lower()}
+
+[output]
+waterContent = {PROJECT_OUTPUTS["watercontent"]}
+waterPotential = {PROJECT_OUTPUTS["waterpotential"]}
+factorOfSafety = {PROJECT_OUTPUTS["factorofsafety"]}
+""")
+    monthly = lambda v: ", ".join(str(x) for x in v)
+    with open(os.path.join(dirpath, "parameters.ini"), "w") as f:
+        f.write(f"""[soilWaterFluxes]
+isInitialWaterPotential = true
+initialWaterPotential = -2.0
+computeAllSoilDepth = false
+imposedComputationDepth = 0.35
+conductivityHorizVertRatio = 10
+freeCatchmentRunoff = true
+freeBottomDrainage = true
+freeLateralDrainage = true
+modelAccuracy = 3
+
+[radiation]
+linke = 4.0
+albedo = 0.2
+clear_sky = 0.75
+
+[interpolation]
+minRegressionR2 = 0.1
+algorithm = idw
+thermalInversion = true
+useDewPoint = true
+
+[meteo]
+prec_threshold = 0.2
+wind_intensity_default = 2.0
+
+[climate]
+tmin = {monthly([-1.0, 0.0, 3.0, 7.0, 11.0, 15.0, 17.0, 17.0, 13.0, 9.0, 4.0, 0.0])}
+tmax = {monthly([6.0, 9.0, 14.0, 18.0, 23.0, 27.0, 30.0, 30.0, 25.0, 19.0, 12.0, 7.0])}
+tdmin = {monthly([-4.0, -3.0, -1.0, 3.0, 7.0, 11.0, 13.0, 13.0, 10.0, 6.0, 1.0, -3.0])}
+tdmax = {monthly([2.0, 3.0, 5.0, 9.0, 13.0, 16.0, 18.0, 18.0, 15.0, 11.0, 6.0, 3.0])}
+tmin_lapserate = {monthly([-0.004] * 12)}
+tmax_lapserate = {monthly([-0.0065] * 12)}
+tdmin_lapserate = {monthly([-0.002] * 12)}
+tdmax_lapserate = {monthly([-0.003] * 12)}
+""")
+    return ini

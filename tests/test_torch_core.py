@@ -22,7 +22,8 @@ import torch
 import criteria3d_tpu as J
 from criteria3d_tpu.solver.step import initialize_balance as j_initialize_balance
 import criteria3d_tpu_torch as T
-from criteria3d_tpu_torch import convert
+from criteria3d_tpu_torch import convert, problems
+from criteria3d_tpu_torch.project import Criteria3DProject
 from criteria3d_tpu_torch.solver.step import (
     initialize_balance as t_initialize_balance)
 from tests.test_catchment3d import valley_dem
@@ -244,18 +245,23 @@ def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port and runs its
     CPU entry points (grid, state, one hour of the bundled-Jacobi path, one
     coupled water + heat step on a tiny column, one model-cycle hour with
-    every ported process and its state checkpoint) without loading JAX or
-    the JAX package."""
+    every ported process and its state checkpoint, and one project hour
+    from files: write_project, load, initialize, run_period with its
+    outputs) without loading JAX or the JAX package."""
     code = textwrap.dedent("""
         import dataclasses, sys, tempfile
         import numpy as np, torch
         import criteria3d_tpu_torch as T
         from criteria3d_tpu_torch import (bench_jacobi, constants, convert,
-                                          device, model, ops, problems)
-        from criteria3d_tpu_torch.core import grid, soil, state
-        from criteria3d_tpu_torch.io import esri, state_io
+                                          device, model, ops, outputs,
+                                          problems, project)
+        from criteria3d_tpu_torch.core import geo, grid, soil, state
+        from criteria3d_tpu_torch.core import meteo as core_meteo
+        from criteria3d_tpu_torch.io import (config, database, esri,
+                                             meteopoints, state_io)
         from criteria3d_tpu_torch.physics import (cracking, crop,
-                                                  interception, meteo,
+                                                  interception,
+                                                  interpolation, meteo,
                                                   radiation, snow)
         from criteria3d_tpu_torch.solver import (coupled, heat, jacobi_bundle,
                                                  link_flows, shifts, step,
@@ -285,6 +291,14 @@ def test_port_imports_no_jax():
             g, p, matric_potential=-1.0, device="cpu"))
         s, stats = T.compute_period_stats(g, p, s, 600.0)
         assert stats[0] > 0 and bool(torch.isfinite(s.h).all())
+        import datetime, os
+        with tempfile.TemporaryDirectory() as d:
+            ini = problems.write_project(d, n=8, seed=1, n_stations=6)
+            prj = project.Criteria3DProject.load(ini, output_dir=os.path.join(d, "out"))
+            prj.initialize(device="cpu")
+            log = prj.run_period(datetime.datetime(2023, 3, 21, 8), 1)
+            assert abs(log[0]["mbr"]) < 2e-3 and prj.qc_rejected >= 1
+            assert os.listdir(os.path.join(d, "out", "rasters", "20230321"))
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "criteria3d_tpu"
                or m.startswith("criteria3d_tpu.")]
@@ -298,7 +312,7 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     """Without ``device`` the entry points build on the card, and raise
     where there is none; they never fall back to the CPU."""
     if torch.cuda.is_available():
@@ -317,3 +331,8 @@ def test_entry_points_default_to_cuda():
     jg, _ = build_grids(dem, total_depth=0.4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.grid_from_arrays(to_arrays(jg), grid_meta(jg))
+    prj = Criteria3DProject.load(problems.write_project(
+        str(tmp_path), n=8, seed=1, n_stations=6))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prj.initialize()
+    assert prj.grid is None and prj.model is None

@@ -1,15 +1,17 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
 tiled bundled-Jacobi design against the per-sweep one, small hours of
-the float64, CG and coupled water + heat paths, and the model cycle's
-physics maps and hours, on the card against the CPU path. Every test
-here carries the ``cuda`` marker and skips where there is no card; the
-file imports neither JAX nor the JAX package, so it runs on a machine
-without them:
+the float64, CG and coupled water + heat paths, the model cycle's physics
+maps and hours, and a project's hours from files, on the card against the
+CPU path. Every test here carries the ``cuda`` marker and skips where
+there is no card; the file imports neither JAX nor the JAX package, so it
+runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 (``--noconftest``: tests/conftest.py configures JAX.)
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -280,3 +282,55 @@ def test_small_model_hours_on_card_match_cpu():
     assert float((mc.water.h.cpu() - mp.water.h).abs().max()) < 1e-6
     assert float((mc.snow.swe.cpu() - mp.snow.swe).abs().max()) < 1e-6
     assert float(mp.snow.swe.max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_small_project_hours_on_card_match_cpu(tmp_path):
+    """chip_smoke.py phase 3l in short: problems.write_project on a 16 box,
+    loaded and initialised on the card and on the CPU under its float64
+    parameters, hours 6-8 through run_period with outputs: the forcing
+    maps rel 1e-12, the same solver stats, heads within 1e-6 m, each
+    hour's MBR within 1e-8, the output rasters within one float32 ulp,
+    the output-point values rel 1e-9, no bundle launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only on the card")
+    import datetime
+    import sqlite3
+    from criteria3d_tpu_torch import problems
+    from criteria3d_tpu_torch.project import Criteria3DProject
+    ini = problems.write_project(str(tmp_path / "p"), n=16, seed=0, n_stations=6)
+    start = datetime.datetime(*problems.PROJECT_DATE, 6)
+    before = TB.jacobi_bundle.launches
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        prj = Criteria3DProject.load(ini, output_dir=str(tmp_path / dev))
+        prj.initialize(device=dev)
+        f = prj.hourly_forcing(start)
+        assert f.air_temperature.device.type == dev
+        log = prj.run_period(start, 3)
+        runs[dev] = (prj, f, log)
+    assert TB.jacobi_bundle.launches == before
+    (pc, fc, lc), (pp, fp, lp) = runs["cuda"], runs["cpu"]
+    for k in ("air_temperature", "precipitation", "rel_humidity", "wind_speed"):
+        _close(getattr(fc, k), getattr(fp, k), 1e-12, k)
+    assert fc.transmissivity == pytest.approx(fp.transmissivity, rel=1e-12)
+    assert max(abs(a["mbr"] - b["mbr"]) for a, b in zip(lc, lp)) < 1e-8
+    assert float((pc.model.water.h.cpu() - pp.model.water.h).abs().max()) < 1e-6
+    for day in os.listdir(tmp_path / "cpu" / "rasters"):
+        for name in os.listdir(tmp_path / "cpu" / "rasters" / day):
+            if name.endswith(".flt"):
+                a = np.fromfile(tmp_path / "cuda" / "rasters" / day / name, "<f4")
+                b = np.fromfile(tmp_path / "cpu" / "rasters" / day / name, "<f4")
+                fin = ~np.isnan(b)
+                assert np.array_equal(np.isnan(a), ~fin)
+                assert np.abs(a[fin].view(np.int32).astype(np.int64)
+                              - b[fin].view(np.int32).astype(np.int64)).max() <= 1
+    rows = []
+    for prj in (pc, pp):
+        con = sqlite3.connect(prj.config.output_db_path)
+        rows.append(con.execute('SELECT * FROM "point_P1" ORDER BY time').fetchall())
+        con.close()
+    assert len(rows[0]) == len(rows[1]) == 3
+    for a, b in zip(*rows):
+        assert a[0] == b[0]
+        np.testing.assert_allclose(a[1:], b[1:], rtol=1e-9)
