@@ -77,7 +77,7 @@ Phases (any failed check exits non-zero before the last line):
 3k. the project stack at full size: ``problems.write_project`` (the same
    catchment at n = 768 with 20 stations, two soils, land units, output
    points and maps), ``Criteria3DProject.load`` and
-   ``initialize(fast=True)`` on the card, ``run_period`` over hours 6-11
+   ``initialize(fast=True)`` on the card, ``run_period`` over hours 6-9
    with outputs: per hour the wall, host reads, solver stats and MBR;
    the peak memory, the readings spatial QC turned away, the rasters and
    output-DB rows written; checks |MBR| < 2e-3, no bundle launch, every
@@ -88,9 +88,37 @@ Phases (any failed check exits non-zero before the last line):
    from 00 h through ``run_period`` (the forcing maps rel 1e-12, the same
    steps, attempts and approximations, heads 1e-6 m, hourly MBRs 1e-8, the
    23 h daily update's Tmin / Tmax maps, degree days and LAI rel 1e-12,
-   rasters within one float32 ulp, output-DB values rel 1e-9), then three
-   coupled hours of the same project with ``compute_heat`` (heat vapor and
-   advection): the same counts, T within 1e-6 K, heads within 1e-6 m;
+   rasters within one float32 ulp, output-DB values rel 1e-9), then the
+   first coupled hour of the same project with ``compute_heat`` (heat vapor
+   and advection): the same counts, T within 1e-6 K, heads within 1e-6 m;
+3m. HYDRALL and RothC in the model cycle at full size
+   (``problems.build_hydrall_problem``: 3g's catchment under ``fast_f32()``
+   with a seeded forest), hours 10-13 of the model day: per hour the wall,
+   host reads, solver stats, MBR and the fixed point's iterations; checks
+   |MBR| < 2e-3, no bundle launch, HYDRALL's outputs finite, transpiration
+   0 outside the forest; the peak memory; hour 14 profiled (the
+   ``c3d.hydrall`` range's device time); hour 13's ``hydrall_hour`` on its
+   own inputs on the card and on the CPU (rel 1e-12, stop flips counted);
+   the Jan-1 annual step and one monthly RothC step on the card;
+3n. a 16 box with HYDRALL and RothC under ``SolverParameters()`` on the
+   card and on the CPU, ``run_period`` over a dry Dec 31 and Jan 1 (the
+   month-end RothC step, the annual step's litter): the same stats every
+   hour, daily MBRs 1e-8, heads 1e-6 m, RothC and HYDRALL maps, litter and
+   LAI rel 1e-9;
+3o. the VINE3D project at full size (``problems.write_vine_project``,
+   n = 768, 20 stations), ``Vine3DProject.load`` and
+   ``initialize(fast=True)``, the seeded mid-season canopy and the day's
+   field book, hours 11-13 and 22-23 of 2023-06-21 and the daily update:
+   per hour the wall, host reads, stats, MBR, the mass error over the
+   hour's gross exchange (< 2e-3), the fixed point's iterations, irrigated
+   cells (field 1's, in the booked last hours), no bundle launch; the peak
+   memory; hour 14 profiled (``c3d.vine``, ``c3d.diseases``); hour 12's
+   canopy fluxes on a 64 x 64 window of their own inputs on the card and
+   on the CPU (rel 1e-12, stop flips counted);
+3p. a 32 box VINE3D project's ``run_day`` (float64) on the card and on
+   the CPU: the same stats every hour, hourly MBRs 1e-8, heads 1e-6 m,
+   vine maps rel 1e-9, the powdery risk within 4 float32 ulp of the pool,
+   infection flags, downy stages and irrigation equal;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
@@ -102,8 +130,11 @@ the step's ``c3d.assemble`` and ``c3d.inner_solve`` ranges, the heat
 sub-steps' ``c3d.heat_assemble`` and ``c3d.heat_solve`` ranges, the model
 cycle's ``c3d.radiation`` (shadow march included), ``c3d.snow``,
 ``c3d.et0`` and ``c3d.sinks`` ranges, the project's ``c3d.interpolation``
-and ``c3d.outputs`` ranges, and the rest. It imports nothing of
-JAX and nothing of the JAX package.
+and ``c3d.outputs`` ranges, HYDRALL's ``c3d.hydrall``, the vineyard's
+``c3d.vine`` and ``c3d.diseases`` ranges, and the rest. It imports nothing
+of JAX and nothing of the JAX package. ``side_phases(seed, card)`` runs
+3m-3p alone; with ``dev="cpu"`` and a small ``n`` it rehearses them on the
+CPU.
 """
 
 from __future__ import annotations
@@ -704,10 +735,13 @@ def model_phases(dem, seed: int, card: str) -> dict:
 
 
 # the project phases: problems.write_project's day, 2023-03-21 (local time)
-PROJECT_3K_HOURS = (6, 6)          # first hour, hours
+# (hours 6-11 until the side phases joined the run; the script stays near
+# 600 s)
+PROJECT_3K_HOURS = (6, 4)          # first hour, hours
 # the coupled hours: the frosty night from 00 h (from a fresh model the
-# morning's snow and rain hours take 2,000 heat sub-steps each)
-PROJECT_3L_HEAT_HOURS = (0, 3)
+# morning's snow and rain hours take 2,000 heat sub-steps each); hours 0-2
+# until the side phases joined the run
+PROJECT_3L_HEAT_HOURS = (0, 1)
 
 
 def instrument_run_hour(prj, records: list, keep_forcing: bool = False) -> None:
@@ -772,7 +806,7 @@ def project_files(prj):
 def project_full_size(seed: int, card: str, tmp: str) -> dict:
     """phase 3k: problems.write_project at n = 768 with 20 stations, then
     Criteria3DProject.load, initialize(fast=True) on the card and
-    run_period over hours 6-11 with outputs; one more hour profiled."""
+    run_period over hours 6-9 with outputs; one more hour profiled."""
     import datetime
     import numpy as np
     import torch
@@ -840,13 +874,13 @@ def project_full_size(seed: int, card: str, tmp: str) -> dict:
     when = start + datetime.timedelta(hours=n_hours)
     ranges = layer_ranges() + (INTERPOLATION_RANGE, OUTPUTS_RANGE)
     busy, _, layers = breakdown(
-        "project hour 12", lambda: (prj.run_hour(when), prj.flush_outputs()),
+        f"project hour {when.hour}", lambda: (prj.run_hour(when), prj.flush_outputs()),
         statistics.median(walls), ranges=ranges)
     check(busy > 0.0, "the profiler saw no device activity in the project hour")
     interp_s, out_s = layers.get(INTERPOLATION_RANGE, 0.0), layers.get(OUTPUTS_RANGE, 0.0)
     check(interp_s > 0.0 and out_s > 0.0,
           f"3k: no device time in the interpolation ({interp_s}) or outputs ({out_s}) range")
-    print(f"# project hour 12 ({card}): device time by layer "
+    print(f"# project hour {when.hour} ({card}): device time by layer "
           + "; ".join(f"{k} {layers.get(k, 0.0)} s" for k in ranges + ("other",)), flush=True)
     return dict(walls=walls, syncs=[r["syncs"] for r in records],
                 stats=[r["stats"] for r in records], mbrs=[e["mbr"] for e in log],
@@ -858,8 +892,8 @@ def project_full_size(seed: int, card: str, tmp: str) -> dict:
 def project_day_card_vs_cpu(seed: int, card: str, tmp: str) -> dict:
     """phase 3l: a 32 box project under its float64 parameters on the card
     and on the CPU, the whole day from 00 h (the daily update at 23 h),
-    then three coupled hours of the same project with compute_heat (heat
-    vapor and advection on)."""
+    then the first coupled hour of the same project with compute_heat
+    (heat vapor and advection on)."""
     import datetime
     import numpy as np
     import torch
@@ -938,7 +972,7 @@ def project_day_card_vs_cpu(seed: int, card: str, tmp: str) -> dict:
     check(ulp <= 1, f"3l: rasters differ by {ulp} float32 ulp")
     check(db_rel < 1e-9, f"3l: output DB values differ by rel {db_rel}")
 
-    # three coupled hours: compute_heat turns on heat vapor and advection
+    # the coupled hour: compute_heat turns on heat vapor and advection
     ini_h = write_project(os.path.join(tmp, "p32h"), n=32, seed=seed, n_stations=6,
                           compute_heat=True)
     first, n_hours = PROJECT_3L_HEAT_HOURS
@@ -980,6 +1014,519 @@ def project_phases(seed: int, card: str) -> dict:
     seconds = time.time() - t0
     print(f"# phases 3k-3l took {seconds} s ({card})", flush=True)
     return dict(full=full, small=small, seconds=seconds)
+
+
+# ----------------------------------------------------------------------
+# the side process models: HYDRALL and RothC in the model cycle (3m, 3n)
+# and the VINE3D project (3o, 3p)
+# ----------------------------------------------------------------------
+
+# 3m: hours 10-13 of the model day (daylight, dry), then hour 14 profiled
+HYDRALL_HOURS = (10, 11, 12, 13)
+# 3o / 3p: the vine project's summer day (problems.VINE_DATE); 3o runs the
+# late morning and the irrigated last hours, then hour 14 profiled
+VINE_HOURS = (11, 12, 13, 22, 23)
+# 3o: the canopy-flux window held against the CPU (rows, cols)
+VINE_WINDOW = (slice(352, 416), slice(352, 416))
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(dev, reset: bool = False) -> float:
+    """Peak device memory [GiB] since the last reset (0 on the CPU)."""
+    import torch
+    if torch.device(dev).type != "cuda":
+        return 0.0
+    if reset:
+        torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _profiled(label, run, wall_s, ranges, dev):
+    """:func:`breakdown` on the card; on the CPU (a rehearsal) the run only
+    (there is no device time to measure)."""
+    if torch_device_type(dev) != "cuda":
+        run()
+        return 1.0, {}, {r: 1.0 for r in ranges}
+    return breakdown(label, run, wall_s, ranges=ranges)
+
+
+def torch_device_type(dev) -> str:
+    import torch
+    return torch.device(dev).type
+
+
+def recording(module, name: str, store: list, stops: bool = False):
+    """Replace ``module.name`` by a wrapper that appends each call's
+    keyword arguments (with ``stops``: a fixed point's per-cell stop
+    information) to ``store``; returns the original, to put back."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        if stops:
+            *out, info = orig(*args, return_stop=True, **kw)
+            store.append(info)
+            return tuple(out)
+        store.append((args, kw))
+        return orig(*args, **kw)
+
+    # the fixed points count their iterations on the module's function
+    wrapper.iterations = wrapper.calls = 0
+    setattr(module, name, wrapper)
+    return orig
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| (0 when both are 0)."""
+    import torch
+    a, b = a.double().cpu(), b.double().cpu()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    d = float((a - b).abs().max()) if b.numel() else 0.0
+    return d / scale if scale > 0.0 else d
+
+
+def stop_flips(stops_a, stops_b, tol: float = 1e-7):
+    """(flipped cells, cells) of the fixed-point calls of two runs: cells
+    whose stop iteration differs; a flipped cell's |dASS| on the run that
+    stopped must lie within rounding of ``tol``."""
+    flips = cells = 0
+    for a, b in zip(stops_a, stops_b):
+        sa, sb = a["stop"].cpu(), b["stop"].cpu()
+        diff = sa != sb
+        cells += sa.numel()
+        flips += int(diff.sum())
+        if diff.any():
+            d = a["d_ass"].cpu()[diff & (sa >= 0)]
+            check(bool((d <= tol * (1.0 + 1e-6)).all()),
+                  f"a stop flip with |dASS| {float(d.max())} away from tol")
+    return flips, cells
+
+
+def hydrall_full_size(dem, seed: int, card: str, dev="cuda") -> dict:
+    """phase 3m: HYDRALL and RothC in the model cycle at full size
+    (``problems.build_hydrall_problem`` under ``fast_f32()``): hours 10-13
+    of the model day, hour 14 profiled, hour 13's ``hydrall_hour`` on the
+    card and on the CPU, then the Jan-1 annual step and a monthly RothC
+    step."""
+    import dataclasses
+    import datetime
+    import torch
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.model import masked_mean
+    from criteria3d_tpu_torch.physics import hydrall as HY
+    from criteria3d_tpu_torch.problems import build_hydrall_problem, model_day_forcing
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    _peak_gib(dev, reset=True)
+    t0 = time.time()
+    model = build_hydrall_problem(dem, 4.0, SolverParameters.fast_f32(), dev, seed=seed)
+    _sync(dev)
+    forest = model.forest_mask
+    n_forest = int(forest.sum())
+    print(f"# hydrall model ({card}): built in {time.time() - t0:.1f} s; "
+          f"{model.grid.n_nodes} nodes, {n_forest} forest cells", flush=True)
+    captured = []
+    orig = recording(HY, "hydrall_hour", captured)
+    runs = []
+    try:
+        for hour in HYDRALL_HOURS:
+            forcing = model_day_forcing(model.grid, None, hour)
+            del captured[:]
+            _sync(dev)
+            JB.jacobi_bundle.launches = 0
+            host_read.count = 0
+            HY.photosynthesis_kernel.iterations = 0
+            t0 = time.time()
+            out = model.run_hour(forcing, *MODEL_DATE, hour)
+            _sync(dev)
+            wall = time.time() - t0
+            syncs, launches = host_read.count, JB.jacobi_bundle.launches
+            iters = HY.photosynthesis_kernel.iterations
+            mbr = float(out["mbr"])
+            assim, transp = out["hydrall_assimilation"], out["hydrall_transpiration"]
+            a_mean = float(masked_mean(assim, forest, device=True))
+            t_mean = float(masked_mean(transp, forest, device=True))
+            print(f"# hydrall model hour {hour} ({card}): wall {wall} s, host reads {syncs}, "
+                  f"stats {out['solver_stats']}, MBR {mbr}, fixed-point iterations {iters} "
+                  f"(2 calls), forest means: assimilation {a_mean} mol m-2 s-1, "
+                  f"transpiration {t_mean} mm; bundle launches {launches}", flush=True)
+            for name, t in list(tensors_of(model.hydrall)) + list(tensors_of(model.rothc)) + [
+                    (k, v) for k, v in out.items() if isinstance(v, torch.Tensor)]:
+                check(t.device.type == torch_device_type(dev),
+                      f"3m hour {hour}: {name} is on {t.device}")
+            check(abs(mbr) < 2e-3, f"3m hour {hour}: |MBR| {mbr} >= 2e-3")
+            check(launches == 0, f"3m hour {hour}: {launches} bundle launches")
+            check(iters >= 2, f"3m hour {hour}: {iters} fixed-point iterations")
+            check(bool(torch.isfinite(assim).all()) and bool(torch.isfinite(transp).all())
+                  and float(transp.min()) >= 0.0 and a_mean > 0.0,
+                  f"3m hour {hour}: HYDRALL outputs out of range")
+            check(float(transp[~forest].abs().max()) == 0.0,
+                  f"3m hour {hour}: transpiration outside the forest")
+            runs.append(dict(wall_s=wall, syncs=syncs, iterations=iters, mbr=mbr,
+                             stats=out["solver_stats"]))
+    finally:
+        HY.hydrall_hour = orig
+    peak = _peak_gib(dev)
+    walls = [r["wall_s"] for r in runs]
+    busy, _, layers = _profiled(
+        "hydrall model hour 14", lambda: dataclasses.replace(model).run_hour(
+            model_day_forcing(model.grid, None, 14), *MODEL_DATE, 14),
+        statistics.median(walls), layer_ranges() + (HY.HYDRALL_RANGE,), dev)
+    hyd_s = layers.get(HY.HYDRALL_RANGE, 0.0)
+    check(busy > 0.0 and hyd_s > 0.0,
+          f"3m: no device time in the hour ({busy}) or in {HY.HYDRALL_RANGE} ({hyd_s})")
+    print(f"# hydrall model hour 14 ({card}): {HY.HYDRALL_RANGE} {hyd_s} s of device "
+          f"busy {busy} s ({hyd_s / busy}); peak memory {peak:.2f} GiB", flush=True)
+
+    # the last hour's hydrall_hour on its own inputs, card against CPU
+    (args, kw), = captured
+    results = {}
+    for d in (dev, "cpu"):
+        stops = []
+        orig_k = recording(HY, "photosynthesis_kernel", stops, stops=True)
+        try:
+            maps = args[0].to(d)
+            kw_d = {k: v.to(d) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+            results[d] = HY.hydrall_hour(maps, **kw_d) + (stops,)
+        finally:
+            HY.photosynthesis_kernel = orig_k
+    (mc, oc, sc), (mp, op, sp) = results[dev], results["cpu"]
+    flips, cells = stop_flips(sc, sp)
+    rels = {k: rel_err(oc[k], op[k]) for k in op}
+    rels.update({f"maps.{n}": rel_err(t, dict(tensors_of(mp))[n]) for n, t in tensors_of(mc)})
+    worst = max(rels.values())
+    print(f"# hydrall_hour card vs CPU on hour 13's inputs ({card}): stop flips {flips} of "
+          f"{cells} cells; max rel {worst} ({max(rels, key=rels.get)}; tolerance 1e-12)",
+          flush=True)
+    if flips == 0:
+        check(worst <= 1e-12, f"3m: hydrall_hour card vs CPU rel {worst}")
+    else:   # a flip moves a cell's output by up to tol (1e-7 mol m-2 s-1)
+        check(float((oc["assimilation"].cpu() - op["assimilation"]).abs().max()) <= 4e-7,
+              "3m: a stop flip moved the assimilation by more than 2 tol x 2 leaves")
+
+    # the Jan-1 annual step and one monthly RothC step on the card
+    t0 = time.time()
+    model.daily_update(-3.0, 8.5, date=datetime.date(2024, 1, 1))
+    diag = model.monthly_rothc_update(torch.tensor(4.0, dtype=torch.float64, device=dev),
+                                      60.0, 25.0)
+    _sync(dev)
+    step_s = time.time() - t0
+    litter = model._rothc_litter
+    check(isinstance(litter, torch.Tensor) and litter.device.type == torch_device_type(dev)
+          and bool(torch.isfinite(litter).all())
+          and float(litter.min()) > 0.0, "3m: the annual step gave no litter map on the card")
+    soc = masked_mean(model.rothc.soc, model.grid.mask[0])
+    check(math.isfinite(soc) and float(diag["co2"].min()) >= 0.0,
+          f"3m: RothC after the monthly step: SOC {soc}")
+    print(f"# hydrall model ({card}): Jan-1 annual step + monthly RothC step {step_s} s; "
+          f"litter {float(litter.mean())} kg C m-2 (map mean), catchment SOC {soc} t C/ha, "
+          f"monthly CO2 {float(diag['co2'].mean())} t C/ha", flush=True)
+    return dict(walls=walls, syncs=[r["syncs"] for r in runs],
+                iterations=[r["iterations"] for r in runs], mbrs=[r["mbr"] for r in runs],
+                stats=[r["stats"] for r in runs], peak_gib=peak, busy_s=busy,
+                hydrall_s=hyd_s, flips=flips, rel=worst, step_s=step_s)
+
+
+def dry_day_forcing(grid, date, hour):
+    """problems.model_day_forcing without its snow and rain: 4 K warmer,
+    70 % humidity, wind 2 m/s, transmissivity 0.6 (a dry winter day)."""
+    import dataclasses
+    import torch
+    from criteria3d_tpu_torch.problems import model_day_forcing
+    f = model_day_forcing(grid, date, hour)
+    t = f.air_temperature
+    return dataclasses.replace(
+        f, air_temperature=t + 4.0, precipitation=torch.zeros_like(t),
+        rel_humidity=torch.full_like(t, 70.0), wind_speed=torch.full_like(t, 2.0),
+        transmissivity=torch.full_like(t, 0.6))
+
+
+def hydrall_card_vs_cpu(seed: int, card: str, dev="cuda") -> dict:
+    """phase 3n: run_period over Dec 31 and Jan 1 (the month-end RothC step,
+    the Jan-1 annual step) of a dry winter (:func:`dry_day_forcing`) on a
+    16 box under SolverParameters(), card against CPU."""
+    import datetime
+    import torch
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.problems import small_hydrall_model
+    first = datetime.date(2023, 12, 31)
+    runs = {}
+    for d in (dev, "cpu"):
+        m = small_hydrall_model(SolverParameters(), d, n=16, seed=seed)
+        stats = []
+        inner = m.run_hour
+
+        def run_hour(*a, inner=inner, stats=stats):
+            out = inner(*a)
+            stats.append(out["solver_stats"])
+            return out
+
+        m.run_hour = run_hour
+        t0 = time.time()
+        log = m.run_period(first, 2, lambda day, h, g=m.grid: dry_day_forcing(g, day, h))
+        _sync(d)
+        runs[d] = (m, log, stats, time.time() - t0)
+    (mc, lc, sc, wc), (mp, lp, sp, wp) = runs[dev], runs["cpu"]
+    check(sc == sp, f"3n: the hours' stats differ (card {sc}, CPU {sp})")
+    d_mbr = max(abs(a["mbr"] - b["mbr"]) for a, b in zip(lc, lp))
+    dh = float((mc.water.h.cpu() - mp.water.h).abs().max())
+    rels = {f"rothc.{n}": rel_err(t, getattr(mp.rothc, n)) for n, t in tensors_of(mc.rothc)}
+    rels.update({f"hydrall.{n}": rel_err(t, dict(tensors_of(mp.hydrall))[n])
+                 for n, t in tensors_of(mc.hydrall)})
+    rels["litter"] = rel_err(mc._rothc_litter, mp._rothc_litter)
+    rels["lai"] = rel_err(mc.lai, mp.lai)
+    worst = max(rels.values())
+    print(f"# hydrall period Dec 31 - Jan 1, 16 box ({card}): card {wc} s, CPU {wp} s; "
+          f"{len(sc)} hours, {sum(s[0] for s in sc)} steps; daily MBRs card "
+          f"{[e['mbr'] for e in lc]}; max |dMBR| {d_mbr} (1e-8); max |dh| {dh} m (1e-6); "
+          f"RothC, HYDRALL, litter, LAI max rel {worst} ({max(rels, key=rels.get)}; 1e-9)",
+          flush=True)
+    check(d_mbr < 1e-8, f"3n: daily MBRs differ by {d_mbr}")
+    check(dh < 1e-6, f"3n: heads differ by {dh} m")
+    check(worst <= 1e-9, f"3n: side-model maps differ by rel {worst}")
+    check(isinstance(mc._rothc_litter, torch.Tensor), "3n: no Jan-1 litter")
+    return dict(walls=(wc, wp), d_mbr=d_mbr, dh=dh, rel=worst, steps=sum(s[0] for s in sc))
+
+
+def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> dict:
+    """phase 3o: the VINE3D project at n = 768 under initialize(fast=True)
+    with the seeded mid-season canopy: hours 11-13 and 22-23 (irrigation
+    booked for the day), the daily update, one more hour profiled; one
+    hour's canopy fluxes on a window held against the CPU."""
+    import dataclasses
+    import datetime
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.physics import vine_photosynthesis as VP
+    from criteria3d_tpu_torch.problems import (VINE_DATE, VINE_IRRIGATION_HOURS,
+                                               seed_vine_canopy, write_vine_project)
+    from criteria3d_tpu_torch.project import INTERPOLATION_RANGE
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    from criteria3d_tpu_torch.vine3d import DISEASES_RANGE
+    from criteria3d_tpu_torch.vine3d_project import Vine3DProject
+    t0 = time.time()
+    ini = write_vine_project(os.path.join(tmp, "v768"), n=n, seed=seed, n_stations=20)
+    write_s = time.time() - t0
+    t0 = time.time()
+    prj = Vine3DProject.load(ini, output_dir=os.path.join(tmp, "vout768"))
+    load_s = time.time() - t0
+    _peak_gib(dev, reset=True)
+    t0 = time.time()
+    prj.initialize(fast=True, device=dev)
+    _sync(dev)
+    init_s = time.time() - t0
+    model = prj.model
+    check(model.water.h.device.type == torch_device_type(dev)
+          and prj.base.params.inner_solver == "cg",
+          "3o: the vine project did not build on the card under fast=True")
+    seed_vine_canopy(model)
+    date = datetime.date(*VINE_DATE)
+    model.apply_field_book(date)
+    n_vine = int(model.vineyard_mask.sum())
+    print(f"# vine project 768 ({card}): wrote {write_s:.1f} s, loaded {load_s:.1f} s, "
+          f"initialized {init_s:.1f} s; {prj.base.grid.n_nodes} nodes, {n_vine} vineyard "
+          f"cells, irrigation {model._irrigation_hours} h at {model.max_irrigation_rate} mm/h",
+          flush=True)
+    captured = []
+    orig = recording(VP, "vine_canopy_fluxes", captured)
+    runs = []
+    try:
+        for hour in VINE_HOURS:
+            when = datetime.datetime(*VINE_DATE, hour)
+            _sync(dev)
+            JB.jacobi_bundle.launches = 0
+            host_read.count = 0
+            VP.photosynthesis_kernel_simplified.iterations = 0
+            t0 = time.time()
+            out = model.run_hour(prj.hourly_forcing(when), *VINE_DATE, hour)
+            _sync(dev)
+            wall = time.time() - t0
+            syncs, launches = host_read.count, JB.jacobi_bundle.launches
+            iters = VP.photosynthesis_kernel_simplified.iterations
+            irrigated = int((out["irrigation"] > 0).sum())
+            demand = float(out["vine_transpiration_demand"][model.vineyard_mask].mean())
+            # the mass gate against the hour's gross exchange: in an irrigated
+            # hour the net sink (irrigation in, transpiration out) can nearly
+            # cancel, and the whole-period MBR divides by it
+            bw = model.water.balance_whole
+            irr_m3 = float(out["irrigation"].sum()) / 1000.0 * float(model.grid.area)
+            gross = max(abs(float(bw.sink_source)), irr_m3, 0.001)
+            mass = abs(float(bw.mbe)) / gross
+            print(f"# vine project 768 hour {hour} ({card}): wall {wall} s, host reads "
+                  f"{syncs}, stats {out['solver_stats']}, MBR {out['mbr']} (mass error "
+                  f"{float(bw.mbe)} m3 over a gross exchange of {gross} m3: {mass}), "
+                  f"fixed-point iterations {iters} (4 calls), irrigated cells {irrigated}, "
+                  f"vineyard transpiration demand {demand} mm, bundle launches {launches}",
+                  flush=True)
+            for name, t in [(k, v) for k, v in out.items() if isinstance(v, torch.Tensor)]:
+                check(t.device.type == torch_device_type(dev),
+                      f"3o hour {hour}: {name} is on {t.device}")
+            check(mass < 2e-3, f"3o hour {hour}: mass error {mass} of the gross exchange")
+            check(launches == 0, f"3o hour {hour}: {launches} bundle launches")
+            check(bool(torch.isfinite(out["vine_transpiration_demand"]).all()),
+                  f"3o hour {hour}: non-finite transpiration")
+            check(irrigated == (int((torch.as_tensor(model.field_map) == 1).sum())
+                                if hour >= 24 - VINE_IRRIGATION_HOURS else 0),
+                  f"3o hour {hour}: {irrigated} irrigated cells")
+            runs.append(dict(wall_s=wall, syncs=syncs, iterations=iters, mbr=out["mbr"],
+                             mass=mass, stats=out["solver_stats"], irrigated=irrigated,
+                             launches=launches))
+    finally:
+        VP.vine_canopy_fluxes = orig
+    t0 = time.time()
+    day = model.daily_update(date)
+    _sync(dev)
+    day_s = time.time() - t0
+    check(bool(torch.isfinite(day["lai"]).all()) and bool(torch.isfinite(day["stage"]).all()),
+          "3o: the daily update is not finite")
+    peak = _peak_gib(dev)
+    walls = [r["wall_s"] for r in runs]
+    when = datetime.datetime(*VINE_DATE, 14)
+    ranges = layer_ranges() + (VP.VINE_RANGE, DISEASES_RANGE, INTERPOLATION_RANGE)
+    busy, _, layers = _profiled(
+        "vine hour 14", lambda: dataclasses.replace(model).run_hour(
+            prj.hourly_forcing(when), *VINE_DATE, 14),
+        statistics.median(walls), ranges, dev)
+    vine_s, dis_s = layers.get(VP.VINE_RANGE, 0.0), layers.get(DISEASES_RANGE, 0.0)
+    check(busy > 0.0 and vine_s > 0.0 and dis_s > 0.0,
+          f"3o: no device time in {VP.VINE_RANGE} ({vine_s}) or {DISEASES_RANGE} ({dis_s})")
+    print(f"# vine hour 14 ({card}): device busy {busy} s; {VP.VINE_RANGE} {vine_s} s "
+          f"({vine_s / busy}), {DISEASES_RANGE} {dis_s} s ({dis_s / busy}); daily update "
+          f"{day_s} s; peak memory {peak:.2f} GiB; device time by layer "
+          + "; ".join(f"{k} {layers.get(k, 0.0)} s" for k in ranges + ("other",)), flush=True)
+
+    # hour 12's canopy fluxes on a window of its own inputs, card against CPU
+    _, kw = captured[1]
+    rows, cols = VINE_WINDOW if n == 768 else (slice(0, n), slice(0, n))
+
+    def window(v, d):
+        if isinstance(v, torch.Tensor):
+            if v.dim() >= 2 and v.shape[-2:] == model.grid.shape[1:]:
+                v = v[..., rows, cols]
+            return v.to(d)
+        return v
+
+    results = {}
+    for d in (dev, "cpu"):
+        stops = []
+        orig_k = recording(VP, "photosynthesis_kernel_simplified", stops, stops=True)
+        try:
+            results[d] = (VP.vine_canopy_fluxes(**{k: window(v, d) for k, v in kw.items()}),
+                          stops)
+        finally:
+            VP.photosynthesis_kernel_simplified = orig_k
+    (oc, sc), (op, sp) = results[dev], results["cpu"]
+    flips, cells = stop_flips(sc, sp)
+    keys = ("assimilation", "transpiration_layer", "total_stomatal_conductance",
+            "transpiration_nostress", "absorbed_par", "vpd_pa")
+    rels = {k: rel_err(oc[k], op[k]) for k in keys}
+    # the stress coefficient is a 0-1 fraction formed as 1 - Gs / Gs0, near
+    # 0 where the layers are wet: held absolutely, against 1
+    rels["stress_coefficient"] = float(
+        (oc["stress_coefficient"].cpu() - op["stress_coefficient"]).abs().max())
+    worst = max(rels.values())
+    never = sum(int((s["stop"] < 0).sum()) for s in sc)
+    print(f"# vine canopy fluxes card vs CPU, hour 12 on a {rows.stop - rows.start} x "
+          f"{cols.stop - cols.start} window ({card}): stop flips {flips} of {cells} cells "
+          f"({never} never stop in {len(sc)} calls); max rel {worst} "
+          f"({max(rels, key=rels.get)}; tolerance 1e-12)", flush=True)
+    if flips == 0:
+        check(worst <= 1e-12, f"3o: canopy fluxes card vs CPU rel {worst}")
+    return dict(walls=walls, syncs=[r["syncs"] for r in runs],
+                iterations=[r["iterations"] for r in runs],
+                stats=[r["stats"] for r in runs], mbrs=[r["mbr"] for r in runs],
+                mass=[r["mass"] for r in runs], irrigated=[r["irrigated"] for r in runs],
+                launches=sum(r["launches"] for r in runs), peak_gib=peak, busy_s=busy,
+                vine_s=vine_s, diseases_s=dis_s, flips=flips, rel=worst,
+                setup_s=(write_s, load_s, init_s), n_vine=n_vine)
+
+
+def vine_day_card_vs_cpu(seed: int, card: str, tmp: str, dev="cuda") -> dict:
+    """phase 3p: a 32 box VINE3D project's run_day under its float64
+    parameters on the card and on the CPU."""
+    import datetime
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.problems import VINE_DATE, seed_vine_canopy, write_vine_project
+    from criteria3d_tpu_torch.vine3d_project import Vine3DProject
+    ini = write_vine_project(os.path.join(tmp, "v32"), n=32, seed=seed)
+    date = datetime.date(*VINE_DATE)
+    runs = {}
+    for d in (dev, "cpu"):
+        prj = Vine3DProject.load(ini, output_dir=os.path.join(tmp, f"vout32_{d}"))
+        prj.initialize(device=d)
+        seed_vine_canopy(prj.model)
+        hours = []
+        inner = prj.model.run_hour
+
+        def run_hour(*a, inner=inner, hours=hours):
+            out = inner(*a)
+            hours.append((out["solver_stats"], out["mbr"], out["downy_mildew_infection"].cpu(),
+                          out["irrigation"].cpu()))
+            return out
+
+        prj.model.run_hour = run_hour
+        t0 = time.time()
+        day = prj.run_day(date)
+        _sync(d)
+        runs[d] = (prj, day, hours, time.time() - t0)
+    (pc, dc, hc, wc), (pp, dp, hp, wp) = runs[dev], runs["cpu"]
+    check(pc.base.params.sweep_dtype is None
+          and pc.model.water.h.device.type == torch_device_type(dev),
+          "3p: the day is not the float64 path on the card")
+    check([h[0] for h in hc] == [h[0] for h in hp],
+          f"3p: the hours' stats differ (card {[h[0] for h in hc]}, CPU {[h[0] for h in hp]})")
+    d_mbr = max(abs(a[1] - b[1]) for a, b in zip(hc, hp))
+    flags = all(torch.equal(a[2], b[2]) and torch.equal(a[3], b[3]) for a, b in zip(hc, hp))
+    dh = float((pc.model.water.h.cpu() - pp.model.water.h).abs().max())
+    rels = {k: rel_err(dc[k], dp[k]) for k in ("tavg", "stage", "lai", "fruit_biomass")}
+    rels.update({f"vine.{n}": rel_err(t, getattr(pp.model.vine, n))
+                 for n, t in tensors_of(pc.model.vine)})
+    worst = max(rels.values())
+    risk = float((dc["powdery_infection_risk"].cpu() - dp["powdery_infection_risk"]).abs().max())
+    downy_eq = torch.equal(pc.model.downy.stage.cpu(), pp.model.downy.stage) and torch.equal(
+        pc.model.downy.is_germination.cpu(), pp.model.downy.is_germination)
+    print(f"# vine project day 32 box ({card}): card {wc} s, CPU {wp} s; "
+          f"{pc.base.grid.n_nodes} nodes; stats card {[h[0] for h in hc]}; max |dMBR| "
+          f"{d_mbr} (1e-8); max |dh| {dh} m (1e-6); vine maps max rel {worst} "
+          f"({max(rels, key=rels.get)}; 1e-9); powdery risk max |d| {risk} (4 float32 ulp "
+          f"of the pool, {4 * 2.0 ** -23}); infection flags, irrigation, downy stages "
+          f"equal {flags and downy_eq}; irrigated cells {int((dc['irrigation_mm'] > 0).sum())}",
+          flush=True)
+    check(d_mbr < 1e-8, f"3p: hourly MBRs differ by {d_mbr}")
+    check(dh < 1e-6, f"3p: heads differ by {dh} m")
+    check(worst <= 1e-9, f"3p: vine maps differ by rel {worst}")
+    check(risk <= 4 * 2.0 ** -23, f"3p: powdery risk differs by {risk}")
+    check(flags and downy_eq, "3p: disease flags, stages or irrigation differ")
+    check(np.isfinite(dc["mbr"]), "3p: no daily MBR")
+    return dict(walls=(wc, wp), d_mbr=d_mbr, dh=dh, rel=worst, risk=risk)
+
+
+def side_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
+    """Phases 3m-3p (HYDRALL and RothC in the model cycle, the VINE3D
+    project); returns what they measured. ``dev="cpu"`` with a small ``n``
+    rehearses them on the CPU (no device time, no peak memory)."""
+    import torch
+    from criteria3d_tpu_torch.problems import synthetic_catchment
+    t0 = time.time()
+    full_m = hydrall_full_size(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768),
+                               seed, card, dev)
+    if torch_device_type(dev) == "cuda":
+        torch.cuda.empty_cache()
+    small_m = hydrall_card_vs_cpu(seed, card, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        full_v = vine_full_size(seed, card, tmp, dev, n)
+        if torch_device_type(dev) == "cuda":
+            torch.cuda.empty_cache()
+        small_v = vine_day_card_vs_cpu(seed, card, tmp, dev)
+    seconds = time.time() - t0
+    print(f"# phases 3m-3p took {seconds} s ({card})", flush=True)
+    return dict(hydrall=full_m, hydrall_small=small_m, vine=full_v, vine_small=small_v,
+                seconds=seconds)
 
 
 def main() -> int:
@@ -1155,6 +1702,9 @@ def main() -> int:
     # ---- 3k-3l. the project stack -----------------------------------------
     pp = project_phases(args.seed, card)
 
+    # ---- 3m-3p. the side process models and VINE3D -------------------------
+    sp = side_phases(args.seed, card)
+
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
     runs = {"tiled": [], "per_sweep": []}
@@ -1190,6 +1740,8 @@ def main() -> int:
         "ms_in_hour": jacobi_s / launches * 1e3,
         # launches in the model-cycle hour of phase 3i
         "launches_model_hour": mp["launches_bundle"],
+        # launches in the vineyard hours of phase 3o (the CG-line preset)
+        "launches_vine_hours": sp["vine"]["launches"],
         "variant": JB.tiled_variant(*inputs),
         "tile": TI,
         "sweeps_on_chip": S,
@@ -1213,7 +1765,15 @@ def main() -> int:
           f"bundle_launches={pp['full']['launches']}; project day card/CPU "
           f"walls={pp['small']['walls_day']}; coupled project hours card/CPU "
           f"walls={pp['small']['walls_heat']}; phases 3k-3l {pp['seconds']:.1f} s; "
-          f"script {time.time() - t_start:.1f} s")
+          f"hydrall model walls={sp['hydrall']['walls']} host_reads={sp['hydrall']['syncs']} "
+          f"fixed-point iterations={sp['hydrall']['iterations']} c3d.hydrall share="
+          f"{sp['hydrall']['hydrall_s'] / sp['hydrall']['busy_s']}; hydrall period card/CPU "
+          f"walls={sp['hydrall_small']['walls']}; vine 768 walls={sp['vine']['walls']} "
+          f"host_reads={sp['vine']['syncs']} fixed-point iterations={sp['vine']['iterations']} "
+          f"c3d.vine share={sp['vine']['vine_s'] / sp['vine']['busy_s']} c3d.diseases share="
+          f"{sp['vine']['diseases_s'] / sp['vine']['busy_s']} peak_gib={sp['vine']['peak_gib']:.2f}; "
+          f"vine day card/CPU walls={sp['vine_small']['walls']}; phases 3m-3p "
+          f"{sp['seconds']:.1f} s; script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,11 @@ preconditioner (``SolverParameters.fast_f32()``) or the bundled Jacobi
 kernel (``fast_f32(use_pallas=True)``), and per-link flow accounting; soil
 heat and the coupled water + heat step (``solver/heat.py``,
 ``solver/coupled.py``); the hourly model cycle (``model.py``: radiation,
-snow, ET0, interception, cracking and crop from ``physics/``) with its
-state checkpoints (``io/``). The bundled Jacobi solve runs the CUDA kernel
+snow, ET0, interception, cracking and crop from ``physics/``, the HYDRALL
+forest model and RothC soil carbon) with its state checkpoints (``io/``);
+the project stack (``project.py``, with the water table); the VINE3D
+model and project (``vine3d.py``, ``vine3d_project.py``: grapevine
+physiology and the two mildews). The bundled Jacobi solve runs the CUDA kernel
 ``csrc/jacobi_bundle.cu`` on CUDA tensors and its plain PyTorch twin on CPU
 tensors.
 """

@@ -14,7 +14,10 @@ card tests (``tests/test_torch_cuda.py``).
 - :func:`build_model_problem` and :func:`model_day_forcing`: the hourly
   model cycle on the same catchment (slope and aspect from the DEM) and a
   cold late-winter day of forcing: snow in the early morning, rain on the
-  pack, then a dry afternoon.
+  pack, then a dry afternoon; :func:`build_hydrall_problem` adds HYDRALL
+  and RothC over a seeded forest.
+- :func:`write_project` and :func:`write_vine_project`: a CRITERIA3D
+  project and a VINE3D project on disk that both packages load.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ __all__ = ["synthetic_catchment", "build_problem", "small_hour",
            "SMALL_CONFIGS", "build_coupled_problem", "heat_column",
            "small_coupled_hour", "SMALL_COUPLED_CONFIGS",
            "catchment_grid", "build_model_problem", "model_day_forcing",
-           "MODEL_CONFIG", "small_model"]
+           "MODEL_CONFIG", "small_model", "write_project", "HYDRALL_CONFIG",
+           "forest_mask", "build_hydrall_problem", "small_hydrall_model",
+           "write_vine_project", "seed_vine_canopy", "VINE_DATE", "VINE_CANOPY"]
 
 # clay loam of the Ravone study
 CLAY_LOAM = dict(vg_alpha=1.0, vg_n=1.35, vg_he=0.02, theta_s=0.44,
@@ -403,6 +408,64 @@ def _station_weather(rng, hour: int, z: float, pot: float) -> dict:
     }
 
 
+def _write_stations(path: str, hdr, zone: int, n_stations: int, rng, day,
+                    weather, outlier=None) -> None:
+    """Write ``n_stations`` stations and their 24 hourly readings of ``day``
+    (year, month, day; local time, UTC+1) into a new meteo-points DB at
+    ``path``: the stations stand on a lattice at half the box's width
+    (tied distances; some outside the DEM) at altitudes spread over 60-660
+    m; ``weather(rng, hour, z, pot)`` gives one station's readings, ``pot``
+    the site's clear-sky irradiance; ``outlier`` (hour, station, excess
+    [degC]) breaks one temperature."""
+    import datetime
+
+    from criteria3d_tpu_torch.core.geo import utm_to_latlon
+    from criteria3d_tpu_torch.core.meteo import MeteoVariable
+    from criteria3d_tpu_torch.io.meteopoints import MeteoPointsDB
+    from criteria3d_tpu_torch.physics import radiation as rad_mod
+
+    lat0, lon0 = PROJECT_SITE
+    width = hdr.nrows * hdr.cellsize
+    cx, cy = hdr.xllcorner + width / 2, hdr.yllcorner + width / 2
+    n_cols = int(np.ceil(np.sqrt(n_stations)))
+    n_rows = int(np.ceil(n_stations / n_cols))
+    spacing = width / 2
+    alt = 60.0 + 600.0 * np.arange(n_stations) / max(n_stations - 1, 1)
+    alt = rng.permutation(alt)
+    date = datetime.datetime(*day)
+    pots = []
+    for hour in range(24):
+        sun = rad_mod.sun_position(torch.tensor(lat0, dtype=torch.float64), lon0, 1,
+                                   *day, hour)
+        pots.append(float(rad_mod.clear_sky_beam_horizontal(4.0, sun)
+                          + rad_mod.clear_sky_diffuse_horizontal(4.0, sun)))
+    o_hour, o_station, o_excess = outlier or (None, None, 0.0)
+    variables = (("t", MeteoVariable.AIR_TEMPERATURE),
+                 ("prec", MeteoVariable.PRECIPITATION),
+                 ("rh", MeteoVariable.AIR_REL_HUMIDITY),
+                 ("wind", MeteoVariable.WIND_SCALAR_INTENSITY),
+                 ("rad", MeteoVariable.GLOBAL_IRRADIANCE))
+    with MeteoPointsDB(path, create=True) as db:
+        for i in range(n_stations):
+            r, c = divmod(i, n_cols)
+            x = cx + (c - (n_cols - 1) / 2) * spacing
+            y = cy + (r - (n_rows - 1) / 2) * spacing
+            lat, lon = utm_to_latlon(zone, lat0, x, y)
+            sid = f"S{i:02d}"
+            db.write_point_properties(id_point=sid, name=f"station {i}",
+                                      latitude=float(lat), longitude=float(lon),
+                                      utm_x=x, utm_y=y, altitude=float(alt[i]))
+            series = {k: [] for k, _ in variables}
+            for hour in range(24):
+                w = weather(rng, hour, float(alt[i]), pots[hour])
+                if (hour, i) == (o_hour, o_station):
+                    w["t"] += o_excess
+                for k, _ in variables:
+                    series[k].append(w[k])
+            for k, var in variables:
+                db.write_hourly(sid, var, date, series[k])
+
+
 def write_project(dirpath: str, *, n: int, seed: int, n_stations: int,
                   compute_heat: bool = False) -> str:
     """Write a synthetic CRITERIA3D project under ``dirpath`` with numpy
@@ -427,14 +490,10 @@ def write_project(dirpath: str, *, n: int, seed: int, n_stations: int,
     60-660 m, and report the 24 hours of 2023-03-21 (local time, UTC+1):
     the cold day of :func:`model_day_forcing` with a thermal inversion
     before 9 h, and at :data:`PROJECT_OUTLIER` one broken temperature."""
-    import datetime
     import os
 
-    from criteria3d_tpu_torch.core.geo import latlon_to_utm, utm_to_latlon
-    from criteria3d_tpu_torch.core.meteo import MeteoVariable
+    from criteria3d_tpu_torch.core.geo import latlon_to_utm
     from criteria3d_tpu_torch.io.esri import RasterHeader, write_flt
-    from criteria3d_tpu_torch.io.meteopoints import MeteoPointsDB
-    from criteria3d_tpu_torch.physics import radiation as rad_mod
 
     cell = 4.0
     lat0, lon0 = PROJECT_SITE
@@ -442,7 +501,6 @@ def write_project(dirpath: str, *, n: int, seed: int, n_stations: int,
     width = n * cell
     hdr = RasterHeader(nrows=n, ncols=n, xllcorner=float(round(float(x0) - width / 2)),
                        yllcorner=float(round(float(y0) - width / 2)), cellsize=cell)
-    cx, cy = hdr.xllcorner + width / 2, hdr.yllcorner + width / 2
     for sub in ("MAPS", "DATA"):
         os.makedirs(os.path.join(dirpath, sub), exist_ok=True)
 
@@ -471,46 +529,9 @@ def write_project(dirpath: str, *, n: int, seed: int, n_stations: int,
             f.write(f"{pid},{x},{y}\n")
 
     # --- stations
-    rng = np.random.default_rng(seed)
-    n_cols = int(np.ceil(np.sqrt(n_stations)))
-    n_rows = int(np.ceil(n_stations / n_cols))
-    spacing = width / 2
-    alt = 60.0 + 600.0 * np.arange(n_stations) / max(n_stations - 1, 1)
-    alt = rng.permutation(alt)
-    date = datetime.datetime(*PROJECT_DATE)
-    sun = rad_mod.sun_position(torch.tensor(lat0, dtype=torch.float64), lon0, 1,
-                               *PROJECT_DATE, 0)
-    pots = []
-    for hour in range(24):
-        sun = rad_mod.sun_position(torch.tensor(lat0, dtype=torch.float64), lon0, 1,
-                                   *PROJECT_DATE, hour)
-        pots.append(float(rad_mod.clear_sky_beam_horizontal(4.0, sun)
-                          + rad_mod.clear_sky_diffuse_horizontal(4.0, sun)))
-    o_hour, o_station, o_excess = PROJECT_OUTLIER
-    variables = (("t", MeteoVariable.AIR_TEMPERATURE),
-                 ("prec", MeteoVariable.PRECIPITATION),
-                 ("rh", MeteoVariable.AIR_REL_HUMIDITY),
-                 ("wind", MeteoVariable.WIND_SCALAR_INTENSITY),
-                 ("rad", MeteoVariable.GLOBAL_IRRADIANCE))
-    with MeteoPointsDB(os.path.join(dirpath, "DATA", "meteo.db"), create=True) as db:
-        for i in range(n_stations):
-            r, c = divmod(i, n_cols)
-            x = cx + (c - (n_cols - 1) / 2) * spacing
-            y = cy + (r - (n_rows - 1) / 2) * spacing
-            lat, lon = utm_to_latlon(zone, lat0, x, y)
-            sid = f"S{i:02d}"
-            db.write_point_properties(id_point=sid, name=f"station {i}",
-                                      latitude=float(lat), longitude=float(lon),
-                                      utm_x=x, utm_y=y, altitude=float(alt[i]))
-            series = {k: [] for k, _ in variables}
-            for hour in range(24):
-                w = _station_weather(rng, hour, float(alt[i]), pots[hour])
-                if (hour, i) == (o_hour, o_station):
-                    w["t"] += o_excess
-                for k, _ in variables:
-                    series[k].append(w[k])
-            for k, var in variables:
-                db.write_hourly(sid, var, date, series[k])
+    _write_stations(os.path.join(dirpath, "DATA", "meteo.db"), hdr, zone,
+                    n_stations, np.random.default_rng(seed), PROJECT_DATE,
+                    _station_weather, outlier=PROJECT_OUTLIER)
 
     # --- the ini files
     ini = os.path.join(dirpath, "synthetic.ini")
@@ -582,4 +603,196 @@ tmax_lapserate = {monthly([-0.0065] * 12)}
 tdmin_lapserate = {monthly([-0.002] * 12)}
 tdmax_lapserate = {monthly([-0.003] * 12)}
 """)
+    return ini
+
+
+# ----------------------------------------------------------------------
+# the side process models: HYDRALL and RothC in the model cycle
+# ----------------------------------------------------------------------
+
+# MODEL_CONFIG with the forest model and the soil carbon model
+HYDRALL_CONFIG = dict(MODEL_CONFIG, compute_hydrall=True, compute_rothc=True)
+
+
+def forest_mask(dem, seed: int) -> np.ndarray:
+    """A seeded forest over part of the catchment: the valid cells of the
+    union of three discs with seeded centres (inside the catchment's
+    middle half) and radii (0.08-0.18 of the box side)."""
+    n_r, n_c = dem.shape
+    rng = np.random.default_rng(seed + 1)
+    rows, cols = np.mgrid[0:n_r, 0:n_c]
+    mask = np.zeros(dem.shape, dtype=bool)
+    for _ in range(3):
+        r0, c0 = rng.uniform(0.25, 0.75, 2) * (n_r, n_c)
+        rad = rng.uniform(0.08, 0.18) * max(n_r, n_c)
+        mask |= (rows - r0) ** 2 + (cols - c0) ** 2 <= rad ** 2
+    return mask & ~np.isclose(dem, -9999.0)
+
+
+def build_hydrall_problem(dem, cell, params, device, *,
+                          seed: int = 0) -> Criteria3DModel:
+    """:func:`build_model_problem` with :data:`HYDRALL_CONFIG` and the
+    :func:`forest_mask` of ``seed`` as the model's forest."""
+    model = build_model_problem(dem, cell, params, device,
+                                ModelConfig(**HYDRALL_CONFIG))
+    model.forest_mask = torch.tensor(forest_mask(dem, seed),
+                                     device=model.grid.device)
+    return model
+
+
+def small_hydrall_model(params: SolverParameters, device, n: int = 16,
+                        seed: int = 0) -> Criteria3DModel:
+    """:func:`build_hydrall_problem` on the synthetic catchment cut to an
+    n x n box, for the card against the CPU."""
+    dem = synthetic_catchment(seed, n=n, radius=n * 366.0 / 768)
+    return build_hydrall_problem(dem, 4.0, params, device, seed=seed)
+
+
+# ----------------------------------------------------------------------
+# a VINE3D project on disk
+# ----------------------------------------------------------------------
+
+# the vine project's day: midsummer (local time, UTC+1)
+VINE_DATE = (2023, 6, 21)
+# a mid-season canopy past bud burst (the state the JAX package's month
+# run starts from, tests/test_vine3d.py): set on a dormant GrapevineState
+VINE_CANOPY = dict(chilling=160.0, force_bud_burst=1e4, force_veg=20.0,
+                   stage=3.2, lai=1.0, shoot_leaf_number=8.0)
+# field id -> (landuse, cultivar, training system, max grass LAI,
+# irrigation max rate [mm/h]); field 1 the meadow's west half, 5 its east
+# half, 4 the forest patch of write_project's land-use map
+VINE_FIELDS = {1: ("VINEYARD", 2, 1, 1.2, 4.0),
+               4: ("FOREST", 1, 1, 0.5, 0.0),
+               5: ("VINEYARD_NEW", 1, 2, 1.0, 0.0)}
+# the VINE_DATE field book: 2 h of irrigation on field 1, trimming and
+# leaf removal on field 5 (checked at hour 1); harvest, thinning and a
+# tartaric-acid analysis in September
+VINE_IRRIGATION_HOURS = 2
+
+
+def seed_vine_canopy(model) -> None:
+    """Set :data:`VINE_CANOPY` on every cell of a port ``Vine3DModel``."""
+    v = model.vine
+    model.vine = dataclasses.replace(v, **{
+        k: torch.full_like(getattr(v, k), val) for k, val in VINE_CANOPY.items()})
+
+
+def _summer_weather(rng, hour: int, z: float, pot: float) -> dict:
+    """One station's readings at ``hour`` of :data:`VINE_DATE` at altitude
+    ``z`` [m]: 17-31 degC (6.5 K/km), a shower of 4 mm/h at 16-17 h,
+    humid nights and mornings (leaf wetness), a dry afternoon."""
+    t = 24.0 + 7.0 * np.sin((hour - 9.0) / 24.0 * 2.0 * np.pi) \
+        - 0.0065 * (z - 200.0)
+    prec = 4.0 if hour in (16, 17) else 0.0
+    wet = prec > 0.0
+    rh = 90.0 if wet else 60.0 - 25.0 * np.sin((hour - 9.0) / 24.0 * 2.0 * np.pi)
+    return {
+        "t": t + rng.normal(0.0, 0.15),
+        "prec": max(prec * (1.0 + 0.1 * rng.normal()), 0.0),
+        "rh": float(np.clip(rh + rng.normal(0.0, 2.0), 25.0, 100.0)),
+        "wind": 2.0 + rng.uniform(-0.5, 0.5),
+        "rad": max(pot * (0.3 if wet else 0.75) * (1.0 + 0.05 * rng.normal()), 0.0),
+    }
+
+
+def _write_vine_db(path: str) -> None:
+    """The VINE3D fields DB: ``cultivar`` (every column the loaders read,
+    two cultivars), ``training_system`` (two), ``fields``
+    (:data:`VINE_FIELDS`) and ``field_book``."""
+    import sqlite3
+    cultivar_cols = (
+        "id_cultivar", "name", "phenovitis_force_physiological_maturity",
+        "miglietta_d", "miglietta_f", "miglietta_fruit_biomass_offset",
+        "miglietta_fruit_biomass_slope", "phenovitis_ecodormancy",
+        "phenovitis_critical_chilling", "phenovitis_force_flowering",
+        "phenovitis_force_veraison", "phenovitis_force_fruitset",
+        "degree_days_veraison", "hydrall_stress_threshold", "hydrall_vpd",
+        "hydrall_alpha_leuning", "hydrall_carbox_rate")
+    cultivars = [
+        (1, "sangiovese", 95.71, 0.0018, 1.34, 0.25, 0.01, 176.26, 78.69,
+         24.71, 75.86, 34.71, 2547.0, 0.4, 1300.0, 10.0, 115.0),
+        (2, "nebbiolo", 106.5, 0.0021, 1.31, 0.22, 0.012, 140.0, 81.3,
+         26.2, 79.4, 36.9, 2734.0, 0.35, 1200.0, 9.0, 108.0)]
+    con = sqlite3.connect(path)
+    con.execute("CREATE TABLE cultivar (" + ", ".join(
+        f"{c} {'TEXT' if c == 'name' else 'REAL'}" for c in cultivar_cols) + ")")
+    con.executemany(f"INSERT INTO cultivar VALUES ({','.join('?' * len(cultivar_cols))})",
+                    cultivars)
+    con.execute("CREATE TABLE training_system (id_training_system INTEGER, "
+                "name TEXT, nr_shoots_plant REAL, row_width REAL, "
+                "row_height REAL, row_distance REAL, plant_distance REAL)")
+    con.executemany("INSERT INTO training_system VALUES (?,?,?,?,?,?,?)", [
+        (1, "guyot", 9.1, 0.4, 1.6, 2.5, 0.9),
+        (2, "cordon", 12.0, 0.5, 1.4, 2.8, 1.0)])
+    con.execute("CREATE TABLE fields (id_field INTEGER, landuse TEXT, "
+                "id_cultivar INTEGER, id_training_system INTEGER, "
+                "max_lai_grass REAL, irrigation_max_rate REAL)")
+    con.executemany("INSERT INTO fields VALUES (?,?,?,?,?,?)",
+                    [(fid,) + row for fid, row in VINE_FIELDS.items()])
+    con.execute("CREATE TABLE field_book (date_ TEXT, id_field INTEGER, "
+                "irrigated INTEGER, grass INTEGER, pinchout INTEGER, "
+                "leaf_removal INTEGER, harvesting_performed INTEGER, "
+                "cluster_thinning INTEGER, tartaric_acid REAL, "
+                "irrigation_hours REAL, thinning_percentage REAL)")
+    day = "%04d-%02d-%02d" % VINE_DATE
+    con.executemany("INSERT INTO field_book VALUES (?,?,?,?,?,?,?,?,?,?,?)", [
+        (day, 1, 1, 0, 0, 0, 0, 0, None, float(VINE_IRRIGATION_HOURS), None),
+        (day, 5, 0, 1, 1, 1, 0, 0, None, None, None),
+        ("2023-09-12", 1, 0, 0, 0, 0, 0, 1, None, None, 30.0),
+        ("2023-09-20", 1, 0, 0, 0, 0, 1, 0, 5.8, None, None),
+        ("2023-09-20", 5, 0, 2, 0, 0, 1, 0, None, None, None)])
+    con.commit()
+    con.close()
+
+
+def write_vine_project(dirpath: str, *, n: int, seed: int,
+                       n_stations: int = 6) -> str:
+    """Write a synthetic VINE3D project under ``dirpath`` (numpy and
+    sqlite3 only, so that both packages load the same files) on top of
+    :func:`write_project`; returns the path of its ini.
+
+    - the land-use map carries the field ids: the meadow's west half is
+      field 1 (VINEYARD), its east half field 5 (VINEYARD_NEW, also a land
+      unit in DATA/crop.db), the forest patch field 4 (not a vineyard); the
+      URBAN strip and the ROAD line are no field;
+    - DATA/vine.db (:func:`_write_vine_db`): two cultivars and two training
+      systems, the fields, and a field book with irrigation on
+      :data:`VINE_DATE`, trimming and leaf removal, a cluster thinning, a
+      harvest and a tartaric-acid analysis;
+    - DATA/meteo.db holds ``n_stations`` stations reporting the 24 hours of
+      :data:`VINE_DATE` (:func:`_summer_weather`);
+    - the ini names ``vine3d_db`` under [project] and ``compute_diseases``
+      under [settings].
+    """
+    import os
+    import sqlite3
+
+    from criteria3d_tpu_torch.io.esri import read_flt, write_flt
+
+    ini = write_project(dirpath, n=n, seed=seed, n_stations=n_stations)
+    data = os.path.join(dirpath, "DATA")
+    land, hdr = read_flt(os.path.join(dirpath, "MAPS", "landuse"))
+    cols = np.mgrid[0:n, 0:n][1]
+    land = np.where((land == 1.0) & (cols >= n // 2), 5.0, land)
+    write_flt(os.path.join(dirpath, "MAPS", "landuse"), land, hdr)
+    con = sqlite3.connect(os.path.join(data, "crop.db"))
+    con.execute("INSERT INTO land_units VALUES (?,?,?,?,?,?)",
+                (5, "young vineyard", "HERBACEOUS", "GRASS", 0.2, 0.002))
+    con.commit()
+    con.close()
+    _write_vine_db(os.path.join(data, "vine.db"))
+
+    os.remove(os.path.join(data, "meteo.db"))
+    from criteria3d_tpu_torch.core.geo import latlon_to_utm
+    zone = latlon_to_utm(*PROJECT_SITE, 32)[2]
+    _write_stations(os.path.join(data, "meteo.db"), hdr, zone, n_stations,
+                    np.random.default_rng(seed + 100), VINE_DATE,
+                    _summer_weather)
+
+    with open(ini) as f:
+        text = f.read()
+    text = text.replace("[project]\n", "[project]\nvine3d_db = DATA/vine.db\n", 1)
+    text = text.replace("[settings]\n", "[settings]\ncompute_diseases = true\n", 1)
+    with open(ini, "w") as f:
+        f.write(text)
     return ini

@@ -22,9 +22,10 @@ Project / Project3D / Crit3DProject load-and-run stack:
 Station work (QC, regressions) stays on the host, the maps on the device;
 each hour reads the card for the stations' clear-sky potential, the output
 points' values and the previous hour's staged rasters (all counted by
-``device.host_read``). Not ported yet, and raising ``NotImplementedError``:
-the meteo grid DB (ROADMAP A7f), the water-table subsystem (A7g) and the
-HTML run report (A7i).
+``device.host_read``). The water-table subsystem (wells, per-well fits
+against the nearest station, the daily depth map) is host numpy. Not
+ported yet, and raising ``NotImplementedError``: the meteo grid DB (ROADMAP
+A7f) and the HTML run report (A7i).
 """
 
 from __future__ import annotations
@@ -64,6 +65,9 @@ from criteria3d_tpu_torch.physics import radiation as rad_mod
 from criteria3d_tpu_torch.physics.interpolation import (
     VariableKind, detrended_idw, regression_orography_t,
     spatial_quality_control)
+from criteria3d_tpu_torch.physics.watertable import (WaterTableModel,
+                                                     load_well_depths_csv,
+                                                     load_well_locations_csv)
 
 __all__ = ["Criteria3DProject", "INTERPOLATION_RANGE"]
 
@@ -102,6 +106,9 @@ class Criteria3DProject:
     land_units: list = dataclasses.field(default_factory=list)
     crops: dict = dataclasses.field(default_factory=dict)
     stations: list[MeteoStation] = dataclasses.field(default_factory=list)
+    # water-table wells + fitted models (project.h:169 waterTableList)
+    wells: list = dataclasses.field(default_factory=list)
+    watertables: list = dataclasses.field(default_factory=list)
     climate: ClimateParameters | None = None
     output_points: OutputPoints | None = None
     output_dir: str = ""
@@ -404,23 +411,116 @@ class Criteria3DProject:
         _not_ported("the meteo grid DB (export_hourly_to_grid, io/meteogrid.py)",
                     "A7f")
 
+    # --- water table subsystem (Project::waterTableImportLocation /
+    #     waterTableImportDepths / waterTableComputeSingleWell,
+    #     project.cpp:5952-6120; project.h:169,359-361) ----------------
+
     def watertable_import_location(self, csv_path: str) -> int:
-        """Well locations (waterTableImportLocation): not ported."""
-        _not_ported("the water-table subsystem (physics/watertable.py)", "A7g")
+        """Load well locations; returns the wrong-line count."""
+        self.wells, wrong = load_well_locations_csv(
+            csv_path, utm_zone=self.config.utm_zone)
+        if wrong:
+            self.warnings.append(f"well locations: {wrong} wrong lines")
+        return wrong
 
     def watertable_import_depths(self, csv_path: str,
                                  max_depth_cm: float = 300.0) -> int:
-        """Well depth series (waterTableImportDepths): not ported."""
-        _not_ported("the water-table subsystem (physics/watertable.py)", "A7g")
+        """Load per-well depth observations; returns the wrong-line count."""
+        wrong = load_well_depths_csv(csv_path, self.wells,
+                                     max_depth_cm=max_depth_cm)
+        if wrong:
+            self.warnings.append(f"well depths: {wrong} wrong lines")
+        return wrong
+
+    @staticmethod
+    def _station_daily_et0(well, st):
+        """(prec, et0, n): the station's daily precipitation and its daily
+        Hargreaves ET0 at the well's latitude (the station's when the well
+        has none), as WaterTable::setMeteoData (waterTable.cpp:84-97)
+        takes them; host arrays, ET0 computed on the CPU."""
+        tmin = np.asarray(st.daily[MeteoVariable.DAILY_TMIN], float)
+        tmax = np.asarray(st.daily[MeteoVariable.DAILY_TMAX], float)
+        prec = np.asarray(st.daily[MeteoVariable.DAILY_PREC], float)
+        n = min(len(tmin), len(tmax), len(prec))
+        doy = np.array([
+            (st.daily_d0 + datetime.timedelta(days=int(i))).timetuple()
+            .tm_yday for i in range(n)])
+        lat = well.latitude if well.latitude != NODATA else st.latitude
+        et0 = meteo_mod.et0_hargreaves_daily(
+            0.17, torch.tensor(lat, dtype=torch.float64), doy,
+            torch.from_numpy(tmax[:n].copy()),
+            torch.from_numpy(tmin[:n].copy())).numpy()
+        return prec, et0, n, tmin, tmax
 
     def watertable_compute(self, step_days: int = 5) -> list:
-        """Per-well water-table fits (waterTableComputeSingleWell): not
-        ported."""
-        _not_ported("the water-table subsystem (physics/watertable.py)", "A7g")
+        """Fit one CWB-correlation model per well against the nearest
+        station's daily series (waterTableComputeSingleWell +
+        waterTableAssignNearestMeteoPoint, project.cpp:5997-6120: prec
+        observed, ET0 by daily Hargreaves from Tmin/Tmax). Fills
+        ``self.watertables`` with (well, model, station) triples for every
+        well whose fit succeeds."""
+        MV = MeteoVariable
+        self.watertables = []
+        daily_ok = [st for st in self.stations
+                    if st.daily_d0 is not None
+                    and MV.DAILY_TMIN in st.daily and MV.DAILY_TMAX in st.daily
+                    and MV.DAILY_PREC in st.daily]
+        if not daily_ok:
+            self.warnings.append("watertable: no station with daily series")
+            return []
+        for well in self.wells:
+            if not well.depths:
+                continue
+            st = min(daily_ok, key=lambda s: (s.utm_x - well.utm_x) ** 2
+                     + (s.utm_y - well.utm_y) ** 2)
+            prec, et0, n, tmin, tmax = self._station_daily_et0(well, st)
+            bad = (tmin[:n] == NODATA) | (tmax[:n] == NODATA)
+            et0 = np.where(bad, NODATA, et0)
 
-    def watertable_depth_map(self, day: datetime.date):
-        """The water-table depth map of one day: not ported."""
-        _not_ported("the water-table subsystem (physics/watertable.py)", "A7g")
+            obs_idx, obs_depth = [], []
+            for date, depth in sorted(well.depths.items()):
+                i = (date - st.daily_d0).days
+                if 0 <= i < n:
+                    obs_idx.append(i)
+                    obs_depth.append(depth)
+            model = WaterTableModel()
+            if obs_idx and model.fit(prec[:n], et0, np.asarray(obs_idx),
+                                     np.asarray(obs_depth),
+                                     step_days=step_days):
+                self.watertables.append((well, model, st))
+            else:
+                self.warnings.append(f"watertable: fit failed for well "
+                                     f"{well.id}")
+        return self.watertables
+
+    def watertable_depth_map(self, day: datetime.date) -> np.ndarray | None:
+        """(R, C) water-table depth [m] map for one day: per-well model
+        estimates spread by inverse-distance weighting over the DEM, a host
+        array (the grid coordinates are read from the device once)."""
+        if not self.watertables:
+            return None
+        xs, ys, ds = [], [], []
+        for well, model, st in self.watertables:
+            i = (day - st.daily_d0).days
+            prec, et0, n, _, _ = self._station_daily_et0(well, st)
+            d = model.depth(prec[:n], et0, i)
+            if d != NODATA:
+                xs.append(well.utm_x)
+                ys.append(well.utm_y)
+                ds.append(d * 0.01)           # [cm] -> [m]
+        if not ds:
+            return None
+        gx, gy = self._grid_xy
+        gx = (host_array(gx) if isinstance(gx, torch.Tensor)
+              else np.asarray(gx))[None]
+        gy = (host_array(gy) if isinstance(gy, torch.Tensor)
+              else np.asarray(gy))[None]
+        xs = np.asarray(xs)[:, None, None]
+        ys = np.asarray(ys)[:, None, None]
+        w = 1.0 / np.maximum((gx - xs) ** 2 + (gy - ys) ** 2, 1.0)
+        out = (np.asarray(ds)[:, None, None] * w).sum(0) / w.sum(0)
+        valid = ~np.isclose(self.dem, self.header.nodata)
+        return np.where(valid, out, NODATA)
 
     def write_report(self, path: str, log: list | None = None) -> None:
         """The HTML run report (viz/report.py): not ported."""

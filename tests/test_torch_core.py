@@ -245,9 +245,10 @@ def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port and runs its
     CPU entry points (grid, state, one hour of the bundled-Jacobi path, one
     coupled water + heat step on a tiny column, one model-cycle hour with
-    every ported process and its state checkpoint, and one project hour
-    from files: write_project, load, initialize, run_period with its
-    outputs) without loading JAX or the JAX package."""
+    every ported process and its state checkpoint, one project hour from
+    files: write_project, load, initialize, run_period with its outputs,
+    one model hour with HYDRALL and RothC and one vine hour) without
+    loading JAX or the JAX package."""
     code = textwrap.dedent("""
         import dataclasses, sys, tempfile
         import numpy as np, torch
@@ -299,6 +300,23 @@ def test_port_imports_no_jax():
             log = prj.run_period(datetime.datetime(2023, 3, 21, 8), 1)
             assert abs(log[0]["mbr"]) < 2e-3 and prj.qc_rejected >= 1
             assert os.listdir(os.path.join(d, "out", "rasters", "20230321"))
+        from criteria3d_tpu_torch import vine3d, vine3d_project
+        from criteria3d_tpu_torch.physics import (downy_mildew, grapevine,
+                                                  hydrall, powdery_mildew,
+                                                  rothc, vine_photosynthesis,
+                                                  watertable)
+        hm = problems.small_hydrall_model(T.SolverParameters.fast_f32(), "cpu", n=8)
+        ho = hm.run_hour(problems.model_day_forcing(hm.grid, None, 12),
+                         2023, 3, 21, 12)
+        assert bool(torch.isfinite(ho["hydrall_assimilation"]).all())
+        assert hm.rothc is not None and ho["solver_stats"][0] > 0
+        vm = vine3d.Vine3DModel.create(g, T.SolverParameters(),
+                                       model.ModelConfig(compute_snow=False),
+                                       matric_potential=-1.0)
+        problems.seed_vine_canopy(vm)
+        vo = vm.run_hour(model.HourlyForcing(22.0, 0.0, 60.0, 1.5, 0.7),
+                         2023, 6, 21, 12)
+        assert float(vo["vine_transpiration_demand"].max()) > 0.0
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "criteria3d_tpu"
                or m.startswith("criteria3d_tpu.")]

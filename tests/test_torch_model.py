@@ -271,23 +271,30 @@ def test_sink_source_dtype_matches_jax(preset):
 
 
 def test_unported_models_raise():
-    """HYDRALL and RothC are not ported: create, run_hour, daily_update
-    and monthly_rothc_update raise NotImplementedError naming ROADMAP A8
-    instead of skipping."""
-    _, tg = build_grids(valley_dem(6))
-    tp = T.SolverParameters()
-    for flag in ("compute_hydrall", "compute_rothc"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            TModel.create(tg, tp, TConfig(**{flag: True}))
+    """HYDRALL and RothC are ported (tests/test_torch_hydrall_rothc.py
+    holds them against JAX): nothing raises. create builds their state for
+    each flag; a model created without them behaves as JAX's when a flag
+    is switched on afterwards: monthly_rothc_update returns None, and
+    run_hour and daily_update run without the missing model."""
+    jg, tg = build_grids(valley_dem(6))
+    jp, tp = J.SolverParameters(), T.SolverParameters()
+    for flag, part in (("compute_hydrall", "hydrall"), ("compute_rothc", "rothc")):
+        jm = JModel.create(jg, jp, JConfig(**{flag: True}))
+        tm = TModel.create(tg, tp, TConfig(**{flag: True}))
+        assert getattr(tm, part) is not None and getattr(jm, part) is not None
+    jm = JModel.create(jg, jp, JConfig())
     tm = TModel.create(tg, tp, TConfig())
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm.monthly_rothc_update(10.0, 50.0, 30.0)
-    tm.config.compute_hydrall = True
-    _, tf = forcing(tg, 12)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm.run_hour(tf, 2023, 3, 21, 12)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm.daily_update(5.0, 15.0)
+    assert tm.monthly_rothc_update(10.0, 50.0, 30.0) is None
+    assert jm.monthly_rothc_update(10.0, 50.0, 30.0) is None
+    jm.config.compute_hydrall = tm.config.compute_hydrall = True
+    jf, tf = forcing(tg, 12)
+    jo = jm.run_hour(jf, 2023, 3, 21, 12)
+    to = tm.run_hour(tf, 2023, 3, 21, 12)
+    assert "hydrall_assimilation" not in to and "hydrall_assimilation" not in jo
+    jm.daily_update(5.0, 15.0)
+    tm.daily_update(5.0, 15.0)
+    assert tm.hydrall is None and jm.hydrall is None
+    np.testing.assert_allclose(tm.lai.numpy(), np.asarray(jm.lai), rtol=1e-12)
 
 
 def test_resolve_precond_matches_jax():

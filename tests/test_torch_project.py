@@ -252,18 +252,25 @@ def test_jax_model_carried_into_the_project(ini, tmp_path):
     assert float(np.abs(swe - tp.model.snow.swe.numpy()).max()) < 1e-9
 
 
-def test_unported_project_parts_raise(ini):
-    """The meteo grid DB, the water-table subsystem and the HTML report
-    raise NotImplementedError naming their ROADMAP items."""
+def test_unported_project_parts_raise(ini, tmp_path):
+    """The meteo grid DB and the HTML report raise NotImplementedError
+    naming their ROADMAP items. The water-table subsystem is ported
+    (tests/test_torch_watertable.py holds it against JAX): on this project,
+    whose stations carry no daily series, it behaves as JAX's: a missing
+    well file raises FileNotFoundError, the fit finds no station and warns,
+    and there is no depth map."""
     tp = TProject.load(ini)
     for call, item in ((lambda: tp.load_meteo_grid("g.xml", "g.db"), "A7f"),
                        (lambda: tp.export_hourly_to_grid(101, None, DAY), "A7f"),
-                       (lambda: tp.watertable_import_location("w.csv"), "A7g"),
-                       (lambda: tp.watertable_import_depths("w.csv"), "A7g"),
-                       (lambda: tp.watertable_compute(), "A7g"),
-                       (lambda: tp.watertable_depth_map(DAY.date()), "A7g"),
                        (lambda: tp.write_report("r.html"), "A7i")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    jp = JProject.load(ini)
+    for prj in (tp, jp):
+        with pytest.raises(FileNotFoundError):
+            prj.watertable_import_location(str(tmp_path / "w.csv"))
+        assert prj.watertable_compute() == []
+        assert prj.watertable_depth_map(DAY.date()) is None
+    assert tp.warnings == jp.warnings
     with pytest.raises(RuntimeError):
         tp.run_hour(DAY)

@@ -139,15 +139,21 @@ def test_resample_grid_equal(method, factor):
 
 
 def test_tif_and_fields_db_are_refused(tmp_path):
-    """GeoTIFF and the VINE3D fields DB are not ported: they raise
-    NotImplementedError naming their ROADMAP item, never skip."""
+    """GeoTIFF is not ported: it raises NotImplementedError naming its
+    ROADMAP item, never skips. The VINE3D fields DB is ported
+    (tests/test_torch_vine3d.py reads one): a missing DB is refused with
+    the same sqlite error as JAX's reader."""
     with pytest.raises(NotImplementedError, match="A7e"):
         TE.read_raster(str(tmp_path / "x.tif"))
     (tmp_path / "y.tif").write_bytes(b"")
     with pytest.raises(NotImplementedError, match="A7e"):
         TE.read_raster(str(tmp_path / "y"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        TD.read_fields_db(str(tmp_path / "fields.db"))
+    missing = str(tmp_path / "fields.db")
+    with pytest.raises(sqlite3.OperationalError) as jerr:
+        JD.read_fields_db(missing)
+    with pytest.raises(sqlite3.OperationalError) as terr:
+        TD.read_fields_db(missing)
+    assert str(terr.value) == str(jerr.value)
 
 
 def test_project_ini_equal(project_dir):
