@@ -77,7 +77,7 @@ Phases (any failed check exits non-zero before the last line):
 3k. the project stack at full size: ``problems.write_project`` (the same
    catchment at n = 768 with 20 stations, two soils, land units, output
    points and maps), ``Criteria3DProject.load`` and
-   ``initialize(fast=True)`` on the card, ``run_period`` over hours 6-9
+   ``initialize(fast=True)`` on the card, ``run_period`` over hours 6-7
    with outputs: per hour the wall, host reads, solver stats and MBR;
    the peak memory, the readings spatial QC turned away, the rasters and
    output-DB rows written; checks |MBR| < 2e-3, no bundle launch, every
@@ -115,14 +115,44 @@ Phases (any failed check exits non-zero before the last line):
    memory; hour 14 profiled (``c3d.vine``, ``c3d.diseases``); hour 12's
    canopy fluxes on a 64 x 64 window of their own inputs on the card and
    on the CPU (rel 1e-12, stop flips counted);
-3p. a 32 box VINE3D project's ``run_day`` (float64) on the card and on
-   the CPU: the same stats every hour, hourly MBRs 1e-8, heads 1e-6 m,
-   vine maps rel 1e-9, the powdery risk within 4 float32 ulp of the pool,
-   infection flags, downy stages and irrigation equal;
+3p. a 16 box VINE3D project's ``run_day`` (float64) on the card and on
+   the CPU (a 32 box until the shell phases joined the run: the script
+   stays near 600 s): the same stats every hour, hourly MBRs 1e-8, heads
+   1e-6 m, vine maps rel 1e-9, the powdery risk within 4 float32 ulp of
+   the pool, infection flags, downy stages and irrigation equal;
+3q. the command shell at full width: 3k's project (n = 768, 20 stations)
+   with its DEM rewritten as a GeoTIFF, one batch script through
+   ``criteria3d_tpu_torch.cli.main`` in-process (PROJ, FAST ON,
+   INITIALIZE, RUN 3 hours from 06 h, INFO, EXPORTPNG, MAP, VIEW3D, CHART,
+   PROXY, HOURLYCSV, STATE SAVE / LOAD, ANIM 2 hours, REPORT): each
+   command's wall and host reads, each model hour's wall, host reads,
+   stats and MBR, the native writer pool's written and errors, the peak
+   memory; checks no ``ERROR:`` line, every file written (each PNG with
+   its signature), |MBR| < 2e-3 each hour, no bundle launch, every model
+   tensor on the card, the pool's rasters those staged with 0 errors;
+   then ``python -m criteria3d_tpu_torch.cli`` once in a subprocess
+   (VERSION, DEM of the GeoTIFF, INFO);
+3r. the meteo grid as the weather source at full width
+   (``problems.write_meteo_grid``: a 10 x 10 UTM grid of 500 m cells over
+   the box and a 1 km margin, 100 virtual stations): ``load_meteo_grid``,
+   ``initialize(fast=True)``, two hours from 10 h with outputs (walls,
+   host reads, stats, MBR, forcing finite on the catchment), one more hour
+   profiled (the ``c3d.interpolation`` share of busy with 100 stations
+   against 3k's 20), that hour's temperature map through
+   ``export_hourly_to_grid`` and read back from the DB within 1e-6;
+3s. a 32 box on the card and on the CPU: the batch script (no FAST: the
+   float64 parameters; RUN from 10 h, where the box has no snow whose
+   branches part at 0 internal energy) and two meteo-grid hours: the same
+   stats each
+   hour, heads 1e-6 m, forcing maps rel 1e-12, the CSV and the DEM- and
+   station-derived PNGs byte-equal, the state-derived images (and the
+   report's) differing in at most 0.1% of their decoded pixels, the
+   report's text equal;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
-   design's time in the same run and its launches in the 3i model hour;
+   design's time in the same run and its launches in the 3i model hour
+   (and 0 in the 3o vineyard, 3q shell and 3r meteo-grid hours);
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -133,8 +163,8 @@ cycle's ``c3d.radiation`` (shadow march included), ``c3d.snow``,
 and ``c3d.outputs`` ranges, HYDRALL's ``c3d.hydrall``, the vineyard's
 ``c3d.vine`` and ``c3d.diseases`` ranges, and the rest. It imports nothing
 of JAX and nothing of the JAX package. ``side_phases(seed, card)`` runs
-3m-3p alone; with ``dev="cpu"`` and a small ``n`` it rehearses them on the
-CPU.
+3m-3p alone and ``shell_phases(seed, card)`` 3q-3s; with ``dev="cpu"`` and
+a small ``n`` they rehearse them on the CPU.
 """
 
 from __future__ import annotations
@@ -735,30 +765,31 @@ def model_phases(dem, seed: int, card: str) -> dict:
 
 
 # the project phases: problems.write_project's day, 2023-03-21 (local time)
-# (hours 6-11 until the side phases joined the run; the script stays near
-# 600 s)
-PROJECT_3K_HOURS = (6, 4)          # first hour, hours
+# (hours 6-11 until the side phases joined the run, 6-9 until the shell
+# phases did, whose 3q runs hours 6-8 of the same project; the script stays
+# near 600 s)
+PROJECT_3K_HOURS = (6, 2)          # first hour, hours
 # the coupled hours: the frosty night from 00 h (from a fresh model the
 # morning's snow and rain hours take 2,000 heat sub-steps each); hours 0-2
 # until the side phases joined the run
 PROJECT_3L_HEAT_HOURS = (0, 1)
 
 
-def instrument_run_hour(prj, records: list, keep_forcing: bool = False) -> None:
+def instrument_run_hour(prj, records: list, keep_forcing: bool = False,
+                        dev="cuda") -> None:
     """Wrap the project's ``run_hour`` so that each hour appends its wall
-    (the card synchronised before and after), host reads, solver stats and
+    (the device synchronised before and after), host reads, solver stats and
     MBR (a 0-d tensor, read later) to ``records``; with ``keep_forcing``
     also the hour's forcing maps, copied to the host."""
-    import torch
     from criteria3d_tpu_torch.device import host_read
     inner = prj.run_hour
 
     def run_hour(when, **kw):
-        torch.cuda.synchronize()
+        _sync(dev)
         host_read.count = 0
         t0 = time.time()
         out = inner(when, **kw)
-        torch.cuda.synchronize()
+        _sync(dev)
         rec = dict(when=when, wall_s=time.time() - t0, syncs=host_read.count,
                    stats=out.get("solver_stats"), mbr=out["mbr"])
         if keep_forcing:
@@ -806,7 +837,7 @@ def project_files(prj):
 def project_full_size(seed: int, card: str, tmp: str) -> dict:
     """phase 3k: problems.write_project at n = 768 with 20 stations, then
     Criteria3DProject.load, initialize(fast=True) on the card and
-    run_period over hours 6-9 with outputs; one more hour profiled."""
+    run_period over hours 6-7 with outputs; one more hour profiled."""
     import datetime
     import numpy as np
     import torch
@@ -870,7 +901,7 @@ def project_full_size(seed: int, card: str, tmp: str) -> dict:
           f"{rows} output-DB rows in {len(tables)} tables written; bundle launches "
           f"{launches}", flush=True)
 
-    # one more hour (12) profiled, its outputs staged and flushed
+    # one more hour profiled, its outputs staged and flushed
     when = start + datetime.timedelta(hours=n_hours)
     ranges = layer_ranges() + (INTERPOLATION_RANGE, OUTPUTS_RANGE)
     busy, _, layers = breakdown(
@@ -1028,6 +1059,9 @@ HYDRALL_HOURS = (10, 11, 12, 13)
 VINE_HOURS = (11, 12, 13, 22, 23)
 # 3o: the canopy-flux window held against the CPU (rows, cols)
 VINE_WINDOW = (slice(352, 416), slice(352, 416))
+# 3p: the vine day's box (32 until the shell phases joined the run; the
+# script stays near 600 s)
+VINE_3P_BOX = 16
 
 
 def _sync(dev) -> None:
@@ -1446,18 +1480,19 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
 
 
 def vine_day_card_vs_cpu(seed: int, card: str, tmp: str, dev="cuda") -> dict:
-    """phase 3p: a 32 box VINE3D project's run_day under its float64
-    parameters on the card and on the CPU."""
+    """phase 3p: a VINE3D project's run_day on a VINE_3P_BOX box under its
+    float64 parameters on the card and on the CPU."""
     import datetime
     import numpy as np
     import torch
     from criteria3d_tpu_torch.problems import VINE_DATE, seed_vine_canopy, write_vine_project
     from criteria3d_tpu_torch.vine3d_project import Vine3DProject
-    ini = write_vine_project(os.path.join(tmp, "v32"), n=32, seed=seed)
+    n = VINE_3P_BOX
+    ini = write_vine_project(os.path.join(tmp, f"v{n}"), n=n, seed=seed)
     date = datetime.date(*VINE_DATE)
     runs = {}
     for d in (dev, "cpu"):
-        prj = Vine3DProject.load(ini, output_dir=os.path.join(tmp, f"vout32_{d}"))
+        prj = Vine3DProject.load(ini, output_dir=os.path.join(tmp, f"vout{n}_{d}"))
         prj.initialize(device=d)
         seed_vine_canopy(prj.model)
         hours = []
@@ -1490,7 +1525,7 @@ def vine_day_card_vs_cpu(seed: int, card: str, tmp: str, dev="cuda") -> dict:
     risk = float((dc["powdery_infection_risk"].cpu() - dp["powdery_infection_risk"]).abs().max())
     downy_eq = torch.equal(pc.model.downy.stage.cpu(), pp.model.downy.stage) and torch.equal(
         pc.model.downy.is_germination.cpu(), pp.model.downy.is_germination)
-    print(f"# vine project day 32 box ({card}): card {wc} s, CPU {wp} s; "
+    print(f"# vine project day {n} box ({card}): card {wc} s, CPU {wp} s; "
           f"{pc.base.grid.n_nodes} nodes; stats card {[h[0] for h in hc]}; max |dMBR| "
           f"{d_mbr} (1e-8); max |dh| {dh} m (1e-6); vine maps max rel {worst} "
           f"({max(rels, key=rels.get)}; 1e-9); powdery risk max |d| {risk} (4 float32 ulp "
@@ -1527,6 +1562,409 @@ def side_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
     print(f"# phases 3m-3p took {seconds} s ({card})", flush=True)
     return dict(hydrall=full_m, hydrall_small=small_m, vine=full_v, vine_small=small_v,
                 seconds=seconds)
+
+
+# ----------------------------------------------------------------------
+# the command shell and what it drives (3q), the meteo grid as the weather
+# source (3r), and both on a small box on the card against the CPU (3s)
+# ----------------------------------------------------------------------
+
+# 3q: the batch script the shell runs: ``{fast}`` is "FAST ON\n" at full
+# size and empty for the float64 card-against-CPU run (3s), whose RUN starts
+# at 10 h, not 06 h: from 06 h the two devices' float64 snow packs part at
+# the 0-internal-energy branch (PERF.md section 2 (4): SWE 0.25 mm apart
+# after 08 h on the card and the CPU), and ANIM's 15 degC melt then moves
+# the heads 5e-3 m apart; from 10 h the 32 box has no snow. At full size
+# ANIM's two hours (15 degC on the morning's snow pack) take 1,500-2,946
+# steps each, 36-82 s on an H100, with 5 mm/h of rain or none
+SHELL_SCRIPT = """PROJ {ini}
+{fast}INITIALIZE
+RUN 3 2023-03-21T{start:02d}
+INFO
+EXPORTPNG swc out/swc.png
+EXPORTPNG dem out/dem.png
+MAP out/map.png swc
+VIEW3D out/v3d.png dem
+CHART S00 out/chart.png
+PROXY out/proxy.png
+HOURLYCSV S00 out/s00.csv
+STATE SAVE st
+STATE LOAD st
+ANIM out/anim.png 2 pond
+REPORT out/run.html
+"""
+# the files the script writes under its working directory; the images of
+# the model's state (rendered from root-zone theta and ponding)
+SHELL_FILES = ("out/swc.png", "out/dem.png", "out/map.png", "out/v3d.png",
+               "out/chart.png", "out/proxy.png", "out/s00.csv", "out/anim.png",
+               "out/run.html", "st/WP_0.flt")
+SHELL_STATE_IMAGES = ("out/swc.png", "out/map.png", "out/anim.png")
+# 3r: the grid's cells and margin [m] at full size and at the small box
+GRID_FULL = dict(cell=500.0, margin=1000.0)
+GRID_SMALL = dict(cell=32.0, margin=32.0)
+# 3r: the grid hours (first hour, hours; one more hour profiled and exported)
+GRID_HOURS = (10, 2)
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def png_pixels(blob: bytes):
+    """The (H, W, 4) uint8 pixels of an RGBA PNG as the port's writers
+    write it (8-bit, filter 0 rows)."""
+    import struct
+    import zlib
+    import numpy as np
+    check(blob[:8] == PNG_SIGNATURE, "not a PNG file")
+    pos, idat = 8, b""
+    while pos < len(blob):
+        (length,), tag = struct.unpack(">I", blob[pos:pos + 4]), blob[pos + 4:pos + 8]
+        payload = blob[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", payload[:8])
+        elif tag == b"IDAT":
+            idat += payload
+        pos += 12 + length
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 4 * w)
+    return raw[:, 1:].reshape(h, w, 4)
+
+
+def pixel_share(a: bytes, b: bytes) -> float:
+    """The share of decoded pixels that differ between two PNG files."""
+    x, y = png_pixels(a), png_pixels(b)
+    check(x.shape == y.shape, f"PNG shapes differ: {x.shape} {y.shape}")
+    return float((x != y).any(-1).mean())
+
+
+def run_batch(root: str, script: str, dev) -> dict:
+    """``criteria3d_tpu_torch.cli.main`` on ``script`` in-process, with
+    ``root`` as the working directory (``--device cpu`` when ``dev`` is the
+    CPU). Returns the printed lines, each command's (name, wall, host
+    reads), each model hour's wall, host reads, stats, MBR and forcing
+    maps (copied to the host), and the shell."""
+    import contextlib
+    import io
+    from criteria3d_tpu_torch import cli
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.model import Criteria3DModel
+    with open(os.path.join(root, "batch.txt"), "w") as f:
+        f.write(script)
+    commands, hours, shells = [], [], []
+    execute0, run_hour0 = cli.Shell.execute, Criteria3DModel.run_hour
+
+    def execute(self, line):
+        shells[:] = [self]
+        _sync(dev)
+        t0, r0 = time.time(), host_read.count
+        out = execute0(self, line)
+        _sync(dev)
+        commands.append((line.split()[0] if line.split() else "", time.time() - t0,
+                         host_read.count - r0))
+        return out
+
+    def run_hour(self, forcing, *a):
+        _sync(dev)
+        t0, r0 = time.time(), host_read.count
+        out = run_hour0(self, forcing, *a)
+        _sync(dev)
+        hours.append(dict(wall_s=time.time() - t0, syncs=host_read.count - r0,
+                          stats=out.get("solver_stats"), mbr=out["mbr"],
+                          forcing={k: getattr(forcing, k).cpu() for k in
+                                   ("air_temperature", "precipitation",
+                                    "rel_humidity", "wind_speed")}))
+        return out
+
+    argv = ["batch.txt"] if torch_device_type(dev) == "cuda" else ["--device", "cpu",
+                                                                  "batch.txt"]
+    said, cwd = io.StringIO(), os.getcwd()
+    cli.Shell.execute, Criteria3DModel.run_hour = execute, run_hour
+    try:
+        os.chdir(root)
+        with contextlib.redirect_stdout(said):
+            rc = cli.main(argv)
+    finally:
+        cli.Shell.execute, Criteria3DModel.run_hour = execute0, run_hour0
+        os.chdir(cwd)
+    lines = said.getvalue().replace(root, "<root>").splitlines()
+    errors = [x for x in lines if x.startswith("ERROR:")]
+    check(rc == 0 and not errors, f"the shell printed {errors} (exit code {rc})")
+    for rec in hours:
+        rec["mbr"] = float(rec["mbr"])
+    return dict(lines=lines, commands=commands, hours=hours, shell=shells[0])
+
+
+def shell_files(root: str) -> dict:
+    """The script's files (SHELL_FILES) by name; each must exist, each PNG
+    must carry the PNG signature."""
+    out = {}
+    for name in SHELL_FILES:
+        path = os.path.join(root, name)
+        check(os.path.isfile(path), f"the shell did not write {name}")
+        with open(path, "rb") as f:
+            out[name] = f.read()
+        if name.endswith(".png"):
+            check(out[name][:8] == PNG_SIGNATURE, f"{name} is not a PNG file")
+    check(b"data:image/png;base64," in out["out/run.html"], "the report has no image")
+    return out
+
+
+def shell_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> dict:
+    """phase 3q: the command shell at full width: write_project (3k's
+    project) with its DEM as a GeoTIFF, then the batch script through
+    cli.main in-process, then ``python -m criteria3d_tpu_torch.cli`` once in
+    a subprocess."""
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.problems import dem_as_geotiff, write_project
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    t0 = time.time()
+    ini = write_project(os.path.join(tmp, f"p{n}"), n=n, seed=seed, n_stations=20)
+    tif = dem_as_geotiff(ini)
+    write_s = time.time() - t0
+    root = os.path.join(tmp, "shell")
+    os.makedirs(root)
+    peak0 = _peak_gib(dev, reset=True)
+    JB.jacobi_bundle.launches = 0
+    t0 = time.time()
+    run = run_batch(root, SHELL_SCRIPT.format(ini=ini, fast="FAST ON\n", start=6), dev)
+    script_s = time.time() - t0
+    launches = JB.jacobi_bundle.launches
+    peak = _peak_gib(dev)
+    sh = run["shell"]
+    prj = sh.project
+    check(prj.params.inner_solver == "cg" and prj.params.cg_precond == "line",
+          f"3q: FAST ON gave {prj.params}")
+    for name, t in list(model_tensors(sh.model)) + list(tensors_of(sh.grid)):
+        check(t.device.type == torch_device_type(dev), f"3q: {name} is on {t.device}")
+    for line in run["lines"]:
+        print(f"#   3q> {line}")
+    for (cmd, wall, reads) in run["commands"]:
+        print(f"# shell {n} command {cmd} ({card}): wall {wall} s, host reads {reads}",
+              flush=True)
+    for i, rec in enumerate(run["hours"]):
+        kind = "RUN" if i < 3 else "ANIM"
+        print(f"# shell {n} {kind} hour {i} ({card}): wall {rec['wall_s']} s, host reads "
+              f"{rec['syncs']}, stats {rec['stats']}, MBR {rec['mbr']}", flush=True)
+        check(abs(rec["mbr"]) < 2e-3, f"3q hour {i}: |MBR| {rec['mbr']} >= 2e-3")
+    check(len(run["hours"]) == 5, f"3q: {len(run['hours'])} model hours, expected 5")
+    check(launches == 0, f"3q: the shell's hours launched {launches} jacobi_bundle kernels")
+    files = shell_files(root)
+    w = prj._raster_writer
+    n_vars = sum(len(d) for d in prj.output_variables().values())
+    rasters = sorted(f for f in os.listdir(os.path.join(root, "OUTPUT", "rasters", "20230321"))
+                     if f.endswith(".flt"))
+    check(w is not None and w.written == 3 * n_vars == len(rasters) and w.errors == 0,
+          f"3q: the writer pool wrote {w and w.written} rasters with {w and w.errors} "
+          f"errors; {len(rasters)} files, {3 * n_vars} staged")
+    print(f"# shell {n} ({card}): project written with a GeoTIFF DEM in {write_s:.1f} s; "
+          f"script {script_s} s; writer pool written {w.written} errors {w.errors}; "
+          f"peak memory {peak:.2f} GiB (from {peak0:.2f}); bundle launches {launches}; "
+          f"files {', '.join(f'{k} {len(v)} B' for k, v in files.items())}", flush=True)
+
+    # the module entry point itself, in a fresh interpreter
+    with open(os.path.join(root, "entry.txt"), "w") as f:
+        f.write(f"VERSION\nDEM {tif}\nINFO\n")
+    argv = [] if torch_device_type(dev) == "cuda" else ["--device", "cpu"]
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "criteria3d_tpu_torch.cli", *argv,
+                           "entry.txt"], capture_output=True, text=True, cwd=root,
+                          env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                              os.path.abspath(__file__))), timeout=300)
+    entry_s = time.time() - t0
+    out = proc.stdout.splitlines()
+    check(proc.returncode == 0 and not [x for x in out if x.startswith("ERROR:")]
+          and "criteria3d-tpu> INFO" in out and f"DEM: ({n}, {n}), cell 4.0 m, "
+          f"{int((prj.dem != -9999.0).sum())} valid cells" in out,
+          f"3q: python -m criteria3d_tpu_torch.cli gave {proc.returncode}: "
+          f"{proc.stdout[-600:]} {proc.stderr[-600:]}")
+    print(f"# shell {n} ({card}): python -m criteria3d_tpu_torch.cli took {entry_s} s: "
+          + " | ".join(out), flush=True)
+    result = dict(script_s=script_s, commands=run["commands"],
+                  hours=[r["wall_s"] for r in run["hours"]],
+                  syncs=[r["syncs"] for r in run["hours"]],
+                  stats=[r["stats"] for r in run["hours"]],
+                  mbrs=[r["mbr"] for r in run["hours"]], launches=launches,
+                  written=w.written, errors=w.errors, peak_gib=peak, entry_s=entry_s)
+    del run, sh, prj
+    return ini, result
+
+
+def grid_hours(ini: str, out_dir: str, dev, fast: bool, grid: dict, seed: int,
+               records: list):
+    """A project loaded with a meteo grid (problems.write_meteo_grid) as its
+    weather, initialised on ``dev``, then run_period over GRID_HOURS with
+    outputs; each hour's record (wall, reads, stats, MBR, forcing maps on
+    the host) goes to ``records``. Returns the project and its log."""
+    import datetime
+    from criteria3d_tpu_torch.problems import PROJECT_DATE, write_meteo_grid
+    from criteria3d_tpu_torch.project import Criteria3DProject
+    xml, db = write_meteo_grid(os.path.dirname(ini), ini, seed=seed, **grid)
+    prj = Criteria3DProject.load(ini, output_dir=out_dir)
+    t0 = time.time()
+    prj.load_meteo_grid(xml, db, as_forcing=True)
+    load_s = time.time() - t0
+    prj.initialize(fast=fast, device=dev)
+    first, n_hours = GRID_HOURS
+    instrument_run_hour(prj, records, keep_forcing=True, dev=dev)
+    log = prj.run_period(datetime.datetime(*PROJECT_DATE, first), n_hours)
+    return prj, log, load_s
+
+
+def grid_full_size(ini: str, seed: int, card: str, tmp: str, dev="cuda") -> dict:
+    """phase 3r: the meteo grid at full width: a 10 x 10 UTM grid of 500 m
+    cells over 3k's box and a 1 km margin as the weather of the 768 box
+    project (fast), two hours with outputs, one more profiled, and that
+    hour's temperature map exported into the grid's tables."""
+    import datetime
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.outputs import OUTPUTS_RANGE
+    from criteria3d_tpu_torch.project import INTERPOLATION_RANGE
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    records = []
+    _peak_gib(dev, reset=True)
+    JB.jacobi_bundle.launches = 0
+    prj, log, load_s = grid_hours(ini, os.path.join(tmp, "grid_out"), dev, True,
+                                  GRID_FULL, seed, records)
+    launches = JB.jacobi_bundle.launches
+    peak = _peak_gib(dev)
+    n = prj.dem.shape[0]
+    cells = int((n * prj.header.cellsize + 2 * GRID_FULL["margin"]) // GRID_FULL["cell"]) ** 2
+    check(len(prj.stations) == len(prj.meteo_grid_cells) == cells
+          and (n != 768 or cells == 100),
+          f"3r: {len(prj.stations)} stations from the grid, expected {cells}")
+    valid = prj.grid.mask[0].cpu()
+    for rec, e in zip(records, log):
+        fin = all(bool(torch.isfinite(v[valid]).all()) for v in rec["forcing"].values())
+        print(f"# grid {n} hour {rec['when'].hour} ({card}): wall "
+              f"{rec['wall_s']} s, host reads {rec['syncs']}, stats {rec['stats']}, MBR "
+              f"{e['mbr']}, T {float(rec['forcing']['air_temperature'][valid].min())}.."
+              f"{float(rec['forcing']['air_temperature'][valid].max())} degC", flush=True)
+        check(fin, f"3r hour {rec['when'].hour}: forcing not finite on the catchment")
+        check(abs(e["mbr"]) < 2e-3, f"3r hour {rec['when'].hour}: |MBR| {e['mbr']}")
+    check(launches == 0, f"3r: the grid hours launched {launches} jacobi_bundle kernels")
+
+    when = records[-1]["when"] + datetime.timedelta(hours=1)
+    outs = []
+    ranges = layer_ranges() + (INTERPOLATION_RANGE, OUTPUTS_RANGE)
+    busy, _, layers = _profiled(
+        f"grid hour {when.hour}", lambda: (outs.append(prj.run_hour(when)),
+                                           prj.flush_outputs()),
+        statistics.median([r["wall_s"] for r in records]), ranges, dev)
+    interp_s = layers.get(INTERPOLATION_RANGE, 0.0)
+    t_map = torch.where(prj.grid.mask[0], outs[0]["forcing"].air_temperature, -9999.0)
+    t0 = time.time()
+    agg = prj.export_hourly_to_grid(101, t_map, when)
+    export_s = time.time() - t0
+    back = prj.meteo_grid.read_hourly_map(prj.meteo_grid.cell_codes_2d(), 101, when)
+    ok = agg != -9999.0
+    d_back = float(np.abs(back[ok] - agg[ok]).max())
+    print(f"# grid hour {when.hour} ({card}): {cells} stations; c3d.interpolation "
+          f"{interp_s} s of device time ({interp_s / busy} of busy {busy} s); exported "
+          f"{int(ok.sum())} cells in {export_s} s, read back within {d_back} (1e-6); "
+          f"peak memory {peak:.2f} GiB; load_meteo_grid {load_s} s", flush=True)
+    check(ok.sum() > 0 and d_back <= 1e-6, f"3r: the exported map reads back {d_back} apart")
+    hours = records[:len(log)]
+    result = dict(walls=[r["wall_s"] for r in hours], syncs=[r["syncs"] for r in hours],
+                  stats=[r["stats"] for r in hours], mbrs=[e["mbr"] for e in log],
+                  interpolation_s=interp_s, busy_s=busy, d_back=d_back, export_s=export_s,
+                  launches=launches, peak_gib=peak, load_s=load_s,
+                  writer=(prj._raster_writer.written, prj._raster_writer.errors))
+    check(result["writer"][1] == 0, f"3r: the writer pool had {result['writer'][1]} errors")
+    return result
+
+
+def shell_card_vs_cpu(seed: int, card: str, tmp: str, dev="cuda") -> dict:
+    """phase 3s: a 32 box: the batch script (no FAST: the float64
+    parameters) and two meteo-grid hours, on the card and on the CPU."""
+    import numpy as np
+    from criteria3d_tpu_torch.problems import write_project
+    ini = write_project(os.path.join(tmp, "s32"), n=32, seed=seed, n_stations=6)
+    runs = {}
+    for d in (dev, "cpu"):
+        root = os.path.join(tmp, f"shell32_{torch_device_type(d)}_{len(runs)}")
+        os.makedirs(root)
+        t0 = time.time()
+        run = run_batch(root, SHELL_SCRIPT.format(ini=ini, fast="", start=10), d)
+        run["wall_s"] = time.time() - t0
+        run["files"] = shell_files(root)
+        records = []
+        t0 = time.time()
+        prj, log, _ = grid_hours(ini, os.path.join(root, "grid_out"), d, False,
+                                 GRID_SMALL, seed, records)
+        run["grid"] = (prj, records, log, time.time() - t0)
+        runs[len(runs)] = run
+    c, p = runs[0], runs[1]
+    check(c["shell"].params.sweep_dtype is None, "3s: the shell is not on the float64 path")
+    check([r["stats"] for r in c["hours"]] == [r["stats"] for r in p["hours"]],
+          f"3s: shell hours' stats differ: {[r['stats'] for r in c['hours']]} "
+          f"{[r['stats'] for r in p['hours']]}")
+    dh = float((c["shell"].model.water.h.cpu() - p["shell"].model.water.h).abs().max())
+    f_rel = 0.0
+    for a, b in zip(c["hours"] + c["grid"][1], p["hours"] + p["grid"][1]):
+        for k, v in b["forcing"].items():
+            f_rel = max(f_rel, rel_err(a["forcing"][k], v))
+    gc, gp = c["grid"], p["grid"]
+    check([r["stats"] for r in gc[1]] == [r["stats"] for r in gp[1]],
+          f"3s: grid hours' stats differ: {[r['stats'] for r in gc[1]]} "
+          f"{[r['stats'] for r in gp[1]]}")
+    dh_g = float((gc[0].model.water.h.cpu() - gp[0].model.water.h).abs().max())
+    shares, same, report_diff = {}, [], ""
+    for name, a in c["files"].items():
+        b = p["files"][name]
+        if name.endswith(".html"):
+            import base64
+            import re
+            parts = []
+            for html in (a.decode(), b.decode()):
+                imgs = [base64.b64decode(m) for m in
+                        re.findall(r'src="data:image/png;base64,([^"]*)"', html)]
+                text = re.sub(r'src="data:image/png;base64,[^"]*"', "", html)
+                parts.append((re.sub(r"<footer>[^<]*</footer>", "", text), imgs))
+            if parts[0][0] != parts[1][0]:
+                i = next(k for k, (x, y) in enumerate(zip(*(q[0] for q in parts)))
+                         if x != y)
+                report_diff = (f"card ...{parts[0][0][i - 80:i + 80]}... CPU "
+                               f"...{parts[1][0][i - 80:i + 80]}...")
+            for k, (x, y) in enumerate(zip(parts[0][1], parts[1][1])):
+                shares[f"{name}[{k}]"] = 0.0 if x == y else pixel_share(x, y)
+        elif name in SHELL_STATE_IMAGES:
+            shares[name] = 0.0 if a == b else pixel_share(a, b)
+        elif name.endswith((".png", ".csv")):
+            check(a == b, f"3s: {name} differs between the card and the CPU")
+            same.append(name)
+    worst = max(shares.values())
+    lines_differ = [(x, y) for x, y in zip(c["lines"], p["lines"]) if x != y]
+    print(f"# shell 32 box ({card}): script card {c['wall_s']} s, CPU {p['wall_s']} s; "
+          f"stats card {[r['stats'] for r in c['hours']]}; max |dh| {dh} m (1e-6); grid "
+          f"hours card {gc[3]} s, CPU {gp[3]} s, stats {[r['stats'] for r in gc[1]]}, "
+          f"max |dh| {dh_g} m (1e-6); forcing maps rel {f_rel} (1e-12); byte-equal "
+          f"{same}; state images differing pixel shares {shares} (0.001); printed "
+          f"lines differing (card, CPU) {lines_differ} of {len(c['lines'])}", flush=True)
+    check(not report_diff, f"3s: the reports' text differs: {report_diff}")
+    check(dh < 1e-6 and dh_g < 1e-6, f"3s: heads differ by {dh} / {dh_g} m")
+    check(f_rel <= 1e-12, f"3s: forcing maps differ by rel {f_rel}")
+    check(worst <= 1e-3, f"3s: state images differ in {worst} of their pixels")
+    check(len(c["lines"]) == len(p["lines"]), "3s: the shells printed different line counts")
+    return dict(walls=(c["wall_s"], p["wall_s"]), walls_grid=(gc[3], gp[3]), dh=dh,
+                dh_grid=dh_g, f_rel=f_rel, pixel_share=worst)
+
+
+def shell_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
+    """Phases 3q-3s (the command shell, the meteo grid, both card against
+    CPU); returns what they measured. ``dev="cpu"`` with a small ``n``
+    rehearses them on the CPU (no device time, no peak memory)."""
+    import torch
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ini, full_s = shell_full_size(seed, card, tmp, dev, n)
+        if torch_device_type(dev) == "cuda":
+            torch.cuda.empty_cache()
+        full_g = grid_full_size(ini, seed, card, tmp, dev)
+        if torch_device_type(dev) == "cuda":
+            torch.cuda.empty_cache()
+        small = shell_card_vs_cpu(seed, card, tmp, dev)
+    seconds = time.time() - t0
+    print(f"# phases 3q-3s took {seconds} s ({card})", flush=True)
+    return dict(shell=full_s, grid=full_g, small=small, seconds=seconds)
 
 
 def main() -> int:
@@ -1705,6 +2143,9 @@ def main() -> int:
     # ---- 3m-3p. the side process models and VINE3D -------------------------
     sp = side_phases(args.seed, card)
 
+    # ---- 3q-3s. the command shell and the meteo grid ------------------------
+    shp = shell_phases(args.seed, card)
+
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
     runs = {"tiled": [], "per_sweep": []}
@@ -1742,6 +2183,9 @@ def main() -> int:
         "launches_model_hour": mp["launches_bundle"],
         # launches in the vineyard hours of phase 3o (the CG-line preset)
         "launches_vine_hours": sp["vine"]["launches"],
+        # launches in the shell's hours (3q) and the meteo-grid hours (3r)
+        "launches_shell_hours": shp["shell"]["launches"],
+        "launches_grid_hours": shp["grid"]["launches"],
         "variant": JB.tiled_variant(*inputs),
         "tile": TI,
         "sweeps_on_chip": S,
@@ -1773,7 +2217,15 @@ def main() -> int:
           f"c3d.vine share={sp['vine']['vine_s'] / sp['vine']['busy_s']} c3d.diseases share="
           f"{sp['vine']['diseases_s'] / sp['vine']['busy_s']} peak_gib={sp['vine']['peak_gib']:.2f}; "
           f"vine day card/CPU walls={sp['vine_small']['walls']}; phases 3m-3p "
-          f"{sp['seconds']:.1f} s; script {time.time() - t_start:.1f} s")
+          f"{sp['seconds']:.1f} s; shell 768 script_s={shp['shell']['script_s']} "
+          f"hour walls={shp['shell']['hours']} host_reads={shp['shell']['syncs']} "
+          f"writer written={shp['shell']['written']} errors={shp['shell']['errors']} "
+          f"peak_gib={shp['shell']['peak_gib']:.2f}; grid 768 walls={shp['grid']['walls']} "
+          f"host_reads={shp['grid']['syncs']} c3d.interpolation share (100 stations)="
+          f"{shp['grid']['interpolation_s'] / shp['grid']['busy_s']} (3k, 20 stations: "
+          f"{pp['full']['interpolation_s'] / pp['full']['busy_s']}); shell and grid "
+          f"32 box card/CPU walls={shp['small']['walls']} {shp['small']['walls_grid']}; "
+          f"phases 3q-3s {shp['seconds']:.1f} s; script {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,12 +13,17 @@ heat and the coupled water + heat step (``solver/heat.py``,
 ``solver/coupled.py``); the hourly model cycle (``model.py``: radiation,
 snow, ET0, interception, cracking and crop from ``physics/``, the HYDRALL
 forest model and RothC soil carbon) with its state checkpoints (``io/``);
-the project stack (``project.py``, with the water table); the VINE3D
-model and project (``vine3d.py``, ``vine3d_project.py``: grapevine
-physiology and the two mildews). The bundled Jacobi solve runs the CUDA kernel
+the project stack (``project.py``, with the water table, the meteo grid
+DB, the native raster writer pool and the HTML report); the VINE3D model
+and project (``vine3d.py``, ``vine3d_project.py``: grapevine physiology
+and the two mildews); the command shell (``cli.py``: ``python -m
+criteria3d_tpu_torch.cli script.txt``) with its GeoTIFF, quick-look and
+``viz/`` renderers. The bundled Jacobi solve runs the CUDA kernel
 ``csrc/jacobi_bundle.cu`` on CUDA tensors and its plain PyTorch twin on CPU
 tensors.
 """
+
+__version__ = "0.1.0"
 
 from criteria3d_tpu_torch.core.soil import MeanType, SoilFields, WRCModel
 from criteria3d_tpu_torch.core.grid import BoundaryType, Grid

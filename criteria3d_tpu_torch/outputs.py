@@ -14,9 +14,9 @@ output subsystem):
 * hourly output rasters at the depths configured in the project ini
   ([output] lists, Montue.ini:32-36): :func:`compute_output_rasters` stages
   the maps on the device, :func:`flush_staged_rasters` copies them to the
-  host and writes them with the synchronous ESRI writer (the JAX package
-  queues them on its native C++ writer pool, which is not ported yet,
-  ROADMAP A7h; the bytes are the same).
+  host and writes them with the synchronous ESRI writer, or queues them on
+  the native C++ writer pool (``native.AsyncRasterWriter``) when given one;
+  the bytes are the same.
 """
 
 from __future__ import annotations
@@ -196,21 +196,31 @@ def compute_output_rasters(out_dir: str, time_tag: str, grid: Grid,
                                             variables).items()]
 
 
-def flush_staged_rasters(staged) -> list[str]:
-    """Copy staged maps to the host and write each as an ESRI .flt/.hdr
-    pair; returns the .flt paths."""
+def flush_staged_rasters(staged, writer=None) -> list[str]:
+    """Copy staged maps to the host (one counted copy each) and write each
+    as an ESRI .flt/.hdr pair, or queue it on ``writer`` (a
+    :class:`criteria3d_tpu_torch.native.AsyncRasterWriter`, which copies
+    the host array); returns the .flt paths."""
     written = []
     for path, vmap, hdr in staged:
-        write_flt(path, host_array(vmap), hdr)
+        if writer is not None:
+            writer.submit(path, host_array(vmap), hdr)
+        else:
+            write_flt(path, host_array(vmap), hdr)
         written.append(path + ".flt")
     return written
 
 
 def write_output_rasters(out_dir: str, time_tag: str, grid: Grid,
                          params: SolverParameters, water: WaterState,
-                         variables: dict[OutputVariable, list[int]]) -> list[str]:
+                         variables: dict[OutputVariable, list[int]],
+                         writer=None) -> list[str]:
     """Write one ESRI raster per (variable, depth), named
-    ``<var>_<depthCm>_<time>`` like the reference's hourly output maps."""
+    ``<var>_<depthCm>_<time>`` like the reference's hourly output maps.
+
+    ``writer`` (a :class:`criteria3d_tpu_torch.native.AsyncRasterWriter`)
+    queues the file IO onto the native worker pool so it overlaps the next
+    hour's work on the card; without one the writes are synchronous."""
     return flush_staged_rasters(
         compute_output_rasters(out_dir, time_tag, grid, params, water,
-                               variables))
+                               variables), writer=writer)

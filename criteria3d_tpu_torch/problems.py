@@ -17,7 +17,9 @@ card tests (``tests/test_torch_cuda.py``).
   pack, then a dry afternoon; :func:`build_hydrall_problem` adds HYDRALL
   and RothC over a seeded forest.
 - :func:`write_project` and :func:`write_vine_project`: a CRITERIA3D
-  project and a VINE3D project on disk that both packages load.
+  project and a VINE3D project on disk that both packages load;
+  :func:`dem_as_geotiff` rewrites a project's DEM as a GeoTIFF and
+  :func:`write_meteo_grid` writes a meteo grid DB over its box.
 """
 
 from __future__ import annotations
@@ -43,7 +45,8 @@ __all__ = ["synthetic_catchment", "build_problem", "small_hour",
            "catchment_grid", "build_model_problem", "model_day_forcing",
            "MODEL_CONFIG", "small_model", "write_project", "HYDRALL_CONFIG",
            "forest_mask", "build_hydrall_problem", "small_hydrall_model",
-           "write_vine_project", "seed_vine_canopy", "VINE_DATE", "VINE_CANOPY"]
+           "write_vine_project", "seed_vine_canopy", "VINE_DATE", "VINE_CANOPY",
+           "dem_as_geotiff", "write_meteo_grid"]
 
 # clay loam of the Ravone study
 CLAY_LOAM = dict(vg_alpha=1.0, vg_n=1.35, vg_he=0.02, theta_s=0.44,
@@ -408,6 +411,20 @@ def _station_weather(rng, hour: int, z: float, pot: float) -> dict:
     }
 
 
+def _site_clear_sky(day) -> list:
+    """The site's clear-sky irradiance [W m-2] at each of the 24 hours of
+    ``day`` (year, month, day; local time, UTC+1), Linke turbidity 4."""
+    from criteria3d_tpu_torch.physics import radiation as rad_mod
+    lat0, lon0 = PROJECT_SITE
+    pots = []
+    for hour in range(24):
+        sun = rad_mod.sun_position(torch.tensor(lat0, dtype=torch.float64), lon0, 1,
+                                   *day, hour)
+        pots.append(float(rad_mod.clear_sky_beam_horizontal(4.0, sun)
+                          + rad_mod.clear_sky_diffuse_horizontal(4.0, sun)))
+    return pots
+
+
 def _write_stations(path: str, hdr, zone: int, n_stations: int, rng, day,
                     weather, outlier=None) -> None:
     """Write ``n_stations`` stations and their 24 hourly readings of ``day``
@@ -422,7 +439,6 @@ def _write_stations(path: str, hdr, zone: int, n_stations: int, rng, day,
     from criteria3d_tpu_torch.core.geo import utm_to_latlon
     from criteria3d_tpu_torch.core.meteo import MeteoVariable
     from criteria3d_tpu_torch.io.meteopoints import MeteoPointsDB
-    from criteria3d_tpu_torch.physics import radiation as rad_mod
 
     lat0, lon0 = PROJECT_SITE
     width = hdr.nrows * hdr.cellsize
@@ -433,12 +449,7 @@ def _write_stations(path: str, hdr, zone: int, n_stations: int, rng, day,
     alt = 60.0 + 600.0 * np.arange(n_stations) / max(n_stations - 1, 1)
     alt = rng.permutation(alt)
     date = datetime.datetime(*day)
-    pots = []
-    for hour in range(24):
-        sun = rad_mod.sun_position(torch.tensor(lat0, dtype=torch.float64), lon0, 1,
-                                   *day, hour)
-        pots.append(float(rad_mod.clear_sky_beam_horizontal(4.0, sun)
-                          + rad_mod.clear_sky_diffuse_horizontal(4.0, sun)))
+    pots = _site_clear_sky(day)
     o_hour, o_station, o_excess = outlier or (None, None, 0.0)
     variables = (("t", MeteoVariable.AIR_TEMPERATURE),
                  ("prec", MeteoVariable.PRECIPITATION),
@@ -604,6 +615,132 @@ tdmin_lapserate = {monthly([-0.002] * 12)}
 tdmax_lapserate = {monthly([-0.003] * 12)}
 """)
     return ini
+
+
+def dem_as_geotiff(ini: str) -> str:
+    """Rewrite the DEM of a :func:`write_project` project as an
+    uncompressed float32 GeoTIFF (``MAPS/dem.tif``, the writer of
+    ``io/geotiff.py``), remove its ``.flt``/``.hdr`` and point the ini at
+    the ``.tif``; returns the GeoTIFF's path."""
+    import os
+
+    from criteria3d_tpu_torch.io.esri import read_flt
+    from criteria3d_tpu_torch.io.geotiff import write_geotiff
+
+    base = os.path.join(os.path.dirname(ini), "MAPS", "dem")
+    dem, hdr = read_flt(base + ".flt")
+    write_geotiff(base + ".tif", dem, hdr)
+    os.remove(base + ".flt")
+    os.remove(base + ".hdr")
+    with open(ini) as f:
+        text = f.read()
+    assert "\ndem = MAPS/dem\n" in text
+    with open(ini, "w") as f:
+        f.write(text.replace("\ndem = MAPS/dem\n", "\ndem = MAPS/dem.tif\n"))
+    return base + ".tif"
+
+
+def write_meteo_grid(dirpath: str, ini: str, *, cell: float, margin: float,
+                     seed: int) -> tuple[str, str]:
+    """Write a meteo grid DB in the ERG5/COSMO style over the box of the
+    project at ``ini`` (a :func:`write_project` project) with numpy and
+    sqlite3 only, so that both packages load it; returns the paths of its
+    XML and its sqlite DB (``DATA/grid.xml`` and ``DATA/grid.db`` under
+    ``dirpath``).
+
+    The grid is regular and in UTM: square cells of ``cell`` metres over
+    the DEM's box widened by ``margin`` metres a side (as many whole cells
+    as fit, centred on the box; row 0 the south row). Every cell is active;
+    its CellsProperties height is the DEM's at the cell centre, or, where
+    the centre falls off the catchment, the height of the valley's plane
+    surface there (:func:`synthetic_catchment` without its perturbation).
+    Each cell reports the 24 hours of 2023-03-21 (local time) under the
+    stations' weather rule of :func:`write_project` at its height (the
+    thermal inversion before 9 h, 6.5 K/km after, precipitation at 6-9 h),
+    in the long per-cell hourly tables (PragaTime, VariableCode, Value)
+    with the reference's variable codes. The same arguments give the same
+    bytes."""
+    import datetime
+    import os
+    import sqlite3
+
+    from criteria3d_tpu_torch.core.meteo import HOURLY_DB_IDS, MeteoVariable
+    from criteria3d_tpu_torch.io.config import load_project_ini
+    from criteria3d_tpu_torch.io.esri import read_raster
+
+    dem, hdr = read_raster(load_project_ini(ini).dem_path)
+    n = hdr.nrows
+    width = n * hdr.cellsize
+    n_cells = int((width + 2 * margin) // cell)
+    xll = hdr.xllcorner + width / 2 - n_cells * cell / 2
+    yll = hdr.yllcorner + width / 2 - n_cells * cell / 2
+    xml_path = os.path.join(dirpath, "DATA", "grid.xml")
+    db_path = os.path.join(dirpath, "DATA", "grid.db")
+    os.makedirs(os.path.dirname(xml_path), exist_ok=True)
+    with open(xml_path, "w") as f:
+        f.write(f"""<?xml version="1.0"?>
+<MeteoGrid>
+  <gridstructure isregular="true" isutm="true" istin="false"
+                 isfixedfields="false">
+    <header>
+      <xll>{xll!r}</xll>
+      <yll>{yll!r}</yll>
+      <nrrows>{n_cells}</nrrows>
+      <nrcols>{n_cells}</nrcols>
+      <xwidth>{cell!r}</xwidth>
+      <ywidth>{cell!r}</ywidth>
+    </header>
+  </gridstructure>
+  <tablehourly>
+    <fieldtime>PragaTime</fieldtime>
+    <prefix></prefix>
+    <postfix>_H</postfix>
+  </tablehourly>
+</MeteoGrid>
+""")
+    if os.path.exists(db_path):
+        os.remove(db_path)
+
+    rng = np.random.default_rng(seed)
+    pots = _site_clear_sky(PROJECT_DATE)
+    date = datetime.datetime(*PROJECT_DATE)
+    times = [(date + datetime.timedelta(hours=h)).strftime("%Y-%m-%d %H:%M")
+             for h in range(24)]
+    codes = {"t": HOURLY_DB_IDS[MeteoVariable.AIR_TEMPERATURE],
+             "prec": HOURLY_DB_IDS[MeteoVariable.PRECIPITATION],
+             "rh": HOURLY_DB_IDS[MeteoVariable.AIR_REL_HUMIDITY],
+             "wind": HOURLY_DB_IDS[MeteoVariable.WIND_SCALAR_INTENSITY],
+             "rad": HOURLY_DB_IDS[MeteoVariable.GLOBAL_IRRADIANCE]}
+    con = sqlite3.connect(db_path)
+    con.execute("CREATE TABLE CellsProperties (Code TEXT NOT NULL PRIMARY KEY, "
+                "Name TEXT, Row INTEGER, Col INTEGER, Height REAL, Active INTEGER)")
+    for row in range(n_cells):
+        for col in range(n_cells):
+            x = xll + (col + 0.5) * cell
+            y = yll + (row + 0.5) * cell
+            # the centre in DEM cell units (raster row 0 = north)
+            fc = (x - hdr.xllcorner) / hdr.cellsize - 0.5
+            fr = n - 0.5 - (y - hdr.yllcorner) / hdr.cellsize
+            r, c = int(round(fr)), int(round(fc))
+            if 0 <= r < n and 0 <= c < n and dem[r, c] != hdr.nodata:
+                z = float(dem[r, c])
+            else:
+                z = (100.0 + (n - 1 - fr) * 0.05 * hdr.cellsize
+                     + abs(fc - n // 2) * 0.08 * hdr.cellsize)
+            code = f"{row:03d}{col:03d}"
+            con.execute("INSERT INTO CellsProperties VALUES (?,?,?,?,?,?)",
+                        (code, f"cell {row} {col}", row, col, z, 1))
+            table = f"{code}_H"
+            con.execute(f'CREATE TABLE "{table}" (PragaTime TEXT, VariableCode '
+                        "INTEGER, Value REAL, PRIMARY KEY (PragaTime, VariableCode))")
+            rows = []
+            for hour in range(24):
+                w = _station_weather(rng, hour, z, pots[hour])
+                rows += [(times[hour], codes[k], float(w[k])) for k in codes]
+            con.executemany(f'INSERT INTO "{table}" VALUES (?,?,?)', rows)
+    con.commit()
+    con.close()
+    return xml_path, db_path
 
 
 # ----------------------------------------------------------------------

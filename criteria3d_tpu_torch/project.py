@@ -17,15 +17,22 @@ Project / Project3D / Crit3DProject load-and-run stack:
   device, station transmissivity from observed radiation.
 * :meth:`Criteria3DProject.run_hour` / :meth:`run_period` — ``runModelHour``
   / ``runModels`` (criteria3DProject.cpp:1169-1318, 2020-2135): the hourly
-  cycle with output rasters and output-point series written from the loop.
+  cycle with output rasters (queued on the native C++ writer pool,
+  ``native.AsyncRasterWriter``) and output-point series written from the
+  loop;
+* :meth:`Criteria3DProject.load_meteo_grid` /
+  :meth:`export_hourly_to_grid` — a meteo grid DB (``io/meteogrid.py``)
+  as the weather source, its active cells as virtual stations, and a map
+  aggregated back into its hourly tables;
+* :meth:`Criteria3DProject.write_report` — the standalone HTML run report
+  (``viz/``).
 
 Station work (QC, regressions) stays on the host, the maps on the device;
 each hour reads the card for the stations' clear-sky potential, the output
 points' values and the previous hour's staged rasters (all counted by
 ``device.host_read``). The water-table subsystem (wells, per-well fits
-against the nearest station, the daily depth map) is host numpy. Not
-ported yet, and raising ``NotImplementedError``: the meteo grid DB (ROADMAP
-A7f) and the HTML run report (A7i).
+against the nearest station, the daily depth map), the meteo grid DB and
+the report's rendering are host numpy and sqlite3.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from criteria3d_tpu_torch.core.grid import (BoundaryType, Grid,
 from criteria3d_tpu_torch.core.meteo import (QUALITY_RANGES, ClimateParameters,
                                              MeteoStation, MeteoVariable,
                                              check_fast_value_hourly)
-from criteria3d_tpu_torch.core.soil import SoilFields, power
+from criteria3d_tpu_torch.core.soil import SoilFields, power, theta_from_se
 from criteria3d_tpu_torch.core.state import SolverParameters
 from criteria3d_tpu_torch.device import host_array, host_read, resolve_device
 from criteria3d_tpu_torch.io.config import ProjectConfig, load_project_ini
@@ -69,7 +76,7 @@ from criteria3d_tpu_torch.physics.watertable import (WaterTableModel,
                                                      load_well_depths_csv,
                                                      load_well_locations_csv)
 
-__all__ = ["Criteria3DProject", "INTERPOLATION_RANGE"]
+__all__ = ["Criteria3DProject", "INTERPOLATION_RANGE", "state_maps"]
 
 # torch.profiler range of the hourly forcing maps: station QC, the
 # regressions and the IDW maps (chip_smoke.py reads it)
@@ -88,9 +95,20 @@ _VAR_KIND = {
 _MIN_STATIONS_FOR_SPATIAL_QC = 5
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to criteria3d_tpu_torch yet (ROADMAP {item})")
+def state_maps(grid: Grid, params: SolverParameters, water) -> tuple:
+    """(root-zone water content [m3 m-3], ponding [mm]) host maps of a
+    water state, NODATA off the catchment: the mean theta over the
+    subsurface layers and the surface water level, as the JAX report and
+    shell compute them. Three counted reads of the grid's device."""
+    from criteria3d_tpu_torch.solver import water as W
+    theta = theta_from_se(grid.soil, W.compute_se(grid, params, water.h))
+    mask = host_array(grid.mask).astype(bool)
+    m = mask[1:]
+    th = host_array(theta[1:])
+    swc = np.where(m.any(0), (th * m).sum(0) / np.maximum(m.sum(0), 1), NODATA)
+    pond = np.where(mask[0], host_array(water.surface_water_level(grid)) * 1000.0,
+                    NODATA)
+    return swc, pond
 
 
 @dataclasses.dataclass
@@ -113,6 +131,9 @@ class Criteria3DProject:
     output_points: OutputPoints | None = None
     output_dir: str = ""
     warnings: list = dataclasses.field(default_factory=list)
+    # the meteo grid DB (load_meteo_grid) and its CellsProperties rows
+    meteo_grid: object | None = None
+    meteo_grid_cells: list = dataclasses.field(default_factory=list)
     # built by initialize()
     device: torch.device | None = None
     grid: Grid | None = None
@@ -128,6 +149,8 @@ class Criteria3DProject:
     # previous hour's output maps, still on the device: copied to the host
     # only after the NEXT hour's work is queued
     _staged_rasters: list | None = None
+    # the native C++ writer pool the output rasters are queued on
+    _raster_writer: object | None = None
 
     # ------------------------------------------------------------------
     @classmethod
@@ -398,18 +421,51 @@ class Criteria3DProject:
         return OutputPoints(ids, rows, cols)
 
     # ------------------------------------------------------------------
-    # parts of the JAX project not ported yet
+    # the meteo grid DB as a weather source
     # ------------------------------------------------------------------
-    def load_meteo_grid(self, xml_path: str, db_path: str, **kw) -> None:
-        """Attach an XML-described meteo grid DB (Project::loadMeteoGridDB):
-        not ported (io/meteogrid.py)."""
-        _not_ported("the meteo grid DB (load_meteo_grid, io/meteogrid.py)", "A7f")
+    def load_meteo_grid(self, xml_path: str, db_path: str, *,
+                        as_forcing: bool = True, var_map: dict | None = None
+                        ) -> None:
+        """Attach an XML-described meteo grid DB as a weather source.
 
-    def export_hourly_to_grid(self, varcode: int, map2d, when, **kw):
-        """Aggregate a map onto the meteo grid: not ported
-        (io/meteogrid.py)."""
-        _not_ported("the meteo grid DB (export_hourly_to_grid, io/meteogrid.py)",
-                    "A7f")
+        Reference: Project::loadMeteoGridDB + the per-row data-load loop
+        (project.cpp:1699-1770) and meteoGrid fillMeteoPoint: grid cells
+        are modelled as meteo points, so with ``as_forcing`` every ACTIVE
+        cell becomes a virtual station (centre coordinates, CellsProperties
+        height, hourly series from the per-cell tables) and the whole
+        QC / detrending / interpolation pipeline drives from the grid
+        unchanged. Host work only."""
+        from criteria3d_tpu_torch.io.meteogrid import (MeteoGridDb,
+                                                       parse_grid_xml,
+                                                       stations_from_grid)
+        structure = parse_grid_xml(xml_path)
+        self.meteo_grid = MeteoGridDb(db_path, structure)
+        self.meteo_grid_cells = self.meteo_grid.load_cell_properties()
+        if as_forcing:
+            self.stations = stations_from_grid(
+                self.meteo_grid, self.meteo_grid_cells, var_map=var_map,
+                utm_zone=self.config.utm_zone)
+            if not self.stations:
+                self.warnings.append("meteo grid has no active cells")
+
+    def export_hourly_to_grid(self, varcode: int, map2d,
+                              when: datetime.datetime, *,
+                              method: str = "average") -> np.ndarray:
+        """Aggregate a DEM-resolution map onto the meteo grid and write it
+        into the per-cell hourly tables (Crit3DMeteoGrid::
+        spatialAggregateMeteoGrid, meteoGrid.cpp:139, then the hourly DB
+        save); returns the aggregated (nr_rows, nr_cols) array. A map on
+        the device comes to the host in one counted copy."""
+        from criteria3d_tpu_torch.io.meteogrid import aggregate_raster_to_grid
+        if self.meteo_grid is None:
+            raise ValueError("no meteo grid loaded (load_meteo_grid first)")
+        values = (host_array(map2d) if isinstance(map2d, torch.Tensor)
+                  else np.asarray(map2d))
+        agg = aggregate_raster_to_grid(values, self.header,
+                                       self.meteo_grid.structure, method=method)
+        self.meteo_grid.write_hourly_map(self.meteo_grid_cells, varcode,
+                                         when, agg)
+        return agg
 
     # --- water table subsystem (Project::waterTableImportLocation /
     #     waterTableImportDepths / waterTableComputeSingleWell,
@@ -523,8 +579,53 @@ class Criteria3DProject:
         return np.where(valid, out, NODATA)
 
     def write_report(self, path: str, log: list | None = None) -> None:
-        """The HTML run report (viz/report.py): not ported."""
-        _not_ported("the HTML run report (write_report with viz/)", "A7i")
+        """Standalone HTML report of the current project state (the GUI
+        dashboard's role, headless: viz/report.py): shaded terrain map with
+        stations, oblique 3-D view, root-zone water content and ponding
+        maps (read from the model's device by :func:`state_maps`), plus the
+        period's MBR trace when a ``run_period`` log is passed."""
+        from criteria3d_tpu_torch.solver import water as W
+        from criteria3d_tpu_torch.viz import (HtmlReport, line_chart,
+                                              render_map, render_surface3d)
+        valid = ~np.isclose(self.dem, self.header.nodata)
+        dem = np.where(valid, self.dem, NODATA)
+        rep = HtmlReport(f"{self.config.name} — run report")
+        rep.section("Terrain")
+        rep.figure(render_map(dem, header=self.header,
+                              points=self.stations or None, title="DEM"),
+                   "Slope-shaded DEM with meteo stations")
+        rep.figure(render_surface3d(dem, self.header.cellsize,
+                                    rotation_deg=20.0),
+                   "Oblique 3-D view")
+        if self.model is not None:
+            g = self.grid
+            swc, pond = state_maps(g, self.params, self.model.water)
+            rep.section("State maps")
+            rep.figure(render_map(dem, header=self.header, overlay=swc,
+                                  overlay_scale="surface_water",
+                                  title="ROOT-ZONE WATER CONTENT"),
+                       "Root-zone volumetric water content [m3 m-3]")
+            rep.figure(render_map(dem, header=self.header, overlay=pond,
+                                  overlay_scale="surface_water",
+                                  title="PONDING [MM]"),
+                       "Surface water level [mm]")
+            twc = host_read(W.total_water_content(g, self.params,
+                                                  self.model.water.h,
+                                                  self.model.water.se))
+            rep.section("State")
+            rep.table([["grid", f"{g.shape}"], ["nodes", g.n_nodes],
+                       ["total water content [m3]", f"{twc:.2f}"]],
+                      header=["quantity", "value"])
+        if log:
+            t = [datetime.datetime.fromisoformat(e["time"]) for e in log]
+            mbr = [abs(float(e["mbr"])) for e in log]
+            rep.section("Mass balance")
+            rep.figure(line_chart({"ABS MBR": (t, mbr)},
+                                  title="HOURLY MASS BALANCE RATIO",
+                                  ylabel="ABS MBR"),
+                       "Per-hour |mass balance ratio| (acceptance gate 1e-3)")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        rep.write(path)
 
     # ------------------------------------------------------------------
     # hourly meteo interpolation (interpolationDemMain)
@@ -742,6 +843,11 @@ class Criteria3DProject:
         if variables:
             raster_dir = os.path.join(self.output_dir, "rasters",
                                       when.strftime("%Y%m%d"))
+            if self._raster_writer is None:
+                # native C++ worker pool: the raster files are written while
+                # the next hour runs (raises when the library cannot build)
+                from criteria3d_tpu_torch.native import AsyncRasterWriter
+                self._raster_writer = AsyncRasterWriter(n_threads=2)
             self._staged_rasters = compute_output_rasters(
                 raster_dir, when.strftime("%Y%m%d_H%H"), self.grid,
                 self.params, self.model.water, variables)
@@ -781,14 +887,17 @@ class Criteria3DProject:
 
     def _flush_staged(self) -> None:
         if self._staged_rasters:
-            flush_staged_rasters(self._staged_rasters)
+            flush_staged_rasters(self._staged_rasters,
+                                 writer=self._raster_writer)
             self._staged_rasters = None
 
     def flush_outputs(self) -> None:
-        """Copy any staged rasters to the host and write them (no-op when
-        none are staged)."""
+        """Copy any staged rasters to the host, queue them and wait until
+        the writer pool has written them (no-op when none are staged)."""
         with torch.profiler.record_function(OUTPUTS_RANGE):
             self._flush_staged()
+            if self._raster_writer is not None:
+                self._raster_writer.flush()
 
 
 def _with_raster_ext(path: str) -> str:

@@ -247,19 +247,22 @@ def test_port_imports_no_jax():
     coupled water + heat step on a tiny column, one model-cycle hour with
     every ported process and its state checkpoint, one project hour from
     files: write_project, load, initialize, run_period with its outputs,
-    one model hour with HYDRALL and RothC and one vine hour) without
-    loading JAX or the JAX package."""
+    one model hour with HYDRALL and RothC and one vine hour, the project
+    from a GeoTIFF DEM with a meteo grid as its weather and the native
+    writer pool, its report, and the command shell) without loading JAX or
+    the JAX package."""
     code = textwrap.dedent("""
         import dataclasses, sys, tempfile
         import numpy as np, torch
         import criteria3d_tpu_torch as T
-        from criteria3d_tpu_torch import (bench_jacobi, constants, convert,
-                                          device, model, ops, outputs,
-                                          problems, project)
+        from criteria3d_tpu_torch import (bench_jacobi, cli, constants,
+                                          convert, device, model, native, ops,
+                                          outputs, problems, project, viz)
         from criteria3d_tpu_torch.core import geo, grid, soil, state
         from criteria3d_tpu_torch.core import meteo as core_meteo
-        from criteria3d_tpu_torch.io import (config, database, esri,
-                                             meteopoints, state_io)
+        from criteria3d_tpu_torch.io import (config, database, esri, geotiff,
+                                             meteogrid, meteopoints, quicklook,
+                                             state_io)
         from criteria3d_tpu_torch.physics import (cracking, crop,
                                                   interception,
                                                   interpolation, meteo,
@@ -300,6 +303,24 @@ def test_port_imports_no_jax():
             log = prj.run_period(datetime.datetime(2023, 3, 21, 8), 1)
             assert abs(log[0]["mbr"]) < 2e-3 and prj.qc_rejected >= 1
             assert os.listdir(os.path.join(d, "out", "rasters", "20230321"))
+            problems.dem_as_geotiff(ini)
+            xml, gdb = problems.write_meteo_grid(d, ini, cell=8.0, margin=0.0, seed=1)
+            prj = project.Criteria3DProject.load(ini, output_dir=os.path.join(d, "o2"))
+            prj.load_meteo_grid(xml, gdb)
+            prj.initialize(device="cpu")
+            log = prj.run_period(datetime.datetime(2023, 3, 21, 11), 1)
+            assert len(prj.stations) == 16 and abs(log[0]["mbr"]) < 2e-3
+            assert prj._raster_writer.written > 0 and prj._raster_writer.errors == 0
+            prj.write_report(os.path.join(d, "r.html"), log)
+            import contextlib, io
+            sh, said = cli.Shell(device="cpu"), io.StringIO()
+            with contextlib.redirect_stdout(said):
+                for line in ("DEM " + os.path.join(d, "MAPS", "dem.tif"), "INIT",
+                             "RUN 1 2", "EXPORTPNG pond " + os.path.join(d, "p.png"),
+                             "INFO"):
+                    sh.execute(line)
+            assert "ERROR" not in said.getvalue() and "dt_curr" in said.getvalue()
+            assert open(os.path.join(d, "p.png"), "rb").read(4)[1:] == b"PNG"
         from criteria3d_tpu_torch import vine3d, vine3d_project
         from criteria3d_tpu_torch.physics import (downy_mildew, grapevine,
                                                   hydrall, powdery_mildew,

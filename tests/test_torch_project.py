@@ -253,19 +253,44 @@ def test_jax_model_carried_into_the_project(ini, tmp_path):
 
 
 def test_unported_project_parts_raise(ini, tmp_path):
-    """The meteo grid DB and the HTML report raise NotImplementedError
-    naming their ROADMAP items. The water-table subsystem is ported
-    (tests/test_torch_watertable.py holds it against JAX): on this project,
-    whose stations carry no daily series, it behaves as JAX's: a missing
-    well file raises FileNotFoundError, the fit finds no station and warns,
-    and there is no depth map."""
-    tp = TProject.load(ini)
-    for call, item in ((lambda: tp.load_meteo_grid("g.xml", "g.db"), "A7f"),
-                       (lambda: tp.export_hourly_to_grid(101, None, DAY), "A7f"),
-                       (lambda: tp.write_report("r.html"), "A7i")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
-    jp = JProject.load(ini)
+    """The parts that raised until the meteo grid and the report were
+    ported now run and agree with JAX: the meteo grid DB
+    (problems.write_meteo_grid) as the weather source, with the same
+    virtual stations and an export of a map into its tables; the HTML run
+    report of an initialised project after an hour, with its text equal
+    (footer masked) and its images equal as decoded pixels (at most 0.1%
+    differing: the state maps agree to ~1e-11). The water-table subsystem
+    (tests/test_torch_watertable.py holds it against JAX) behaves as JAX's
+    on this project, whose stations carry no daily series: a missing well
+    file raises FileNotFoundError, the fit finds no station and warns, and
+    there is no depth map."""
+    from tests.test_torch_cli import pixel_share, split_html
+    xml, db = problems.write_meteo_grid(str(tmp_path / "g"), ini, cell=20.0,
+                                        margin=0.0, seed=3)
+    tp, jp = TProject.load(ini), JProject.load(ini)
+    for prj in (tp, jp):
+        prj.load_meteo_grid(xml, db, as_forcing=False)
+    assert len(tp.meteo_grid_cells) == len(jp.meteo_grid_cells) == 9
+    assert tp.stations and [s.id for s in tp.stations] == [s.id for s in jp.stations]
+    agg = [prj.export_hourly_to_grid(101, prj.dem, DAY, method="max")
+           for prj in (tp, jp)]
+    np.testing.assert_array_equal(agg[0], agg[1])
+    assert (agg[0] != -9999.0).all()
+    jpr, tpr = load_both(ini, tmp_path)
+    for prj in (jpr, tpr):
+        prj.run_hour(DAY + datetime.timedelta(hours=10), write_outputs=False)
+    reports = []
+    for prj, name in ((jpr, "j.html"), (tpr, "t.html")):
+        prj.write_report(str(tmp_path / "rep" / name),
+                         log=[dict(time=str(DAY), mbr=1e-5),
+                              dict(time=str(DAY + datetime.timedelta(hours=1)),
+                                   mbr=-3e-5)])
+        reports.append(split_html((tmp_path / "rep" / name).read_text()))
+    (jt, ji), (tt, ti) = reports
+    assert tt == jt and len(ti) == len(ji) == 5
+    assert "total water content [m3]" in tt
+    for a, b in zip(ti, ji):
+        assert a == b or pixel_share(a, b, tmp_path) <= 1e-3
     for prj in (tp, jp):
         with pytest.raises(FileNotFoundError):
             prj.watertable_import_location(str(tmp_path / "w.csv"))

@@ -139,15 +139,27 @@ def test_resample_grid_equal(method, factor):
 
 
 def test_tif_and_fields_db_are_refused(tmp_path):
-    """GeoTIFF is not ported: it raises NotImplementedError naming its
-    ROADMAP item, never skips. The VINE3D fields DB is ported
-    (tests/test_torch_vine3d.py reads one): a missing DB is refused with
-    the same sqlite error as JAX's reader."""
-    with pytest.raises(NotImplementedError, match="A7e"):
-        TE.read_raster(str(tmp_path / "x.tif"))
+    """GeoTIFF is ported (tests/test_torch_geotiff.py holds it against
+    JAX): read_raster reads a .tif, with or without its extension, as JAX's
+    does, and refuses a missing or broken one with JAX's error. The VINE3D
+    fields DB is ported (tests/test_torch_vine3d.py reads one): a missing
+    DB is refused with the same sqlite error as JAX's reader."""
+    from criteria3d_tpu.io.geotiff import write_geotiff
+    data = np.arange(20.0).reshape(4, 5)
+    write_geotiff(str(tmp_path / "x.tif"), data,
+                  JE.RasterHeader(nrows=4, ncols=5, xllcorner=10.0, yllcorner=20.0,
+                                  cellsize=2.0))
+    for path in (str(tmp_path / "x.tif"), str(tmp_path / "x")):
+        (tv, th), (jv, jh) = TE.read_raster(path), JE.read_raster(path)
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(tv, data)
+        assert dataclasses.asdict(th) == dataclasses.asdict(jh)
     (tmp_path / "y.tif").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A7e"):
-        TE.read_raster(str(tmp_path / "y"))
+    for E in (TE, JE):
+        with pytest.raises(FileNotFoundError):
+            E.read_raster(str(tmp_path / "z.tif"))
+        with pytest.raises(ValueError, match="not a TIFF"):
+            E.read_raster(str(tmp_path / "y"))
     missing = str(tmp_path / "fields.db")
     with pytest.raises(sqlite3.OperationalError) as jerr:
         JD.read_fields_db(missing)
