@@ -13,8 +13,10 @@ Phases (any failed check exits non-zero before the last line):
    design) against ``jacobi_bundle_reference`` on seeded float32 inputs, at
    the main-path shape (7, 768, 768), at (5, 37, 45), at a box smaller than
    a tile and at one a cell past two tiles a side (x bit-equal, the norm to
-   rel 1e-5); and against the per-sweep design ``jacobi_bundle_per_sweep``
-   at the main-path shape (x and norm bit-equal);
+   rel 1e-5), and in its halo mode (``halo=K``, the sharded loop's) at the
+   main-path shape; and against the per-sweep design
+   ``jacobi_bundle_per_sweep`` at the main-path shape (x and norm
+   bit-equal);
 3. the main path: one simulated hour of a 20 mm/h storm on a synthetic
    catchment at the scale of the Ravone benchmark (768 x 768 box of 4 m
    cells, a disc of 420,836 valid cells, 7 layers, 2,945,852 nodes) through
@@ -84,8 +86,9 @@ Phases (any failed check exits non-zero before the last line):
    raster read back finite on the catchment and one row per point and
    hour; then one more hour profiled, with the device time of the
    ``c3d.interpolation`` and ``c3d.outputs`` ranges;
-3l. a 32 box project (float64) on the card and on the CPU: the whole day
-   from 00 h through ``run_period`` (the forcing maps rel 1e-12, the same
+3l. a 32 box project (float64) on the card and on the CPU: hours 12-23
+   of the day (the whole day until the library phases joined the run)
+   through ``run_period`` (the forcing maps rel 1e-12, the same
    steps, attempts and approximations, heads 1e-6 m, hourly MBRs 1e-8, the
    23 h daily update's Tmin / Tmax maps, degree days and LAI rel 1e-12,
    rasters within one float32 ulp, output-DB values rel 1e-9), then the
@@ -115,16 +118,17 @@ Phases (any failed check exits non-zero before the last line):
    memory; hour 14 profiled (``c3d.vine``, ``c3d.diseases``); hour 12's
    canopy fluxes on a 64 x 64 window of their own inputs on the card and
    on the CPU (rel 1e-12, stop flips counted);
-3p. a 16 box VINE3D project's ``run_day`` (float64) on the card and on
-   the CPU (a 32 box until the shell phases joined the run: the script
-   stays near 600 s): the same stats every hour, hourly MBRs 1e-8, heads
+3p. a 16 box VINE3D project's day (float64) through ``run_day`` on the
+   card and on the CPU (a 32 box until the shell phases joined the run:
+   the script stays near 600 s): the same stats every hour, hourly MBRs 1e-8, heads
    1e-6 m, vine maps rel 1e-9, the powdery risk within 4 float32 ulp of
    the pool, infection flags, downy stages and irrigation equal;
 3q. the command shell at full width: 3k's project (n = 768, 20 stations)
    with its DEM rewritten as a GeoTIFF, one batch script through
    ``criteria3d_tpu_torch.cli.main`` in-process (PROJ, FAST ON,
-   INITIALIZE, RUN 3 hours from 06 h, INFO, EXPORTPNG, MAP, VIEW3D, CHART,
-   PROXY, HOURLYCSV, STATE SAVE / LOAD, ANIM 2 hours, REPORT): each
+   INITIALIZE, RUN 3 hours from 10 h (06 h until the library phases
+   joined the run), INFO, EXPORTPNG, MAP, VIEW3D, CHART, PROXY, HOURLYCSV,
+   STATE SAVE / LOAD, ANIM 1 hour, REPORT): each
    command's wall and host reads, each model hour's wall, host reads,
    stats and MBR, the native writer pool's written and errors, the peak
    memory; checks no ``ERROR:`` line, every file written (each PNG with
@@ -148,11 +152,38 @@ Phases (any failed check exits non-zero before the last line):
    station-derived PNGs byte-equal, the state-derived images (and the
    report's) differing in at most 0.1% of their decoded pixels, the
    report's text equal;
+3t. the interpolation library on the card at full width: 3k's DEM with
+   100 stations placed by write_meteo_grid's rule (3r's grid of 500 m
+   cells), heights from the DEM, the 07 h temperatures:
+   ``multiple_detrending`` and ``retrend_map`` over the box,
+   ``local_detrending_map`` over all 589,824 cells (24 neighbours, 16
+   starts, 60 iterations), ``glocal_weight_maps`` over 4 zones (the
+   quadrants) and ``glocal_detrending_map``, the stations'
+   ``topographic_distance_matrix`` and ``optimize_topo_kh``,
+   ``empirical_variogram``, ``fit_variogram`` (spherical or exponential)
+   and ``ordinary_kriging`` of the temperatures over the box: each call's wall, host reads and peak
+   memory; the maps finite, the glocal weights summing to 1; the local map
+   of a 128-row band (3 chunks) profiled (``c3d.detrending``); then the
+   same calls
+   on a 48 x 48 window on the card and on the CPU: maps rel 1e-9 with 0
+   differing cells, glocal weights and topographic distances bit-equal,
+   the same Kh and variogram mode and range, the kriging system's cond(V)
+   at most 1e8 and the maps within 64 eps x cond(V);
+3u. the host library on full-size products: the strict D8 watershed of
+   3k's DEM from its outlet, its outline as a shapefile (rasterized back
+   through ``shape_utils`` to the watershed's cells, its mean height as a
+   field), reprojected to lat-lon, written and read back (back in UTM
+   within 1 cm); 3k's last-hour root-zone water content through NetCDF
+   and back (0.0 from its float32 values); ``telemetry.balance_report``
+   and ``debug_dump.dump_linear_system`` on the bundle storm hour's state
+   on the card (the mass error under 2e-3 of the rain; the dump, loaded,
+   equal to the card's arrays);
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
-   design's time in the same run and its launches in the 3i model hour
-   (and 0 in the 3o vineyard, 3q shell and 3r meteo-grid hours);
+   design's time in the same run, its halo mode's error and its launches
+   in the 3i model hour (and 0 in the 3o vineyard, 3q shell and 3r
+   meteo-grid hours);
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -161,10 +192,11 @@ sub-steps' ``c3d.heat_assemble`` and ``c3d.heat_solve`` ranges, the model
 cycle's ``c3d.radiation`` (shadow march included), ``c3d.snow``,
 ``c3d.et0`` and ``c3d.sinks`` ranges, the project's ``c3d.interpolation``
 and ``c3d.outputs`` ranges, HYDRALL's ``c3d.hydrall``, the vineyard's
-``c3d.vine`` and ``c3d.diseases`` ranges, and the rest. It imports nothing
-of JAX and nothing of the JAX package. ``side_phases(seed, card)`` runs
-3m-3p alone and ``shell_phases(seed, card)`` 3q-3s; with ``dev="cpu"`` and
-a small ``n`` they rehearse them on the CPU.
+``c3d.vine`` and ``c3d.diseases`` ranges, the library's
+``c3d.detrending``, and the rest. It imports nothing of JAX and nothing of
+the JAX package. ``side_phases(seed, card)`` runs 3m-3p alone,
+``shell_phases(seed, card)`` 3q-3s and ``library_phases(seed, card)``
+3t-3u; with ``dev="cpu"`` and a small ``n`` they rehearse them on the CPU.
 """
 
 from __future__ import annotations
@@ -208,27 +240,29 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_bundle(shape, seed: int):
-    """Kernel vs plain version on one seeded input; returns (max_abs_err,
-    norm_rel_err, inputs). x must be bit-equal (the build disables FMA
-    contraction and the kernel adds the terms in the plain order); the norm
-    sums in another order and is held to rel 1e-5."""
+def compare_bundle(shape, seed: int, halo: int = 0):
+    """Kernel vs plain version on one seeded input (``halo`` > 0: the halo
+    mode, whose norm leaves out the cells within ``halo`` of the box's
+    edges); returns (max_abs_err, norm_rel_err, inputs). x must be
+    bit-equal (the build disables FMA contraction and the kernel adds the
+    terms in the plain order); the norm sums in another order and is held
+    to rel 1e-5."""
     import torch
     from criteria3d_tpu_torch.bench_jacobi import bundle_inputs
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     inputs = bundle_inputs(shape, seed, "cuda")
-    x_k, n_k = JB.jacobi_bundle(*inputs)
-    x_p, n_p = JB.jacobi_bundle_reference(*inputs)
+    x_k, n_k = JB.jacobi_bundle(*inputs, halo=halo)
+    x_p, n_p = JB.jacobi_bundle_reference(*inputs, halo=halo)
     torch.cuda.synchronize()
     err = float((x_k - x_p).abs().max())
     n_k, n_p = float(n_k), float(n_p)
     rel = abs(n_k - n_p) / max(abs(n_p), 1e-30)
-    check(err == 0.0, f"jacobi_bundle x differs from the plain version at {shape}: "
-                      f"max abs err {err}")
-    check(rel <= 1e-5, f"jacobi_bundle norm differs at {shape}: kernel "
+    check(err == 0.0, f"jacobi_bundle x differs from the plain version at {shape} "
+                      f"(halo {halo}): max abs err {err}")
+    check(rel <= 1e-5, f"jacobi_bundle norm differs at {shape} (halo {halo}): kernel "
                        f"{n_k} plain {n_p} (rel {rel})")
-    print(f"# jacobi_bundle vs plain at {shape} ({JB.tiled_variant(*inputs)} kernel): "
-          f"max_abs_err={err} norm_rel={rel}", flush=True)
+    print(f"# jacobi_bundle vs plain at {shape}, halo {halo} ({JB.tiled_variant(*inputs)} "
+          f"kernel): max_abs_err={err} norm_rel={rel}", flush=True)
     return err, rel, inputs
 
 
@@ -268,6 +302,42 @@ def layer_ranges() -> tuple:
             RADIATION_RANGE, SNOW_RANGE, ET0_RANGE, SINKS_RANGE)
 
 
+def device_activity(prof, range_names) -> tuple:
+    """The device activities of a finished torch.profiler run, read from
+    its Kineto events (no trace file): ``(spans, {kernel name: seconds},
+    {layer: seconds}, matched)``. Spans are the (start, end) [us] of the
+    kernels, copies and fills (the device-side copies of the host
+    annotations left out); each activity is charged to the host range in
+    ``range_names`` its launch call lies in (matched through the launch's
+    correlation id), else to "other"; ``matched`` says whether any was."""
+    from torch.autograd import DeviceType
+    ranges, launch_at, device = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.is_user_annotation():
+                if e.name() in range_names:
+                    ranges.append((e.start_ns(), e.end_ns(), e.name()))
+            elif e.name().startswith("cu"):          # cudaLaunchKernel, cudaMemcpyAsync, ...
+                launch_at[e.correlation_id()] = e.start_ns()
+        elif e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            device.append((e.start_ns(), e.end_ns(), e.name(), e.correlation_id()))
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    spans, per_name, layers, matched = [], {}, {}, False
+    for t0, t1, name, corr in device:
+        spans.append((t0 * 1e-3, t1 * 1e-3))
+        dur = (t1 - t0) * 1e-9
+        per_name[name] = per_name.get(name, 0.0) + dur
+        layer = "other"
+        ts = launch_at.get(corr)
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and ts <= ranges[i][1]:
+                layer, matched = ranges[i][2], True
+        layers[layer] = layers.get(layer, 0.0) + dur
+    return spans, per_name, layers, matched
+
+
 def breakdown(label, run, wall_s: float, ranges=None):
     """``run()`` (one more hour) under torch.profiler: device time by
     kernel, by layer (the kernels launched inside the ranges of
@@ -276,10 +346,9 @@ def breakdown(label, run, wall_s: float, ranges=None):
     and {} when the profiler saw no device activity).
 
     Busy time is the union of the device activity intervals (kernels,
-    copies, fills) of the exported trace; host-op annotations, which the
-    trace also places on the device timeline, are left out. A layer's time
-    is the device time of the activities launched inside its host range
-    (matched through the launch's correlation id). The idle share is given
+    copies, fills, :func:`device_activity`). A layer's time is the device
+    time of the activities launched inside its host range. The idle share
+    is given
     against the unprofiled median wall time ``wall_s`` (the profiler slows
     the host, not the kernels) and against the profiled hour's own wall
     time."""
@@ -291,32 +360,7 @@ def breakdown(label, run, wall_s: float, ranges=None):
         run()
         torch.cuda.synchronize()
         prof_wall_s = time.time() - t0
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    ranges = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
-                     e["name"]) for e in events
-                    if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-                    and e.get("name") in range_names)
-    starts = [r[0] for r in ranges]
-    layer_of = {}
-    for e in events:
-        corr = e.get("args", {}).get("correlation")
-        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr is not None:
-            i = bisect.bisect_right(starts, float(e["ts"])) - 1
-            if i >= 0 and float(e["ts"]) <= ranges[i][1]:
-                layer_of[corr] = ranges[i][2]
-    spans, per_name, layers = [], {}, {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                   "gpu_memset"):
-            ts, dur = float(e["ts"]), float(e.get("dur", 0.0))
-            spans.append((ts, ts + dur))
-            per_name[e["name"]] = per_name.get(e["name"], 0.0) + dur * 1e-6
-            layer = layer_of.get(e.get("args", {}).get("correlation"), "other")
-            layers[layer] = layers.get(layer, 0.0) + dur * 1e-6
+    spans, per_name, layers, matched = device_activity(prof, range_names)
     if not spans:
         print(f"# {label} breakdown: the profiler saw no device activity "
               "(not measured)")
@@ -332,7 +376,7 @@ def breakdown(label, run, wall_s: float, ranges=None):
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     by_layer = ("; ".join(f"{k} {v} s ({v / busy_s:.3f})"
                           for k, v in sorted(layers.items()))
-                if layer_of else "not measured (no launch matched a range)")
+                if matched else "not measured (no launch matched a range)")
     print(f"# {label} breakdown: {len(spans)} device activities per hour, device "
           f"busy {busy_s} s; idle share {1.0 - busy_s / wall_s} of the unprofiled "
           f"{wall_s} s, {1.0 - busy_s / prof_wall_s} of the profiled "
@@ -773,6 +817,9 @@ PROJECT_3K_HOURS = (6, 2)          # first hour, hours
 # morning's snow and rain hours take 2,000 heat sub-steps each); hours 0-2
 # until the side phases joined the run
 PROJECT_3L_HEAT_HOURS = (0, 1)
+# the 32 box's float64 hours (first hour, hours), the daily update at 23 h
+# (the whole day from 00 h until the library phases joined the run)
+PROJECT_3L_HOURS = (12, 12)
 
 
 def instrument_run_hour(prj, records: list, keep_forcing: bool = False,
@@ -843,7 +890,8 @@ def project_full_size(seed: int, card: str, tmp: str) -> dict:
     import torch
     from criteria3d_tpu_torch.outputs import OUTPUTS_RANGE
     from criteria3d_tpu_torch.problems import PROJECT_DATE, write_project
-    from criteria3d_tpu_torch.project import INTERPOLATION_RANGE, Criteria3DProject
+    from criteria3d_tpu_torch.project import (INTERPOLATION_RANGE, Criteria3DProject,
+                                              state_maps)
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     t0 = time.time()
     ini = write_project(os.path.join(tmp, "p768"), n=768, seed=seed, n_stations=20)
@@ -913,16 +961,18 @@ def project_full_size(seed: int, card: str, tmp: str) -> dict:
           f"3k: no device time in the interpolation ({interp_s}) or outputs ({out_s}) range")
     print(f"# project hour {when.hour} ({card}): device time by layer "
           + "; ".join(f"{k} {layers.get(k, 0.0)} s" for k in ranges + ("other",)), flush=True)
+    # the last hour's root-zone water content, for 3u's NetCDF export
+    swc, _ = state_maps(g, prj.params, prj.model.water)
     return dict(walls=walls, syncs=[r["syncs"] for r in records],
                 stats=[r["stats"] for r in records], mbrs=[e["mbr"] for e in log],
                 peak_gib=peak, launches=launches, qc_rejected=prj.qc_rejected,
                 rasters=len(rasters), rows=rows, busy_s=busy, interpolation_s=interp_s,
-                outputs_s=out_s, nodes=g.n_nodes)
+                outputs_s=out_s, nodes=g.n_nodes, swc_map=swc)
 
 
 def project_day_card_vs_cpu(seed: int, card: str, tmp: str) -> dict:
     """phase 3l: a 32 box project under its float64 parameters on the card
-    and on the CPU, the whole day from 00 h (the daily update at 23 h),
+    and on the CPU, PROJECT_3L_HOURS of the day (the daily update at 23 h),
     then the first coupled hour of the same project with compute_heat
     (heat vapor and advection on)."""
     import datetime
@@ -941,7 +991,8 @@ def project_day_card_vs_cpu(seed: int, card: str, tmp: str) -> dict:
         instrument_run_hour(prj, records, keep_forcing=True)
         record_daily_update(prj.model, updates)
         t0 = time.time()
-        log = prj.run_period(day, 24)
+        log = prj.run_period(day + datetime.timedelta(hours=PROJECT_3L_HOURS[0]),
+                             PROJECT_3L_HOURS[1])
         runs[dev] = (prj, records, log, time.time() - t0)
         check(len(updates) == 1 and updates[0][0] == day.date(),
               f"3l: daily_update ran {len(updates)} times ({dev})")
@@ -969,7 +1020,7 @@ def project_day_card_vs_cpu(seed: int, card: str, tmp: str) -> dict:
                         / getattr(pp.model, k).abs().clamp_min(1e-300)).max())
                  for k in ("degree_days", "lai"))
     (rast_c, tab_c), (rast_p, tab_p) = project_files(pc), project_files(pp)
-    check(sorted(rast_c) == sorted(rast_p) and len(rast_c) == 24 * 4,
+    check(sorted(rast_c) == sorted(rast_p) and len(rast_c) == PROJECT_3L_HOURS[1] * 4,
           f"3l: rasters differ in name or number ({len(rast_c)}, {len(rast_p)})")
     ulp = 0
     for name, (a, _) in rast_c.items():
@@ -982,7 +1033,8 @@ def project_day_card_vs_cpu(seed: int, card: str, tmp: str) -> dict:
     db_rel = 0.0
     check(sorted(tab_c) == sorted(tab_p), "3l: output DB tables differ")
     for t, rows in tab_c.items():
-        check(len(rows) == len(tab_p[t]) == 24, f"3l: {t} has {len(rows)} rows")
+        check(len(rows) == len(tab_p[t]) == PROJECT_3L_HOURS[1],
+              f"3l: {t} has {len(rows)} rows")
         for r, q in zip(rows, tab_p[t]):
             check(r[0] == q[0], f"3l: {t} times differ")
             a, b = np.asarray(r[1:], float), np.asarray(q[1:], float)
@@ -1480,8 +1532,9 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
 
 
 def vine_day_card_vs_cpu(seed: int, card: str, tmp: str, dev="cuda") -> dict:
-    """phase 3p: a VINE3D project's run_day on a VINE_3P_BOX box under its
-    float64 parameters on the card and on the CPU."""
+    """phase 3p: a VINE3D project's day through ``run_day`` on a
+    VINE_3P_BOX box under its float64 parameters on the card and on the
+    CPU."""
     import datetime
     import numpy as np
     import torch
@@ -1575,8 +1628,11 @@ def side_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
 # the 0-internal-energy branch (PERF.md section 2 (4): SWE 0.25 mm apart
 # after 08 h on the card and the CPU), and ANIM's 15 degC melt then moves
 # the heads 5e-3 m apart; from 10 h the 32 box has no snow. At full size
-# ANIM's two hours (15 degC on the morning's snow pack) take 1,500-2,946
-# steps each, 36-82 s on an H100, with 5 mm/h of rain or none
+# the script also runs from 10 h since the library phases joined the run
+# (SHELL_3Q_START; 06 h until then, when an ANIM hour at 15 degC on the
+# morning's snow pack took 1,500-2,946 steps, 36-83 s on an H100; 3k runs
+# hours 6-7 of the same project), and ANIM one hour (two until then)
+SHELL_3Q_START = 10
 SHELL_SCRIPT = """PROJ {ini}
 {fast}INITIALIZE
 RUN 3 2023-03-21T{start:02d}
@@ -1590,7 +1646,7 @@ PROXY out/proxy.png
 HOURLYCSV S00 out/s00.csv
 STATE SAVE st
 STATE LOAD st
-ANIM out/anim.png 2 pond
+ANIM out/anim.png 1 pond
 REPORT out/run.html
 """
 # the files the script writes under its working directory; the images of
@@ -1724,7 +1780,8 @@ def shell_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) ->
     peak0 = _peak_gib(dev, reset=True)
     JB.jacobi_bundle.launches = 0
     t0 = time.time()
-    run = run_batch(root, SHELL_SCRIPT.format(ini=ini, fast="FAST ON\n", start=6), dev)
+    run = run_batch(root, SHELL_SCRIPT.format(ini=ini, fast="FAST ON\n", start=SHELL_3Q_START),
+                    dev)
     script_s = time.time() - t0
     launches = JB.jacobi_bundle.launches
     peak = _peak_gib(dev)
@@ -1744,7 +1801,7 @@ def shell_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) ->
         print(f"# shell {n} {kind} hour {i} ({card}): wall {rec['wall_s']} s, host reads "
               f"{rec['syncs']}, stats {rec['stats']}, MBR {rec['mbr']}", flush=True)
         check(abs(rec["mbr"]) < 2e-3, f"3q hour {i}: |MBR| {rec['mbr']} >= 2e-3")
-    check(len(run["hours"]) == 5, f"3q: {len(run['hours'])} model hours, expected 5")
+    check(len(run["hours"]) == 4, f"3q: {len(run['hours'])} model hours, expected 4")
     check(launches == 0, f"3q: the shell's hours launched {launches} jacobi_bundle kernels")
     files = shell_files(root)
     w = prj._raster_writer
@@ -1967,6 +2024,418 @@ def shell_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
     return dict(shell=full_s, grid=full_g, small=small, seconds=seconds)
 
 
+# ----------------------------------------------------------------------
+# the interpolation library on the card (3t) and the host library on
+# full-size products (3u)
+# ----------------------------------------------------------------------
+
+# 3t: the stations are write_meteo_grid's cells over the box (3r's rule: a
+# 10 x 10 grid of 500 m cells with a 1 km margin at full size; 32 m cells
+# and margin on a small box) with the day's 07 h temperatures (a thermal
+# inversion); the local map takes ceil(1.2 x 20) = 24 neighbours, 16 starts
+# (2 a parameter) and 60 iterations; the elevation gate is 10 m (the
+# valley's stations span about 300 m, under the default 100 m stddev gate)
+LIB_GRID_FULL = dict(cell=500.0, margin=1000.0)
+LIB_GRID_SMALL = dict(cell=32.0, margin=32.0)
+LIB_OPTIONS = dict(min_points_local=20, n_lm_iterations=60, elevation_std_threshold=10.0)
+# 3t: the glocal areas are the box's quadrants; their window [m] is a disc
+# of 50 cells' radius at 4 m
+LIB_GLOCAL_WINDOW = 200.0
+# 3t: the side of the window run on the card and on the CPU [cells]
+LIB_WINDOW = 48
+# 3t: the largest cond(V) of the window's kriging system; 64 eps x cond(V)
+# bounds the maps' gap, and above ~7e13 that bound passes any map (the
+# fitted spherical model's cond is 1.2e3)
+LIB_KRIGING_COND = 1e8
+# 3t: the local map is profiled on a band of rows (128 at full size: 3
+# chunks of cells)
+LIB_PROFILED_ROWS = 128
+# 3u: the outline's check raster has cells of 9 x the DEM's (odd: their
+# centres are DEM cell centres)
+LIB_OUTLINE_CELLS = 9
+
+
+def library_inputs(seed: int, n: int) -> dict:
+    """3t's inputs as numpy arrays: problems.library_stations on 3k's box
+    (the DEM of write_project(n, seed)), the cell-centre coordinate maps,
+    heights (the valley plane's off the catchment), the quadrant zones and
+    each quadrant's stations."""
+    import numpy as np
+    from criteria3d_tpu_torch.problems import library_stations, valley_plane
+    dem, hdr, sx, sy, sz, sv = library_stations(
+        n, seed, **(LIB_GRID_FULL if n == 768 else LIB_GRID_SMALL))
+    rows, cols = np.mgrid[0:n, 0:n].astype(np.float64)
+    cs = hdr.cellsize
+    valid = dem != hdr.nodata
+    zones = np.where(valid, 1 + 2 * (rows >= n // 2) + (cols >= n // 2), 0).astype(np.int32)
+    xc, yc = hdr.xllcorner + n * cs / 2, hdr.yllcorner + n * cs / 2
+    st_zone = 1 + 2 * (sy < yc) + (sx >= xc)
+    return dict(dem=dem, header=hdr, sx=sx, sy=sy, sz=sz, sv=sv, valid=valid,
+                gx=hdr.xllcorner + (cols + 0.5) * cs, gy=hdr.yllcorner + (n - rows - 0.5) * cs,
+                gz=np.where(valid, dem, valley_plane(rows, cols, n, cs)), zones=zones,
+                areas=[np.nonzero(st_zone == z)[0] for z in range(1, 5)])
+
+
+def library_calls(inp: dict, dev, card: str, label: str) -> tuple:
+    """The device library over ``inp`` on ``dev``, each call timed (wall,
+    host reads, peak memory): multiple_detrending and retrend_map, the
+    local map, the glocal weights and map, the topographic distances and
+    Kh, the empirical and fitted variogram and ordinary kriging of the
+    temperatures. Returns (results by call, records by call)."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.physics import detrending as D
+    from criteria3d_tpu_torch.physics import kriging as K
+    gx, gy, gz = (torch.as_tensor(inp[k], dtype=torch.float64, device=dev)
+                  for k in ("gx", "gy", "gz"))
+    sx, sy, sz, sv = (inp[k] for k in ("sx", "sy", "sz", "sv"))
+    hdr = inp["header"]
+    opt = D.DetrendingOptions(**LIB_OPTIONS)
+    out, records = {}, {}
+
+    def run(name, fn):
+        _sync(dev)
+        _peak_gib(dev, reset=True)
+        r0, t0 = host_read.count, time.time()
+        res = fn()
+        _sync(dev)
+        records[name] = (time.time() - t0, host_read.count - r0, _peak_gib(dev))
+        print(f"# library {label} {name} ({card}): wall {records[name][0]} s, host reads "
+              f"{records[name][1]}, peak memory {records[name][2]:.2f} GiB", flush=True)
+        out[name] = res
+        return res
+
+    detr, model = run("multiple_detrending",
+                      lambda: D.multiple_detrending(sv, sz, options=opt, device=dev))
+    run("retrend_map", lambda: D.retrend_map(model, gz))
+    run("local_detrending_map", lambda: D.local_detrending_map(
+        sx, sy, sz, sv, gx, gy, gz, options=opt, device=dev))
+    w = run("glocal_weight_maps", lambda: D.glocal_weight_maps(
+        inp["zones"], LIB_GLOCAL_WINDOW, hdr.cellsize, device=dev))
+    run("glocal_detrending_map", lambda: D.glocal_detrending_map(
+        sx, sy, sz, sv, gx, gy, gz, area_stations=inp["areas"], area_weights=w,
+        options=opt, device=dev))
+    topo, _ = run("topographic_distance_matrix", lambda: D.topographic_distance_matrix(
+        inp["dem"], hdr.xllcorner, hdr.yllcorner, hdr.cellsize, hdr.nrows, sx, sy, sz,
+        device=dev))
+    run("optimize_topo_kh", lambda: D.optimize_topo_kh(
+        sx, sy, sz, sv, topo_dist=topo, detrend_model=model, device=dev))
+    # the temperatures themselves, their model fitted among the spherical and
+    # exponential ones: the detrended values are pure nugget (a flat
+    # variogram), whose kriging system is singular, and the gaussian model
+    # these temperatures would pick gives a system of cond 2.9e18 over the
+    # stations, whose map is rounding noise (in JAX too)
+    h, g, c = run("empirical_variogram", lambda: K.empirical_variogram(sx, sy, sv,
+                                                                       device=dev))
+    vm = run("fit_variogram", lambda: K.fit_variogram(h, g, c,
+                                                      modes=(K.SPHERICAL, K.EXPONENTIAL)))
+    run("ordinary_kriging", lambda: K.ordinary_kriging(sx, sy, sv, gx, gy, vm))
+    return out, records
+
+
+def library_full_size(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
+    """phase 3t: the device library over 3k's box (n x n cells, 100
+    stations at full size) on ``dev``, then the local map once more under
+    the profiler (the ``c3d.detrending`` range's device time)."""
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.physics import detrending as D
+    inp = library_inputs(seed, n)
+    out, records = library_calls(inp, dev, card, f"{n} box")
+    valid = torch.as_tensor(inp["valid"], device=dev)
+    model = out["multiple_detrending"][1]
+    lm = out["local_detrending_map"]
+    kh = out["optimize_topo_kh"]
+    print(f"# library {n} box ({card}): {len(inp['sx'])} stations, {n * n} cells; elevation "
+          f"fit {model.elevation_params.tolist()} r2 {float(model.elevation_r2)} significant "
+          f"{bool(model.elevation_significant)}; local map {float(lm[valid].min())}.."
+          f"{float(lm[valid].max())} degC; Kh {kh}; variogram {out['fit_variogram']}",
+          flush=True)
+    for name in ("retrend_map", "local_detrending_map", "glocal_detrending_map",
+                 "ordinary_kriging"):
+        m = out[name]
+        check(tuple(m.shape) == (n, n) and m.device.type == torch_device_type(dev)
+              and bool(torch.isfinite(m).all()) and bool((m[valid] != -9999.0).all()),
+              f"3t: {name} is not a finite ({n}, {n}) map on {dev}")
+    w = out["glocal_weight_maps"]
+    check(float((w.sum(0)[valid] - 1.0).abs().max()) <= 1e-6 and w.dtype == torch.float32,
+          "3t: the glocal weights do not sum to 1 on the catchment")
+    check(0 <= kh <= 256, f"3t: optimize_topo_kh gave {kh}")
+    opt = D.DetrendingOptions(**LIB_OPTIONS)
+    band = slice(0, LIB_PROFILED_ROWS)
+    gx, gy, gz = (torch.as_tensor(inp[k][band], dtype=torch.float64, device=dev)
+                  for k in ("gx", "gy", "gz"))
+    band_wall = records["local_detrending_map"][0] * gx.numel() / (n * n)
+    busy, _, layers = _profiled(
+        f"local detrending map, {gx.shape[0]}-row band", lambda: D.local_detrending_map(
+            inp["sx"], inp["sy"], inp["sz"], inp["sv"], gx, gy, gz, options=opt, device=dev),
+        band_wall, (D.DETRENDING_RANGE,), dev)
+    local_s = layers.get(D.DETRENDING_RANGE, 0.0)
+    check(local_s > 0.0, "3t: no device time in the c3d.detrending range")
+    print(f"# library {n} box local map, {gx.shape[0]}-row band ({card}): c3d.detrending "
+          f"{local_s} s of device time ({local_s / busy} of busy {busy} s)", flush=True)
+    return dict(records=records, detrending_s=local_s, busy_s=busy, kh=kh,
+                variogram=out["fit_variogram"], stations=len(inp["sx"]))
+
+
+def _window(inp: dict, n: int) -> dict:
+    """``inp`` cut to the LIB_WINDOW x LIB_WINDOW window at the box's
+    centre (the stations and the DEM as they are)."""
+    side = min(LIB_WINDOW, n)
+    sl = slice(n // 2 - side // 2, n // 2 - side // 2 + side)
+    cut = dict(inp)
+    for k in ("gx", "gy", "gz", "zones", "valid"):
+        cut[k] = inp[k][sl, sl]
+    return cut
+
+
+def library_card_vs_cpu(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
+    """phase 3t's window: the same calls on the LIB_WINDOW window on ``dev``
+    and on the CPU. Maps rel 1e-9 with the count of differing cells (0),
+    the detrended station values 1e-9 of the temperatures' scale;
+    the glocal weights and topographic distances bit-equal, the same Kh
+    and variogram mode and range (nugget and sill rel 1e-12); the kriging
+    system's cond(V) at most LIB_KRIGING_COND and the map within 64 eps x
+    cond(V) of its largest value (an LU on each device)."""
+    import numpy as np
+    import torch
+    inp = _window(library_inputs(seed, n), n)
+    side = inp["gx"].shape[0]
+    runs = {}
+    for d in (dev, "cpu"):
+        t0 = time.time()
+        runs[len(runs)] = (library_calls(inp, d, card, f"window {side} {torch_device_type(d)}")[0],
+                           time.time() - t0)
+    (oc, wc), (op, wp) = runs[0], runs[1]
+
+    def cells_over(a, b, rtol=1e-9):
+        a, b = a.double().cpu(), b.double().cpu()
+        return int(((a - b).abs() > rtol * b.abs()).sum()), rel_err(a, b)
+
+    differ, rels = {}, {}
+    for name in ("retrend_map", "local_detrending_map", "glocal_detrending_map"):
+        differ[name], rels[name] = cells_over(oc[name], op[name])
+    # the detrended station values are residuals of the fit, near 0: held
+    # to rel 1e-9 of the temperatures' scale
+    scale = float(abs(inp["sv"]).max())
+    dd = (oc["multiple_detrending"][0].cpu() - op["multiple_detrending"][0]).abs()
+    differ["multiple_detrending"] = int((dd > 1e-9 * scale).sum())
+    rels["multiple_detrending"] = float(dd.max()) / scale
+    w_equal = torch.equal(oc["glocal_weight_maps"].cpu(), op["glocal_weight_maps"])
+    topo_equal = torch.equal(oc["topographic_distance_matrix"][0].cpu(),
+                             op["topographic_distance_matrix"][0])
+    hc, gc, cc = (t.cpu() for t in oc["empirical_variogram"])
+    hp, gp, cp = op["empirical_variogram"]
+    vario_rel = rel_err(gc, gp)
+    vm = op["fit_variogram"]
+    from criteria3d_tpu_torch.physics import kriging as K
+    d = np.hypot(inp["sx"][:, None] - inp["sx"][None], inp["sy"][:, None] - inp["sy"][None])
+    V = np.ones((len(inp["sv"]) + 1,) * 2)
+    V[:-1, :-1] = K.variogram(d, vm, device="cpu").numpy()
+    V[-1, -1] = 0.0
+    cond = float(np.linalg.cond(V))
+    bound = 64 * np.finfo(float).eps * cond
+    krig = float((oc["ordinary_kriging"].cpu() - op["ordinary_kriging"]).abs().max()
+                 / op["ordinary_kriging"].abs().max())
+    print(f"# library window {side} ({card}): card {wc} s, CPU {wp} s; cells over rel 1e-9 "
+          f"{differ}, rel {rels}; glocal weights bit-equal {w_equal}; topographic distances "
+          f"bit-equal {topo_equal}; Kh card {oc['optimize_topo_kh']} CPU "
+          f"{op['optimize_topo_kh']}; variogram card {oc['fit_variogram']} CPU {vm}, "
+          f"semivariances rel {vario_rel}; kriging map {krig} of its largest value "
+          f"(bound {bound}, cond(V) {cond})", flush=True)
+    check(not any(differ.values()), f"3t: cells differ between the card and the CPU: {differ}")
+    check(w_equal and topo_equal, "3t: glocal weights or topographic distances differ")
+    check(oc["optimize_topo_kh"] == op["optimize_topo_kh"], "3t: Kh differs")
+    check(torch.equal(hc, hp) and torch.equal(cc, cp) and vario_rel <= 1e-12,
+          f"3t: the empirical variogram differs (rel {vario_rel})")
+    vc = oc["fit_variogram"]
+    # the mode and range are decisions; nugget, sill and slope sums over
+    # the bins, in each device's order
+    check(vc.mode == vm.mode and vc.range_ == vm.range_
+          and all(abs(getattr(vc, k) - getattr(vm, k)) <= 1e-12 * abs(getattr(vm, k))
+                  for k in ("nugget", "sill", "slope")),
+          f"3t: the fitted variogram differs: card {vc}, CPU {vm}")
+    check(cond <= LIB_KRIGING_COND, f"3t: the kriging system's cond(V) {cond} is over "
+          f"{LIB_KRIGING_COND}: its bound {bound} would hold no map")
+    check(krig <= bound, f"3t: kriging maps differ by {krig} of the largest value")
+    return dict(walls=(wc, wp), differ=differ, rels=rels, kriging=krig, bound=bound, cond=cond)
+
+
+def _basin_outline(basin, hdr):
+    """A clockwise ring around a basin raster whose rows are contiguous:
+    down the east edges of its rows, then up the west edges."""
+    import numpy as np
+    ok = basin != hdr.nodata
+    rows = [r for r in range(ok.shape[0]) if ok[r].any()]
+    cs = hdr.cellsize
+    top = hdr.yllcorner + hdr.nrows * cs
+    east, west = [], []
+    for r in rows:
+        cols = np.nonzero(ok[r])[0]
+        y0, y1 = top - r * cs, top - (r + 1) * cs
+        xe = hdr.xllcorner + (cols[-1] + 1) * cs
+        xw = hdr.xllcorner + cols[0] * cs
+        east += [(xe, y0), (xe, y1)]
+        west += [(xw, y0), (xw, y1)]
+    ring = east + west[::-1]
+    return np.array(ring + ring[:1], dtype=np.float64)
+
+
+def host_library(seed: int, card: str, tmp: str, dev="cuda", n: int = 768,
+                 storm=None, state_map=None) -> dict:
+    """phase 3u: the host library on full-size products: the strict D8
+    watershed of 3k's DEM from its outlet; its outline as a shapefile
+    (rasterized back and given its mean height through shape_utils),
+    reprojected to lat-lon, written and read back; a state map through
+    NetCDF and back; balance_report and dump_linear_system on the bundle
+    storm hour's state on ``dev``.
+
+    ``storm`` is (grid, params, state0, state) of that hour (on any
+    device; built and run here when None); ``state_map`` a state map of
+    3k's last hour (the storm hour's root-zone water content when None)."""
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.core.watershed import clean_basin
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.io import netcdf, reproject, shape_utils, shapefile
+    from criteria3d_tpu_torch.problems import project_dem
+    from criteria3d_tpu_torch.project import state_maps
+    from criteria3d_tpu_torch.solver import water as W
+    from criteria3d_tpu_torch.utils import debug_dump, telemetry
+    walls = {}
+    dem, hdr = project_dem(n, seed)
+    valid = dem != hdr.nodata
+    col = n // 2
+    row = int(np.nonzero(valid[:, col])[0][-1])
+    x, y = hdr.xllcorner + (col + 0.5) * hdr.cellsize, hdr.yllcorner + (n - row - 0.5) * hdr.cellsize
+    t0 = time.time()
+    basin, bh = clean_basin(dem, hdr, x, y)
+    walls["clean_basin"] = time.time() - t0
+    in_basin = basin != hdr.nodata
+    check(in_basin.sum() >= 0.9 * valid.sum(),
+          f"3u: the watershed holds {int(in_basin.sum())} of {int(valid.sum())} cells")
+
+    t0 = time.time()
+    ring = _basin_outline(basin, bh)
+    h = shapefile.ShapeHandler()
+    path = os.path.join(tmp, "catchment.shp")
+    h.new_shapefile(path, shapefile.POLYGON)
+    h.fields = [shapefile.DbfField("ID", "N", 6, 0)]
+    h.add_shape(shapefile.ShapeObject(shapefile.POLYGON, [ring]), {"ID": 1})
+    # rasterized back on cells of 9 x the DEM's: each cell's centre is a DEM
+    # cell's centre (the crossing test over every edge stays small)
+    k = LIB_OUTLINE_CELLS
+    zones, zh = shape_utils.initialize_raster_from_shape(h, k * bh.cellsize)
+    shape_utils.fill_raster_with_shape_index(zones, zh, h)
+    # both rasters start at the outline's south-west corner: a coarse cell's
+    # centre lies in the DEM cell k // 2 cells up and right of its corner
+    rc, cc = np.mgrid[0:zh.nrows, 0:zh.ncols]
+    rf = bh.nrows - 1 - ((zh.nrows - 1 - rc) * k + k // 2)
+    cf = cc * k + k // 2
+    inside = (rf >= 0) & (cf < bh.ncols)
+    at = np.where(inside, basin[np.maximum(rf, 0), np.minimum(cf, bh.ncols - 1)],
+                  hdr.nodata)
+    check(bool(((zones == 0) == (at != hdr.nodata)).all()),
+          "3u: the outline does not rasterize back to the watershed")
+    zmean = shape_utils.zonal_statistics_shape(h, zones, at, "ZMEAN")
+    h.save()
+    ll = reproject.reproject_shapes(shapefile.ShapeHandler().open(path).shapes,
+                                    ("utm", 32), ("latlon",))
+    hl = shapefile.ShapeHandler()
+    path_ll = os.path.join(tmp, "catchment_ll.shp")
+    hl.new_shapefile(path_ll, shapefile.POLYGON)
+    hl.fields = [shapefile.DbfField("ID", "N", 6, 0)]
+    hl.add_shape(ll[0], {"ID": 1})
+    hl.save()
+    back_ll = shapefile.ShapeHandler().open(path_ll).shapes[0].parts[0]
+    back = reproject.reproject_shapes(shapefile.ShapeHandler().open(path_ll).shapes,
+                                      ("latlon",), ("utm", 32))[0].parts[0]
+    d_ring = float(np.abs(back - ring).max())
+    walls["shapefile"] = time.time() - t0
+    check(np.array_equal(back_ll, ll[0].parts[0]) and d_ring < 0.01,
+          f"3u: the reprojected outline reads back {d_ring} m from the ring")
+
+    if storm is None:
+        from criteria3d_tpu_torch import SolverParameters
+        from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+        from criteria3d_tpu_torch.solver.step import compute_period_stats
+        params = SolverParameters.fast_f32(use_pallas=True)
+        grid, state0 = build_problem(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768),
+                                     4.0, params, dev)
+        state, _ = compute_period_stats(grid, params, state0, 3600.0)
+    else:
+        grid, params, state0, state = storm
+        grid, state0, state = grid.to(dev), state0.to(dev), state.to(dev)
+    if state_map is None:
+        state_map = state_maps(grid, params, state)[0]
+    t0 = time.time()
+    nc = os.path.join(tmp, "swc.nc")
+    netcdf.export_raster(nc, state_map, hdr, var_name="swc", unit="m3 m-3",
+                         long_name="root-zone water content")
+    hn = netcdf.NetCDFHandler().read(nc)
+    read, _ = hn.extract_raster("swc")
+    hn.close()
+    walls["netcdf"] = time.time() - t0
+    # the file holds float32 values
+    d_nc = float(np.abs(read - state_map.astype(np.float32)).max())
+    check(read.shape == state_map.shape and d_nc == 0.0,
+          f"3u: the NetCDF map reads back {d_nc} apart from its float32 values")
+
+    host_read.count = 0
+    t0 = time.time()
+    s0 = host_read(W.total_water_content(grid, params, state0.h, state0.se))
+    rain = host_read(state0.sink_source.sum()) * 3600.0
+    rep = telemetry.balance_report(grid, params, state, s0, total_precipitation=rain)
+    walls["balance_report"] = time.time() - t0
+    reads = host_read.count
+    check(all(math.isfinite(v) for v in rep.values())
+          and abs(rep["mass_balance_error_m3"]) < 2e-3 * rain,
+          f"3u: balance_report {rep} (rain {rain} m3)")
+    t0 = time.time()
+    dump = debug_dump.load_dump(debug_dump.dump_linear_system(
+        os.path.join(tmp, "system"), grid, params, state, dt=60.0))
+    walls["dump_linear_system"] = time.time() - t0
+    se = W.compute_se(grid, params, state.h)
+    cap, k = W.compute_capacity(grid, params, state.h, state.h_old, se)
+    flow, rate = W.update_boundary_water(grid, params, state.h, state.h_old, k,
+                                         state.sink_source, state.pond, 60.0)
+    sysm = W.assemble_system(grid, params, state.h, state.h_old, k, flow, cap, state.pond,
+                             0, 60.0)
+    card_arrays = dict(b=sysm.b, diag=sysm.diag, c_up=sysm.c_up, c_down=sysm.c_down,
+                       c_lat=sysm.c_lat, capacity=cap, k=k, water_flow=flow,
+                       boundary_rate=rate, x0=state.h)
+    same = all(np.array_equal(dump[key], v.cpu().numpy()) for key, v in card_arrays.items())
+    check(same and dump["courant"] == float(sysm.courant) and state.h.device.type
+          == torch_device_type(dev), "3u: the linear-system dump differs from the card's arrays")
+    print(f"# host library {n} box ({card}): watershed {int(in_basin.sum())} cells "
+          f"({bh.nrows} x {bh.ncols}) in {walls['clean_basin']} s; outline of {len(ring)} "
+          f"vertices, mean height {float(zmean[0])} m, to lat-lon and back within {d_ring} m "
+          f"in {walls['shapefile']} s; NetCDF state map {state_map.shape} back within {d_nc} "
+          f"in {walls['netcdf']} s; balance_report ({reads} host reads) {rep} in "
+          f"{walls['balance_report']} s; dump_linear_system of {state.h.numel()} nodes equal "
+          f"to the card's arrays in {walls['dump_linear_system']} s", flush=True)
+    return dict(walls=walls, basin_cells=int(in_basin.sum()), d_ring=d_ring, d_nc=d_nc,
+                report=rep, reads=reads)
+
+
+def library_phases(seed: int, card: str, dev="cuda", n: int = 768, storm=None,
+                   state_map=None) -> dict:
+    """Phases 3t-3u (the interpolation library on the device, then the
+    host library); returns what they measured. ``dev="cpu"`` with a small
+    ``n`` rehearses them on the CPU (no device time, no peak memory)."""
+    import torch
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        full = library_full_size(seed, card, dev, n)
+        if torch_device_type(dev) == "cuda":
+            torch.cuda.empty_cache()
+        small = library_card_vs_cpu(seed, card, dev, n)
+        host = host_library(seed, card, tmp, dev, n, storm, state_map)
+    seconds = time.time() - t0
+    print(f"# phases 3t-3u took {seconds} s ({card})", flush=True)
+    return dict(full=full, small=small, host=host, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2007,6 +2476,8 @@ def main() -> int:
     K = JB.SWEEPS_PER_BUNDLE
     TI, S = JB.plan_tiles(main_shape[0], K)
     err_main, _, inputs = compare_bundle(main_shape, args.seed)
+    # the halo mode (the sharded loop's: K cells a side left out of the norm)
+    err_halo, rel_halo, _ = compare_bundle(main_shape, args.seed, halo=K)
     for n, shape in enumerate([(5, 37, 45), (7, TI - 3, TI - 6),
                                (7, 2 * TI + 1, 3 * TI + 1)]):
         compare_bundle(shape, args.seed + 1 + n)
@@ -2018,6 +2489,7 @@ def main() -> int:
     print(f"# jacobi_bundle vs per-sweep design at {main_shape}: x and norm "
           f"bit-equal (norm {float(n_t)})", flush=True)
     del x_t, x_s
+    print(f"# phases 1-2 done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 3. the main path at full size -----------------------------------
     params = SolverParameters.fast_f32(use_pallas=True)
@@ -2035,6 +2507,8 @@ def main() -> int:
 
     out, stats, first_s, launches, syncs, mbr = first_hour(
         "bundle hour", grid, params, state0)
+    # the hour's grid and states on the host for 3u (telemetry and the dump)
+    storm = (grid.to("cpu"), params, state0.to("cpu"), out.to("cpu"))
     check(launches > 0, "the main path launched no jacobi_bundle kernel")
     check(launches * K == stats[3], f"launches {launches} x K != sweeps {stats[3]}")
     if args.seed == 0:   # the per-sweep design's trajectory: x and norm are bit-equal
@@ -2056,6 +2530,8 @@ def main() -> int:
 
     # small locked-dt hour: the card against the port's CPU path
     small_card_vs_cpu("bundle")
+
+    print(f"# phase 3 done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 3b. the production preset: CG with the line preconditioner ------
     p_cg = SolverParameters.fast_f32()
@@ -2088,9 +2564,13 @@ def main() -> int:
     del out, grid64, state64
     torch.cuda.empty_cache()
 
+    print(f"# phases 3b-3c done at {time.time() - t_start:.1f} s", flush=True)
+
     # ---- 3d. small hours on the card against the CPU path ----------------
     for name in ("f64", "cg_line", "cg_diag_links"):
         small_card_vs_cpu(name)
+
+    print(f"# phase 3d done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 3e. the coupled water + heat storm hour --------------------------
     from criteria3d_tpu_torch.problems import build_coupled_problem
@@ -2130,9 +2610,13 @@ def main() -> int:
     del gc, wc0, hc0, bc
     torch.cuda.empty_cache()
 
+    print(f"# phase 3e done at {time.time() - t_start:.1f} s", flush=True)
+
     # ---- 3f. small coupled hours on the card against the CPU path --------
     for name in ("f64_vapor", "frozen_vapor"):
         small_coupled_card_vs_cpu(name)
+
+    print(f"# phase 3f done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 3g-3j. the hourly model cycle ------------------------------------
     mp = model_phases(dem, args.seed, card)
@@ -2145,6 +2629,12 @@ def main() -> int:
 
     # ---- 3q-3s. the command shell and the meteo grid ------------------------
     shp = shell_phases(args.seed, card)
+
+    # ---- 3t-3u. the interpolation library and the host library ------------
+    lp = library_phases(args.seed, card, storm=storm, state_map=pp["full"]["swc_map"])
+    del storm
+
+    print(f"# phases 3g-3u done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
@@ -2170,6 +2660,9 @@ def main() -> int:
         "replaces": "criteria3d_tpu/solver/pallas_jacobi.py:176",
         "launches": launches,
         "max_abs_err": err_main,
+        # the halo mode at the main-path shape, halo = K
+        "halo_max_abs_err": err_halo,
+        "halo_norm_rel_err": rel_halo,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -2225,7 +2718,12 @@ def main() -> int:
           f"{shp['grid']['interpolation_s'] / shp['grid']['busy_s']} (3k, 20 stations: "
           f"{pp['full']['interpolation_s'] / pp['full']['busy_s']}); shell and grid "
           f"32 box card/CPU walls={shp['small']['walls']} {shp['small']['walls_grid']}; "
-          f"phases 3q-3s {shp['seconds']:.1f} s; script {time.time() - t_start:.1f} s")
+          f"phases 3q-3s {shp['seconds']:.1f} s; library 768 local map "
+          f"{lp['full']['records']['local_detrending_map'][0]} s (c3d.detrending "
+          f"{lp['full']['detrending_s']} s of device time), window card/CPU "
+          f"walls={lp['small']['walls']} differing cells={lp['small']['differ']}; host library "
+          f"walls={lp['host']['walls']}; phases 3t-3u {lp['seconds']:.1f} s; script "
+          f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Carry a grid, a water state, the heat state and forcing, a whole hourly
-model (with HYDRALL and RothC), a project's running model and a whole
-VINE3D model across from plain arrays.
+model (with HYDRALL and RothC), a project's running model, a whole
+VINE3D model and a fitted detrending or variogram model across from plain
+arrays.
 
 The JAX package's ``Grid``, ``WaterState``, ``HeatState``, ``HeatBoundary``,
 ``SnowState``, ``HydrallMaps``, ``RothCState``, ``GrapevineState``, the two
@@ -9,6 +10,8 @@ and Python scalars on the caller's side (``np.asarray`` of every field,
 nested dataclasses as dicts); these functions turn them into the port's
 objects without importing JAX, so that both implementations can run from
 exactly the same inputs (also from the same mid-run state).
+:func:`trend_model_arrays` goes the other way for a fitted ``TrendModel``,
+so that a model the port fits can be carried into the JAX package.
 """
 
 from __future__ import annotations
@@ -22,12 +25,14 @@ from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.core.soil import SoilFields
 from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
                                              WaterState)
-from criteria3d_tpu_torch.device import resolve_device
+from criteria3d_tpu_torch.device import host_array, resolve_device
 from criteria3d_tpu_torch.model import Criteria3DModel, HourlyForcing, ModelConfig
 from criteria3d_tpu_torch.physics import grapevine as gv
 from criteria3d_tpu_torch.physics.crop import CropParameters
+from criteria3d_tpu_torch.physics.detrending import TrendModel
 from criteria3d_tpu_torch.physics.downy_mildew import DownyMildewState
 from criteria3d_tpu_torch.physics.hydrall import HydrallMaps, HydrallPlantState
+from criteria3d_tpu_torch.physics.kriging import VariogramModel
 from criteria3d_tpu_torch.physics.powdery_mildew import PowderyMildewState
 from criteria3d_tpu_torch.physics.rothc import RothCState
 from criteria3d_tpu_torch.physics.snow import SnowState
@@ -41,7 +46,9 @@ __all__ = ["grid_from_arrays", "state_from_arrays", "heat_state_from_arrays",
            "project_model_from_arrays", "hydrall_maps_from_arrays",
            "rothc_state_from_arrays", "grapevine_state_from_arrays",
            "downy_state_from_arrays", "powdery_state_from_arrays",
-           "vine_model_from_arrays", "GRID_META", "MODEL_MAPS",
+           "vine_model_from_arrays", "trend_model_from_arrays",
+           "trend_model_arrays", "variogram_model_from_fields",
+           "GRID_META", "MODEL_MAPS",
            "MODEL_ACCUMULATORS", "VINE_MAPS", "VINE_ACCUMULATORS"]
 
 # the Grid fields that are Python scalars, not tensors
@@ -288,3 +295,38 @@ def vine_model_from_arrays(arrays: dict, meta: dict, params: SolverParameters,
         _nhours=int(arrays["_nhours"]),
         _irrigation_hours=dict(arrays.get("_irrigation_hours") or {}),
         **fields)
+
+
+# ----------------------------------------------------------------------
+# fitted detrending and variogram models
+# ----------------------------------------------------------------------
+
+def trend_model_from_arrays(arrays: dict, *, device=None) -> TrendModel:
+    """A :class:`TrendModel` from ``arrays``: every array field by name
+    (dtypes kept: the flags are bool) and ``elevation_function`` as a
+    string or a 0-d string array. ``device=None`` means the CUDA card."""
+    dev = resolve_device(device)
+    fields = {f.name: _tensor(arrays[f.name], dev)
+              for f in dataclasses.fields(TrendModel)
+              if f.name != "elevation_function"}
+    return TrendModel(elevation_function=str(arrays["elevation_function"]),
+                      **fields)
+
+
+def trend_model_arrays(model: TrendModel) -> dict:
+    """Every field of a port :class:`TrendModel` as numpy arrays (and the
+    function's name as a string): the arguments of JAX's ``TrendModel``."""
+    out = {f.name: host_array(getattr(model, f.name))
+           for f in dataclasses.fields(TrendModel)
+           if f.name != "elevation_function"}
+    out["elevation_function"] = model.elevation_function
+    return out
+
+
+def variogram_model_from_fields(fields: dict) -> VariogramModel:
+    """A :class:`VariogramModel` from the fields of JAX's (its mode and
+    Python floats; ``dataclasses.asdict`` of either package's model gives
+    the other's arguments)."""
+    return VariogramModel(int(fields["mode"]), float(fields["nugget"]),
+                          float(fields["sill"]), float(fields["range_"]),
+                          float(fields.get("slope", 0.0)))

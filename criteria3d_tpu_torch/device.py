@@ -11,8 +11,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "map_tensors", "scalar", "host_read",
-           "host_array"]
+__all__ = ["resolve_device", "input_device", "map_tensors", "scalar",
+           "host_read", "host_array"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -26,6 +26,19 @@ def resolve_device(device=None) -> torch.device:
                 "on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def input_device(device, *inputs) -> torch.device:
+    """The device a function of arrays computes on: ``device`` when given;
+    else the device of the first tensor among ``inputs`` (tensors stay
+    where they are); else the CUDA card, as :func:`resolve_device` gives it
+    (raising when there is none)."""
+    if device is not None:
+        return torch.device(device)
+    for x in inputs:
+        if isinstance(x, torch.Tensor):
+            return x.device
+    return resolve_device(None)
 
 
 def map_tensors(obj, fn):

@@ -15,7 +15,10 @@ spell out the JAX form:
 - ``jnp.where`` with a Python number keeps the other operand's dtype
   (:func:`where`; ``torch.where`` of two numbers is float32);
 - ``jnp.asarray(x, jnp.float64)`` takes numbers, arrays and tensors
-  (:func:`as_f64`).
+  (:func:`as_f64`);
+- ``jnp.linspace`` is a jitted program that XLA:CPU rewrites into fused
+  multiply-adds; :func:`linspace` evaluates the same fused forms (with an
+  exact :func:`fma`), where ``torch.linspace`` fills from both ends.
 
 Other powers go through :func:`criteria3d_tpu_torch.core.soil.power`.
 """
@@ -26,7 +29,8 @@ import functools
 
 import torch
 
-__all__ = ["const", "div", "rdiv", "mul0", "sq", "ipow", "where", "as_f64"]
+__all__ = ["const", "div", "rdiv", "mul0", "sq", "ipow", "where", "as_f64",
+           "fma", "linspace"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,3 +88,56 @@ def as_f64(x, device=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(torch.float64)
     return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, t) with s = fl(a + b) and a + b = s + t exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a: torch.Tensor):
+    """Veltkamp's split of float64 ``a`` into 26- and 27-bit halves."""
+    c = a * 134217729.0          # 2**27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` with one rounding, for float64 tensors: the product is
+    split exactly (Dekker's two-product) and the three parts are added
+    without error but in the last step. Matches a hardware FMA except at
+    a double-rounding tie of the last addition."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s, t = _two_sum(p, c)
+    return s + (t + e)
+
+
+def linspace(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Tensor:
+    """``jnp.linspace(start, stop, num)`` along a new last axis, as XLA:CPU
+    computes it. ``jnp.linspace`` is jitted; XLA turns ``i / div`` into
+    ``i * r`` with ``r = 1 / div``, ``stop * (i * r)`` into ``i * (stop *
+    r)``, and LLVM fuses the final add, so element ``i < num - 1`` is
+    ``fma(i, stop * r, start * (1 - i * r))`` (element 1, whose ``1 * x``
+    folds away, is ``fma(start, 1 - r, stop * r)``) and the last is
+    ``stop``. ``start`` and ``stop`` are float64 tensors of one shape (a
+    batch of ranges)."""
+    if num == 1:
+        return start[..., None]
+    r = 1.0 / (num - 1)
+    q = stop * r
+    cols = []
+    for i in range(num - 1):
+        if i == 0:
+            cols.append(start * 1.0)
+        elif i == 1:
+            cols.append(fma(start, torch.full_like(start, 1.0 - r), q))
+        else:
+            cols.append(fma(torch.full_like(q, float(i)), q,
+                            start * (1.0 - i * r)))
+    cols.append(stop)
+    return torch.stack(cols, dim=-1)

@@ -477,6 +477,23 @@ def _write_stations(path: str, hdr, zone: int, n_stations: int, rng, day,
                 db.write_hourly(sid, var, date, series[k])
 
 
+def project_dem(n: int, seed: int):
+    """The DEM of :func:`write_project` (``n``, ``seed``) as a project
+    loads it from its ``.flt`` (float32 values as float64) and its header:
+    :func:`synthetic_catchment` on an n x n box of 4 m cells in UTM zone 32
+    at 44.5 N, 11.3 E."""
+    from criteria3d_tpu_torch.core.geo import latlon_to_utm
+    from criteria3d_tpu_torch.io.esri import RasterHeader
+
+    cell = 4.0
+    x0, y0, _ = latlon_to_utm(*PROJECT_SITE, 32)
+    width = n * cell
+    hdr = RasterHeader(nrows=n, ncols=n, xllcorner=float(round(float(x0) - width / 2)),
+                       yllcorner=float(round(float(y0) - width / 2)), cellsize=cell)
+    dem = synthetic_catchment(seed, n=n, radius=n * 366.0 / 768)
+    return dem.astype(np.float32).astype(np.float64), hdr
+
+
 def write_project(dirpath: str, *, n: int, seed: int, n_stations: int,
                   compute_heat: bool = False) -> str:
     """Write a synthetic CRITERIA3D project under ``dirpath`` with numpy
@@ -504,19 +521,15 @@ def write_project(dirpath: str, *, n: int, seed: int, n_stations: int,
     import os
 
     from criteria3d_tpu_torch.core.geo import latlon_to_utm
-    from criteria3d_tpu_torch.io.esri import RasterHeader, write_flt
+    from criteria3d_tpu_torch.io.esri import write_flt
 
-    cell = 4.0
     lat0, lon0 = PROJECT_SITE
-    x0, y0, zone = latlon_to_utm(lat0, lon0, 32)
-    width = n * cell
-    hdr = RasterHeader(nrows=n, ncols=n, xllcorner=float(round(float(x0) - width / 2)),
-                       yllcorner=float(round(float(y0) - width / 2)), cellsize=cell)
+    _, _, zone = latlon_to_utm(lat0, lon0, 32)
     for sub in ("MAPS", "DATA"):
         os.makedirs(os.path.join(dirpath, sub), exist_ok=True)
 
     # --- maps
-    dem = synthetic_catchment(seed, n=n, radius=n * 366.0 / 768)
+    dem, hdr = project_dem(n, seed)
     valid = dem != -9999.0
     rows, cols = np.mgrid[0:n, 0:n]
     soil_map = np.where(cols < 0.6 * n, 1.0, 2.0)
@@ -640,6 +653,54 @@ def dem_as_geotiff(ini: str) -> str:
     return base + ".tif"
 
 
+def valley_plane(fr, fc, n: int, cell: float):
+    """The height of :func:`synthetic_catchment`'s valley plane (without its
+    perturbation) at fractional raster row ``fr`` and column ``fc``."""
+    return 100.0 + (n - 1 - fr) * 0.05 * cell + np.abs(fc - n // 2) * 0.08 * cell
+
+
+def meteo_grid_cells(dem, hdr, *, cell: float, margin: float):
+    """The cells of :func:`write_meteo_grid`'s grid over ``dem``'s box:
+    ``(n_cells, xll, yll, [(row, col, x, y, z), ...])`` in row-major order
+    from the south row, each centre's height the DEM's there, or where the
+    centre falls off the catchment the valley plane's (:func:`valley_plane`)."""
+    n = hdr.nrows
+    width = n * hdr.cellsize
+    n_cells = int((width + 2 * margin) // cell)
+    xll = hdr.xllcorner + width / 2 - n_cells * cell / 2
+    yll = hdr.yllcorner + width / 2 - n_cells * cell / 2
+    cells = []
+    for row in range(n_cells):
+        for col in range(n_cells):
+            x = xll + (col + 0.5) * cell
+            y = yll + (row + 0.5) * cell
+            # the centre in DEM cell units (raster row 0 = north)
+            fc = (x - hdr.xllcorner) / hdr.cellsize - 0.5
+            fr = n - 0.5 - (y - hdr.yllcorner) / hdr.cellsize
+            r, c = int(round(fr)), int(round(fc))
+            if 0 <= r < n and 0 <= c < n and dem[r, c] != hdr.nodata:
+                z = float(dem[r, c])
+            else:
+                z = float(valley_plane(fr, fc, n, hdr.cellsize))
+            cells.append((row, col, x, y, z))
+    return n_cells, xll, yll, cells
+
+
+def library_stations(n: int, seed: int, *, cell: float, margin: float, hour: int = 7):
+    """Stations for the interpolation library at the scale of a project:
+    :func:`write_meteo_grid`'s grid cells (``cell``, ``margin``) over
+    :func:`project_dem`'s box as stations, heights from the DEM, each with
+    the air temperature of :func:`write_project`'s weather rule at
+    ``hour`` (a thermal inversion before 9 h). Returns ``(dem, header,
+    x, y, z, t)``, the last four numpy arrays."""
+    dem, hdr = project_dem(n, seed)
+    _, _, _, cells = meteo_grid_cells(dem, hdr, cell=cell, margin=margin)
+    x, y, z = (np.array([c[i] for c in cells]) for i in (2, 3, 4))
+    rng = np.random.default_rng(seed)
+    t = np.array([_station_weather(rng, hour, float(zz), 0.0)["t"] for zz in z])
+    return dem, hdr, x, y, z, t
+
+
 def write_meteo_grid(dirpath: str, ini: str, *, cell: float, margin: float,
                      seed: int) -> tuple[str, str]:
     """Write a meteo grid DB in the ERG5/COSMO style over the box of the
@@ -669,11 +730,7 @@ def write_meteo_grid(dirpath: str, ini: str, *, cell: float, margin: float,
     from criteria3d_tpu_torch.io.esri import read_raster
 
     dem, hdr = read_raster(load_project_ini(ini).dem_path)
-    n = hdr.nrows
-    width = n * hdr.cellsize
-    n_cells = int((width + 2 * margin) // cell)
-    xll = hdr.xllcorner + width / 2 - n_cells * cell / 2
-    yll = hdr.yllcorner + width / 2 - n_cells * cell / 2
+    n_cells, xll, yll, cells = meteo_grid_cells(dem, hdr, cell=cell, margin=margin)
     xml_path = os.path.join(dirpath, "DATA", "grid.xml")
     db_path = os.path.join(dirpath, "DATA", "grid.db")
     os.makedirs(os.path.dirname(xml_path), exist_ok=True)
@@ -714,30 +771,18 @@ def write_meteo_grid(dirpath: str, ini: str, *, cell: float, margin: float,
     con = sqlite3.connect(db_path)
     con.execute("CREATE TABLE CellsProperties (Code TEXT NOT NULL PRIMARY KEY, "
                 "Name TEXT, Row INTEGER, Col INTEGER, Height REAL, Active INTEGER)")
-    for row in range(n_cells):
-        for col in range(n_cells):
-            x = xll + (col + 0.5) * cell
-            y = yll + (row + 0.5) * cell
-            # the centre in DEM cell units (raster row 0 = north)
-            fc = (x - hdr.xllcorner) / hdr.cellsize - 0.5
-            fr = n - 0.5 - (y - hdr.yllcorner) / hdr.cellsize
-            r, c = int(round(fr)), int(round(fc))
-            if 0 <= r < n and 0 <= c < n and dem[r, c] != hdr.nodata:
-                z = float(dem[r, c])
-            else:
-                z = (100.0 + (n - 1 - fr) * 0.05 * hdr.cellsize
-                     + abs(fc - n // 2) * 0.08 * hdr.cellsize)
-            code = f"{row:03d}{col:03d}"
-            con.execute("INSERT INTO CellsProperties VALUES (?,?,?,?,?,?)",
-                        (code, f"cell {row} {col}", row, col, z, 1))
-            table = f"{code}_H"
-            con.execute(f'CREATE TABLE "{table}" (PragaTime TEXT, VariableCode '
-                        "INTEGER, Value REAL, PRIMARY KEY (PragaTime, VariableCode))")
-            rows = []
-            for hour in range(24):
-                w = _station_weather(rng, hour, z, pots[hour])
-                rows += [(times[hour], codes[k], float(w[k])) for k in codes]
-            con.executemany(f'INSERT INTO "{table}" VALUES (?,?,?)', rows)
+    for row, col, _, _, z in cells:
+        code = f"{row:03d}{col:03d}"
+        con.execute("INSERT INTO CellsProperties VALUES (?,?,?,?,?,?)",
+                    (code, f"cell {row} {col}", row, col, z, 1))
+        table = f"{code}_H"
+        con.execute(f'CREATE TABLE "{table}" (PragaTime TEXT, VariableCode '
+                    "INTEGER, Value REAL, PRIMARY KEY (PragaTime, VariableCode))")
+        rows = []
+        for hour in range(24):
+            w = _station_weather(rng, hour, z, pots[hour])
+            rows += [(times[hour], codes[k], float(w[k])) for k in codes]
+        con.executemany(f'INSERT INTO "{table}" VALUES (?,?,?)', rows)
     con.commit()
     con.close()
     return xml_path, db_path

@@ -249,8 +249,10 @@ def test_port_imports_no_jax():
     files: write_project, load, initialize, run_period with its outputs,
     one model hour with HYDRALL and RothC and one vine hour, the project
     from a GeoTIFF DEM with a meteo grid as its weather and the native
-    writer pool, its report, and the command shell) without loading JAX or
-    the JAX package."""
+    writer pool, its report, and the command shell; the interpolation and
+    side library: a local-detrending map on a 12 x 12 box, ordinary
+    kriging, a watershed extraction, a NetCDF round trip and a balance
+    report) without loading JAX or the JAX package."""
     code = textwrap.dedent("""
         import dataclasses, sys, tempfile
         import numpy as np, torch
@@ -338,6 +340,39 @@ def test_port_imports_no_jax():
         vo = vm.run_hour(model.HourlyForcing(22.0, 0.0, 60.0, 1.5, 0.7),
                          2023, 6, 21, 12)
         assert float(vo["vine_transpiration_demand"].max()) > 0.0
+        from criteria3d_tpu_torch.core import watershed
+        from criteria3d_tpu_torch.io import (criteria_output, forecast_dataset,
+                                             import_xml, netcdf, reproject,
+                                             shape_utils, shapefile, utility_db)
+        from criteria3d_tpu_torch.physics import detrending, fitting, kriging
+        from criteria3d_tpu_torch.utils import (debug_dump, logger, statistics,
+                                                telemetry)
+        rng = np.random.default_rng(0)
+        sx, sy = rng.uniform(0, 1200, 30), rng.uniform(0, 1200, 30)
+        sz = rng.uniform(0, 800, 30)
+        sv = 15.0 - 0.006 * sz
+        gx, gy = np.meshgrid(np.arange(12) * 100.0 + 50, np.arange(12) * 100.0 + 50)
+        lm = detrending.local_detrending_map(
+            sx, sy, sz, sv, gx, gy, np.full_like(gx, 400.0),
+            options=detrending.DetrendingOptions(min_points_local=10,
+                                                 n_lm_iterations=10), device="cpu")
+        assert lm.shape == (12, 12) and bool(torch.isfinite(lm).all())
+        km = kriging.ordinary_kriging(sx, sy, sv, gx, gy, kriging.VariogramModel(
+            kriging.SPHERICAL, 0.0, 4.0, 600.0), device="cpu")
+        assert bool(torch.isfinite(km).all())
+        hdr = esri.RasterHeader(nrows=8, ncols=8, xllcorner=0.0, yllcorner=0.0,
+                                cellsize=10.0, nodata=-9999.0)
+        r8, c8 = np.mgrid[0:8, 0:8]
+        basin, bh = watershed.extract_basin(100.0 + (7 - r8) * 0.5 + np.abs(c8 - 4),
+                                            hdr, 45.0, 5.0)
+        assert (basin != -9999.0).sum() > 0
+        with tempfile.TemporaryDirectory() as d:
+            netcdf.export_raster(os.path.join(d, "a.nc"), basin, bh, var_name="B")
+            hnc = netcdf.NetCDFHandler().read(os.path.join(d, "a.nc"))
+            assert (hnc.extract_raster("B")[0] == basin).all()
+            hnc.close()
+        rep = telemetry.balance_report(g, p, s, 0.0)
+        assert rep["water_content_m3"] > 0.0
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "criteria3d_tpu"
                or m.startswith("criteria3d_tpu.")]
@@ -375,3 +410,34 @@ def test_entry_points_default_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prj.initialize()
     assert prj.grid is None and prj.model is None
+    # the interpolation library: arrays in, tensors out, on the card
+    from criteria3d_tpu_torch.physics import detrending as TD
+    from criteria3d_tpu_torch.physics import fitting as TF
+    from criteria3d_tpu_torch.physics import kriging as TK
+    rng = np.random.default_rng(0)
+    sx, sy, sz = (rng.uniform(0, 1000, 12) for _ in range(3))
+    sv = 10.0 - 0.005 * sz
+    gx, gy = np.meshgrid(np.arange(4) * 250.0, np.arange(4) * 250.0)
+    model = TK.VariogramModel(TK.SPHERICAL, 0.0, 1.0, 500.0)
+    lo, hi = np.zeros(4), np.ones(4)
+    for call in (lambda: TD.multiple_detrending(sv, sz),
+                 lambda: TD.local_detrending_map(sx, sy, sz, sv, gx, gy, gx),
+                 lambda: TD.glocal_weight_maps(np.ones((4, 4), np.int32), 1.0, 1.0),
+                 lambda: TD.topographic_distance_matrix(gx, 0.0, 0.0, 250.0, 4,
+                                                        sx, sy, sz),
+                 lambda: TD.loo_residuals(sx, sy, sz, sv),
+                 lambda: TD.optimize_topo_kh(sx, sy, sz, sv, topo_dist=np.zeros((12, 12))),
+                 lambda: TK.empirical_variogram(sx, sy, sv),
+                 lambda: TK.fit_variogram(np.arange(4.0), np.ones(4)),
+                 lambda: TK.ordinary_kriging(sx, sy, sv, gx, gy, model),
+                 lambda: TF.first_guess_grid(lo, hi),
+                 lambda: TF.best_fitting_marquardt(TF.lapse_piecewise_two, lo, hi, sz, sv),
+                 lambda: TF.weighted_multilinear(np.ones((3, 1)), np.ones(3), np.ones(3)),
+                 lambda: convert.trend_model_from_arrays(dict(
+                     elevation_params=lo, elevation_significant=np.True_,
+                     elevation_r2=np.float64(0.5), linear_slopes=np.zeros(0),
+                     linear_intercept=np.float64(0.0),
+                     linear_significant=np.zeros(0, bool),
+                     elevation_function="double_piecewise"))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
