@@ -178,12 +178,26 @@ Phases (any failed check exits non-zero before the last line):
    and ``debug_dump.dump_linear_system`` on the bundle storm hour's state
    on the card (the mass error under 2e-3 of the rain; the dump, loaded,
    equal to the card's arrays);
+3v. the device mesh, blocks on the one card
+   (``make_mesh(n, devices=[cuda] * n)``): ``halo_exchange`` of a seeded
+   (7, 768, 768) and (8, 7, 768, 768) array over 2 x 2 and 2 x 4 blocks,
+   bit-equal to the zero-padded windows; the mesh form of
+   ``jacobi_solve_loop`` on phase 2's inputs over both, x bit-equal to the
+   single-device loop with the same n_it and flag, the ms of one bundle of
+   each (CUDA events) against the single kernel's, the x exchange's share,
+   a mesh bundle's bound and the tiled variant of each block; phase 3's
+   storm hour under ``fast_f32(use_pallas=True, mesh=2 x 2)`` (stats, MBR,
+   wall, host reads, 4 launches a bundle; |MBR| < 2e-3, heads within 1e-5 m
+   of phase 3's when the stats are equal, else within the float32
+   envelopes of tests/test_fast_f32.py); ``scaling_bench``'s line for the
+   768 box with 1 block and 4 blocks;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
-   design's time in the same run, its halo mode's error and its launches
+   design's time in the same run, its halo mode's error, its launches
    in the 3i model hour (and 0 in the 3o vineyard, 3q shell and 3r
-   meteo-grid hours);
+   meteo-grid hours) and in 3v's mesh hour, and 3v's ms, exchange ms and
+   bound of a 2 x 2 mesh bundle;
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -195,8 +209,9 @@ and ``c3d.outputs`` ranges, HYDRALL's ``c3d.hydrall``, the vineyard's
 ``c3d.vine`` and ``c3d.diseases`` ranges, the library's
 ``c3d.detrending``, and the rest. It imports nothing of JAX and nothing of
 the JAX package. ``side_phases(seed, card)`` runs 3m-3p alone,
-``shell_phases(seed, card)`` 3q-3s and ``library_phases(seed, card)``
-3t-3u; with ``dev="cpu"`` and a small ``n`` they rehearse them on the CPU.
+``shell_phases(seed, card)`` 3q-3s, ``library_phases(seed, card)``
+3t-3u and ``mesh_phases(seed, card)`` 3v; with ``dev="cpu"`` and a small
+``n`` they rehearse them on the CPU.
 """
 
 from __future__ import annotations
@@ -2436,6 +2451,206 @@ def library_phases(seed: int, card: str, dev="cuda", n: int = 768, storm=None,
     return dict(full=full, small=small, host=host, seconds=seconds)
 
 
+# ----------------------------------------------------------------------
+# the device mesh (3v): virtual blocks on one card
+# ----------------------------------------------------------------------
+
+# 3v: the meshes of virtual blocks (4 gives 2 x 2, 8 gives 2 x 4) and the
+# sweep cap of the seeded loops (SolverParameters' max_iterations)
+MESH_BLOCKS = (4, 8)
+MESH_MAX_ITER = 200
+
+
+def virtual_mesh(blocks: int, dev):
+    """A mesh of ``blocks`` blocks, all on ``dev``."""
+    import torch
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh
+    return make_mesh(blocks, devices=[torch.device(dev)] * blocks)
+
+
+def mesh_halo(seed: int, dev, n: int) -> None:
+    """3v (i): halo_exchange of a seeded (7, n, n) and (8, 7, n, n) array
+    over 2 x 2 and 2 x 4 blocks on ``dev``: every grown block bit-equal to
+    its window of the zero-padded array."""
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.parallel.sharding import halo_exchange, split_blocks
+    from criteria3d_tpu_torch.solver.jacobi_bundle import SWEEPS_PER_BUNDLE as K
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for lead in ((7,), (8, 7)):
+        a = torch.rand(*lead, n, n, generator=g, device=dev)
+        padded = torch.nn.functional.pad(a, (K, K, K, K))
+        for nb in MESH_BLOCKS:
+            mesh = virtual_mesh(nb, dev)
+            mr, mc = mesh.devices.shape
+            r, c = n // mr, n // mc
+            for (i, j), blk in np.ndenumerate(halo_exchange(split_blocks(a, mesh), K, mesh)):
+                check(torch.equal(blk, padded[..., i * r:i * r + r + 2 * K,
+                                              j * c:j * c + c + 2 * K]),
+                      f"3v: halo_exchange of {tuple(a.shape)} over {mesh.shape}: "
+                      f"block ({i}, {j}) differs from its zero-padded window")
+        print(f"# 3v halo_exchange of {tuple(a.shape)} over 2 x 2 and 2 x 4 blocks: "
+              "bit-equal to the zero-padded windows", flush=True)
+        del a, padded
+
+
+def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
+    """3v (ii): the mesh loop on phase 2's seeded (7, n, n) inputs over
+    ``meshes`` (2 x 2 and 2 x 4 blocks on ``dev`` when None), keyed by
+    their block counts, against the single-device loop (x bit-equal,
+    the same n_it and flag); the ms of one bundle of each (CUDA events on
+    the card), of the x exchange alone, the bound of a mesh bundle (each
+    block's kernel bound at its grown size plus the exchange's bytes:
+    every grown cell written once, read once from its source) and the
+    tiled variant each block runs."""
+    import numpy as np
+    import torch
+    from criteria3d_tpu_torch.bench_jacobi import bundle_inputs, cuda_ms
+    from criteria3d_tpu_torch.parallel.sharding import halo_exchange, split_blocks
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    K = JB.SWEEPS_PER_BUNDLE
+    L = 7
+    card = torch_device_type(dev) == "cuda"
+    inputs = bundle_inputs((L, n, n), seed, dev)
+    n_nodes = int(inputs[4].sum())
+    x1, d1, n1 = JB.jacobi_solve_loop(*inputs, MESH_MAX_ITER, 1e-7, n_nodes)
+    single_ms = cuda_ms(lambda: JB.jacobi_bundle(*inputs), reps=20) if card else None
+    out = dict(single_ms=single_ms, n_it=n1, meshes={})
+    for mesh in meshes or [virtual_mesh(nb, dev) for nb in MESH_BLOCKS]:
+        xm, dm, nm = JB.jacobi_solve_loop(*inputs, MESH_MAX_ITER, 1e-7, n_nodes,
+                                          mesh=mesh)
+        _sync(dev)
+        check(torch.equal(xm, x1) and (nm, dm) == (n1, d1),
+              f"3v: the mesh loop over {mesh.shape} gave n_it {nm} diverged {dm}, "
+              f"max |dx| {float((xm - x1).abs().max())} against the single-device "
+              f"loop's n_it {n1} diverged {d1}")
+        system = JB.mesh_system(*inputs[:5], mesh)
+        xs = split_blocks(inputs[5], mesh)
+        xh = halo_exchange(xs, K, mesh)
+        variants = [JB.tiled_variant(*(a[i, j] for a in system), xh[i, j]) if card else None
+                    for (i, j), _ in np.ndenumerate(xh)]
+        grown = [int(x.numel()) for x in xh.flat]
+        bound_ms = (sum(max((14 * v + 1) * 4 / HBM_BYTES_PER_S,
+                            v * (K * FLOPS_PER_NODE_SWEEP + FLOPS_PER_NODE_NORM) / F32_FLOPS)
+                        for v in grown) + 2 * 4 * sum(grown) / HBM_BYTES_PER_S) * 1e3
+        rec = dict(mesh=mesh.shape, n_it=nm, variants=variants, bound_ms=bound_ms,
+                   grown_share=sum(grown) / (L * n * n))
+        if card:
+            rec["ms"] = cuda_ms(lambda: JB.mesh_bundle(system, xs, mesh), reps=20)
+            rec["exchange_ms"] = cuda_ms(lambda: halo_exchange(xs, K, mesh), reps=20)
+        out["meshes"][mesh.devices.size] = rec
+        share = rec["exchange_ms"] / rec["ms"] if card else None
+        print(f"# 3v mesh loop over {mesh.shape} (blocks on "
+              f"{sorted({str(d) for d in mesh.devices.flat})}): x bit-equal to the "
+              f"single-device loop, n_it {nm} diverged {dm}; blocks hold "
+              f"{rec['grown_share']} x the cells; ms per bundle {rec.get('ms')} "
+              f"(exchange {rec.get('exchange_ms')}, share {share}) against the single "
+              f"kernel's {single_ms}, bound {bound_ms} ms; tiled variants {variants}",
+              flush=True)
+        del system, xs, xh, xm
+    return out
+
+
+def mesh_hour(seed: int, card: str, dev, n: int, storm=None, storm_stats=None,
+              mesh=None) -> dict:
+    """3v (iii): the bundle storm hour under fast_f32(use_pallas=True) with
+    ``mesh`` (2 x 2 blocks on ``dev`` when None), against the single-device hour
+    (``storm`` = phase 3's (grid, params, state0, state) and
+    ``storm_stats`` its stats; run here when None): stats, MBR, wall, host
+    reads and launches (one per block and bundle); |MBR| < 2e-3; heads within 1e-5 m
+    when the stats equal the single-device hour's, else within the
+    free-running float32 envelopes of tests/test_fast_f32.py (max 0.1 m,
+    median 1e-2 m)."""
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.parallel.sharding import shard_pytree
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    K = JB.SWEEPS_PER_BUNDLE
+    if storm is None:
+        params = SolverParameters.fast_f32(use_pallas=True)
+        grid, state0 = build_problem(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768),
+                                     4.0, params, dev)
+        ref, storm_stats = compute_period_stats(grid, params, state0, 3600.0)
+        ref_h = ref.h
+        del ref
+    else:
+        grid, _, state0, ref = storm
+        grid, state0, ref_h = grid.to(dev), state0.to(dev), ref.h.to(dev)
+    mesh = mesh or virtual_mesh(4, dev)
+    blocks = mesh.devices.size
+    p_mesh = SolverParameters.fast_f32(use_pallas=True, mesh=mesh)
+    grid_s, state_s = shard_pytree(grid, mesh), shard_pytree(state0, mesh)
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    _sync_mesh(mesh)
+    t0 = time.time()
+    out, stats = compute_period_stats(grid_s, p_mesh, state_s, 3600.0)
+    _sync_mesh(mesh)
+    wall = time.time() - t0
+    launches, reads = JB.jacobi_bundle.launches, host_read.count
+    mbr = float(out.balance_whole.mbr)
+    err = (out.h - ref_h).abs()[grid.mask]
+    dh_max, dh_median = float(err.max()), float(err.median())
+    print(f"# 3v mesh storm hour, {mesh.shape} blocks on "
+          f"{sorted({str(d) for d in mesh.devices.flat})} ({card}): stats {stats} "
+          f"(single device {tuple(storm_stats)}) whole-period MBR={mbr} wall {wall} s "
+          f"host reads {reads} bundle launches {launches}; heads against the single-"
+          f"device hour: max {dh_max} m, median {dh_median} m", flush=True)
+    check(abs(mbr) < 2e-3, f"3v: |whole-period MBR| {mbr} >= 2e-3")
+    if torch_device_type(dev) == "cuda":
+        check(launches * K == blocks * stats[3],
+              f"3v: {launches} launches for {stats[3]} sweeps on {blocks} blocks")
+    if tuple(stats) == tuple(storm_stats):
+        check(dh_max <= 1e-5, f"3v: equal stats, heads {dh_max} m apart")
+    else:
+        check(dh_max < 0.1 and dh_median < 1e-2,
+              f"3v: heads {dh_max} m (median {dh_median}) outside the f32 envelopes")
+    return dict(stats=stats, mbr=mbr, wall_s=wall, host_reads=reads,
+                launches=launches, dh_max=dh_max)
+
+
+def _sync_mesh(mesh) -> None:
+    for dev in {str(d) for d in mesh.devices.flat}:
+        _sync(dev)
+
+
+def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
+    """3v on a host with several cards (``main`` needs one and does not run
+    it): the mesh of one block per card (``make_mesh()``): the mesh loop on
+    phase 2's inputs against one card, the storm hour, and the scaling
+    bench's line, whose mesh leg takes one block per card."""
+    import torch
+    from criteria3d_tpu_torch import scaling_bench
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh
+    check(torch.cuda.device_count() > 1, "mesh_cards needs more than one card")
+    mesh = make_mesh()
+    loops = mesh_loops(seed, "cuda", n, [mesh])
+    hour = mesh_hour(seed, card, "cuda", n, mesh=mesh)
+    scaling = scaling_bench.scaling(n, n, mesh.devices.size, "cuda")
+    print(json.dumps(scaling), flush=True)
+    return dict(loops=loops, hour=hour, scaling=scaling)
+
+
+def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, storm=None,
+                storm_stats=None) -> dict:
+    """Phase 3v (the device mesh: the halo exchange, the mesh loop against
+    the single-device loop, the storm hour on 2 x 2 blocks, the scaling
+    bench's line); returns what it measured. ``dev="cpu"`` with a small
+    ``n`` rehearses it on the CPU (no times, no launches)."""
+    from criteria3d_tpu_torch import scaling_bench
+    t0 = time.time()
+    mesh_halo(seed, dev, n)
+    loops = mesh_loops(seed, dev, n)
+    hour = mesh_hour(seed, card, dev, n, storm, storm_stats)
+    scaling = scaling_bench.scaling(n, n, 4, dev)
+    print(json.dumps(scaling), flush=True)
+    seconds = time.time() - t0
+    print(f"# phase 3v took {seconds} s ({card})", flush=True)
+    return dict(loops=loops, hour=hour, scaling=scaling, seconds=seconds)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2632,9 +2847,12 @@ def main() -> int:
 
     # ---- 3t-3u. the interpolation library and the host library ------------
     lp = library_phases(args.seed, card, storm=storm, state_map=pp["full"]["swc_map"])
+
+    # ---- 3v. the device mesh ------------------------------------------------
+    vp = mesh_phases(args.seed, card, storm=storm, storm_stats=stats)
     del storm
 
-    print(f"# phases 3g-3u done at {time.time() - t_start:.1f} s", flush=True)
+    print(f"# phases 3g-3v done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
@@ -2679,6 +2897,14 @@ def main() -> int:
         # launches in the shell's hours (3q) and the meteo-grid hours (3r)
         "launches_shell_hours": shp["shell"]["launches"],
         "launches_grid_hours": shp["grid"]["launches"],
+        # the mesh (3v): launches in the storm hour on 2 x 2 blocks (4 a
+        # bundle), one bundle on 2 x 2 blocks of phase 2's inputs, its x
+        # exchange alone, and its bound (the blocks' kernel bounds at their
+        # grown size plus the exchange's bytes)
+        "launches_mesh_hour": vp["hour"]["launches"],
+        "mesh_ms_per_bundle": vp["loops"]["meshes"][4]["ms"],
+        "mesh_exchange_ms": vp["loops"]["meshes"][4]["exchange_ms"],
+        "mesh_bound_ms": vp["loops"]["meshes"][4]["bound_ms"],
         "variant": JB.tiled_variant(*inputs),
         "tile": TI,
         "sweeps_on_chip": S,
@@ -2722,7 +2948,13 @@ def main() -> int:
           f"{lp['full']['records']['local_detrending_map'][0]} s (c3d.detrending "
           f"{lp['full']['detrending_s']} s of device time), window card/CPU "
           f"walls={lp['small']['walls']} differing cells={lp['small']['differ']}; host library "
-          f"walls={lp['host']['walls']}; phases 3t-3u {lp['seconds']:.1f} s; script "
+          f"walls={lp['host']['walls']}; phases 3t-3u {lp['seconds']:.1f} s; mesh 2 x 2 "
+          f"storm hour stats={list(vp['hour']['stats'])} mbr={vp['hour']['mbr']} "
+          f"wall_s={vp['hour']['wall_s']} host_reads={vp['hour']['host_reads']} "
+          f"launches={vp['hour']['launches']}; scaling 1 block "
+          f"{vp['scaling']['devices']['1']['step_s']} s/step, 4 blocks "
+          f"{vp['scaling']['devices']['4_pallas']['step_s']} s/step; phase 3v "
+          f"{vp['seconds']:.1f} s; script "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

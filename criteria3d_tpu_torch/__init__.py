@@ -5,7 +5,7 @@ the same functions with PyTorch tensors and hand-written CUDA kernels for an
 NVIDIA Hopper card (sm_90a). It imports neither JAX nor anything of the JAX
 package.
 
-Ported so far: the water solver -- the float64 parity path
+Ported: the water solver -- the float64 parity path
 (``SolverParameters()``), the float32 psi-carry path with CG and the line
 preconditioner (``SolverParameters.fast_f32()``) or the bundled Jacobi
 kernel (``fast_f32(use_pallas=True)``), and per-link flow accounting; soil
@@ -18,9 +18,11 @@ DB, the native raster writer pool and the HTML report); the VINE3D model
 and project (``vine3d.py``, ``vine3d_project.py``: grapevine physiology
 and the two mildews); the command shell (``cli.py``: ``python -m
 criteria3d_tpu_torch.cli script.txt``) with its GeoTIFF, quick-look and
-``viz/`` renderers. The bundled Jacobi solve runs the CUDA kernel
-``csrc/jacobi_bundle.cu`` on CUDA tensors and its plain PyTorch twin on CPU
-tensors.
+``viz/`` renderers; the interpolation library and the side library; the
+device mesh (``parallel/sharding.py``: the bundled-Jacobi loop on the
+blocks of a ('row', 'col') mesh of devices). The bundled Jacobi solve runs
+the CUDA kernel ``csrc/jacobi_bundle.cu`` on CUDA tensors and its plain
+PyTorch twin on CPU tensors.
 """
 
 __version__ = "0.1.0"

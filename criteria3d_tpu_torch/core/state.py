@@ -16,6 +16,7 @@ from criteria3d_tpu_torch.core.soil import (MeanType, WRCModel,
                                             mualem_conductivity, psi_from_se,
                                             se_from_psi)
 from criteria3d_tpu_torch.device import map_tensors, resolve_device
+from criteria3d_tpu_torch.parallel.sharding import Mesh
 
 __all__ = ["SolverParameters", "BalanceData", "WaterState"]
 
@@ -24,7 +25,7 @@ __all__ = ["SolverParameters", "BalanceData", "WaterState"]
 class SolverParameters:
     """Numerical parameters (reference types.h:291-315,
     project3D.cpp:619-652); the same fields and defaults as the JAX
-    package's, with torch dtypes and without its device ``mesh``.
+    package's, with torch dtypes.
 
     The port's water solver runs every configuration the JAX package's
     does, with the JAX package's solver selection:
@@ -42,7 +43,13 @@ class SolverParameters:
       with the ``heat_*`` fields: ``heat_vapor``, ``heat_advection`` and,
       on the float32 path, ``heat_frozen_props``.
 
-    Not ported: the device ``mesh``.
+    ``mesh`` (a :class:`criteria3d_tpu_torch.parallel.sharding.Mesh`)
+    decomposes the bundled-Jacobi loop over the mesh's blocks, as JAX's
+    ``shard_map`` does; it changes only that path
+    (``fast_f32(use_pallas=True, mesh=...)``). The rest of the step runs
+    whole on the mesh's home device (JAX partitions it with GSPMD, which
+    has no PyTorch counterpart); place grid and state there with
+    ``shard_pytree``.
     """
 
     mbr_threshold: float = 1e-3
@@ -72,6 +79,7 @@ class SolverParameters:
     # bundled Jacobi sweeps (K per call, convergence checked every K):
     # the CUDA kernel csrc/jacobi_bundle.cu on the card
     use_pallas: bool = False
+    mesh: Mesh | None = None
     inner_solver: str = "jacobi"
     cg_precond: str = "diag"
 

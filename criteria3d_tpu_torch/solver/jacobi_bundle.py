@@ -32,10 +32,13 @@ import numpy as np
 import torch
 
 from criteria3d_tpu_torch.device import host_read
+from criteria3d_tpu_torch.parallel.sharding import (Mesh, halo_exchange,
+                                                    join_blocks, split_blocks)
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
 
 __all__ = ["jacobi_bundle", "jacobi_bundle_tiled", "jacobi_bundle_per_sweep",
-           "jacobi_bundle_reference", "jacobi_solve_loop", "plan_tiles",
+           "jacobi_bundle_reference", "jacobi_solve_loop", "mesh_system",
+           "mesh_bundle", "plan_tiles",
            "tiled_variant", "tile_smem", "modelled_passes", "build_library",
            "SWEEPS_PER_BUNDLE"]
 
@@ -305,29 +308,79 @@ def jacobi_bundle_per_sweep(b, c_up, c_down, c_lat, mask_f, x,
     return out, norm
 
 
+def mesh_system(b, c_up, c_down, c_lat, mask_f, mesh: Mesh,
+                K: int = SWEEPS_PER_BUNDLE) -> tuple:
+    """The five coefficient arrays split over ``mesh`` and halo-exchanged by
+    K cells, once per solve (they are constant across it): a tuple of
+    (rows, cols) object arrays of grown blocks, in :func:`jacobi_bundle`'s
+    argument order."""
+    return tuple(halo_exchange(split_blocks(a, mesh), K, mesh)
+                 for a in (b, c_up, c_down, c_lat, mask_f))
+
+
+def mesh_bundle(system: tuple, xs: np.ndarray, mesh: Mesh,
+                K: int = SWEEPS_PER_BUNDLE):
+    """One bundle on every block: exchange x by K cells, run
+    :func:`jacobi_bundle` with ``halo=K`` on each grown block (its outer K
+    ring, whose sweeps read stale or missing neighbours, is left out of the
+    norm), crop the ring. Returns the new blocks (views of the kernel's
+    outputs) and the sum of the blocks' norm sums on the home device, added
+    in row-major block order (the counterpart of JAX's ``psum``)."""
+    xh = halo_exchange(xs, K, mesh)
+    out = np.empty(xs.shape, dtype=object)
+    total = None
+    for (i, j), x in np.ndenumerate(xh):
+        o, s = jacobi_bundle(*(a[i, j] for a in system), x, K=K, halo=K)
+        out[i, j] = o[:, K:-K, K:-K]
+        s = s.to(mesh.home)
+        total = s if total is None else total + s
+    return out, total
+
+
 def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
-                      tol: float, n_nodes: int, K: int = SWEEPS_PER_BUNDLE):
+                      tol: float, n_nodes: int, K: int = SWEEPS_PER_BUNDLE,
+                      mesh: Mesh | None = None):
     """Iterate sweep bundles to convergence; returns ``(x, diverged, n_it)``
     with ``n_it`` in sweeps (a multiple of K).
 
-    The contract of pallas_jacobi.jacobi_solve_loop without ``mesh``: the
-    check ``it < max_iter`` comes before each bundle; stop when the
-    psi-weighted mean |dx| of the bundle's last sweep drops below ``tol``;
-    diverged when it exceeds 10x the best seen (best starts at 1). Every
-    comparison is made in float32, as in JAX: the host reads the norm sum
-    (one synchronisation per bundle) and divides in float32.
+    The contract of pallas_jacobi.jacobi_solve_loop: the check
+    ``it < max_iter`` comes before each bundle; stop when the psi-weighted
+    mean |dx| of the bundle's last sweep drops below ``tol``; diverged when
+    it exceeds 10x the best seen (best starts at 1). Every comparison is
+    made in float32, as in JAX: the host reads the norm sum (one
+    synchronisation per bundle) and divides in float32.
+
+    With ``mesh`` the loop runs on the mesh's blocks, as JAX's runs under
+    ``shard_map`` (pallas_jacobi.py:258-282): :func:`mesh_system` once,
+    then :func:`mesh_bundle` per bundle, still one host read per bundle;
+    x is joined on the home device at the end. Each sweep does the same
+    arithmetic per cell as on one device, so x is bit-equal to the
+    single-device loop's when the stops agree; only the norm's summation
+    order differs.
     """
     tol32 = np.float32(tol)
     n32 = np.float32(n_nodes)
     ten = np.float32(10.0)
     best = np.float32(1.0)
-    x, it, done, diverged = x0, 0, False, False
+    if mesh is None:
+        def bundle(x):
+            return jacobi_bundle(b, c_up, c_down, c_lat, mask_f, x, K=K)
+        x = x0
+    else:
+        system = mesh_system(b, c_up, c_down, c_lat, mask_f, mesh, K)
+
+        def bundle(xs):
+            return mesh_bundle(system, xs, mesh, K)
+        x = split_blocks(x0, mesh)
+    it, done, diverged = 0, False, False
     while not done and it < max_iter:
-        x, norm_sum = jacobi_bundle(b, c_up, c_down, c_lat, mask_f, x, K=K)
+        x, norm_sum = bundle(x)
         norm = np.float32(host_read(norm_sum)) / n32
         converged = bool(norm < tol32)
         diverged = (not converged) and bool(norm > best * ten)
         best = np.minimum(best, norm)
         it += K
         done = converged or diverged
+    if mesh is not None:
+        x = join_blocks(x, mesh)
     return x, diverged, it

@@ -119,7 +119,7 @@ def _jacobi_solve(system: W.LinearSystem, x0: torch.Tensor, grid: Grid,
         mask_f = grid.mask.to(params.sweep_dtype)
         return jacobi_solve_loop(system.b, system.c_up, system.c_down,
                                  system.c_lat, mask_f, x0, max_iter, tol,
-                                 grid.n_nodes)
+                                 grid.n_nodes, mesh=params.mesh)
 
     # the comparisons run in the sweep dtype, as in JAX: float32 on the
     # fast path (tol rounded to float32), float64 on the parity path

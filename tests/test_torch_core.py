@@ -252,7 +252,8 @@ def test_port_imports_no_jax():
     writer pool, its report, and the command shell; the interpolation and
     side library: a local-detrending map on a 12 x 12 box, ordinary
     kriging, a watershed extraction, a NetCDF round trip and a balance
-    report) without loading JAX or the JAX package."""
+    report; a 2 x 2 CPU mesh's bundle loop) without loading JAX or the JAX
+    package."""
     code = textwrap.dedent("""
         import dataclasses, sys, tempfile
         import numpy as np, torch
@@ -373,6 +374,15 @@ def test_port_imports_no_jax():
             hnc.close()
         rep = telemetry.balance_report(g, p, s, 0.0)
         assert rep["water_content_m3"] > 0.0
+        from criteria3d_tpu_torch import scaling_bench
+        from criteria3d_tpu_torch.parallel import sharding
+        from criteria3d_tpu_torch.bench_jacobi import bundle_inputs
+        mesh = sharding.make_mesh(4, devices=[torch.device("cpu")] * 4)
+        inp = bundle_inputs((3, 20, 20), 0, "cpu")
+        xm, dm, nm = jacobi_bundle.jacobi_solve_loop(*inp, 40, 1e-7, 1200, mesh=mesh)
+        xs, ds, ns = jacobi_bundle.jacobi_solve_loop(*inp, 40, 1e-7, 1200)
+        assert mesh.shape == {"row": 2, "col": 2} and torch.equal(xm, xs) and nm == ns
+        assert scaling_bench.sloped_dem(8, 8).shape == (8, 8)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "criteria3d_tpu"
                or m.startswith("criteria3d_tpu.")]

@@ -1,5 +1,6 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
-tiled bundled-Jacobi design against the per-sweep one, small hours of
+tiled bundled-Jacobi design against the per-sweep one, the mesh loop on
+blocks of the card against one device, small hours of
 the float64, CG and coupled water + heat paths, the model cycle's physics
 maps and hours, and a project's hours from files, on the card against the
 CPU path. Every test here carries the ``cuda`` marker and skips where
@@ -139,6 +140,25 @@ def test_cuda_kernel_halo_matches_plain_version():
     torch.cuda.synchronize()
     assert torch.equal(xk, xp)
     assert float(nk) == pytest.approx(float(np_), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [4, 8])
+def test_mesh_loop_on_card_matches_one_device(blocks):
+    """The mesh form of the solve loop on 2 x 2 and 2 x 4 blocks of the
+    card (the kernel's halo mode on every grown block) against the
+    one-device loop: x bit-equal, the same n_it and flag, one launch per
+    block and bundle."""
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh
+    arrays = _cuda_arrays((7, 64, 96), seed=blocks)
+    n_nodes = int(arrays[4].sum())
+    x1, d1, n1 = TB.jacobi_solve_loop(*arrays, 200, 1e-7, n_nodes)
+    mesh = make_mesh(blocks, devices=[torch.device("cuda")] * blocks)
+    before = TB.jacobi_bundle.launches
+    xm, dm, nm = TB.jacobi_solve_loop(*arrays, 200, 1e-7, n_nodes, mesh=mesh)
+    torch.cuda.synchronize()
+    assert torch.equal(xm, x1) and (nm, dm) == (n1, d1)
+    assert TB.jacobi_bundle.launches - before == blocks * nm // TB.SWEEPS_PER_BUNDLE
 
 
 @pytest.mark.cuda

@@ -225,14 +225,23 @@ def test_solve_loop_matches_jax(case):
 
 def test_params_match_jax():
     """The preset and the per-approximation sweep cap (computed in
-    float32) equal the JAX package's."""
+    float32) equal the JAX package's; a mesh keeps the bundle's
+    selection and is carried as given."""
+    from criteria3d_tpu.parallel.sharding import make_mesh as j_make_mesh
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh as t_make_mesh
     TP = T.SolverParameters
+    jm, tm = j_make_mesh(8), t_make_mesh(8, devices=[torch.device("cpu")] * 8)
     for kw in ({}, dict(use_pallas=True), dict(inner_solver="jacobi"),
-               dict(max_iterations=150, max_approximations=7)):
-        jp, tp = J.SolverParameters.fast_f32(**kw), TP.fast_f32(**kw)
+               dict(max_iterations=150, max_approximations=7),
+               dict(use_pallas=True, mesh=None)):
+        jkw, tkw = dict(kw), dict(kw)
+        if "mesh" in kw:
+            jkw["mesh"], tkw["mesh"] = jm, tm
+        jp, tp = J.SolverParameters.fast_f32(**jkw), TP.fast_f32(**tkw)
         for name in ("inner_solver", "cg_precond", "residual_tolerance",
                      "use_pallas", "mbr_threshold", "delta_t_max"):
             assert getattr(tp, name) == getattr(jp, name), (kw, name)
+        assert tp.mesh is tkw.get("mesh") and (jp.mesh is None) == (tp.mesh is None)
         for approx in range(10):
             assert tp.max_iterations_for(approx) == int(jp.max_iterations_for(approx))
     for acc in range(1, 6):
