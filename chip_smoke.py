@@ -185,12 +185,17 @@ Phases (any failed check exits non-zero before the last line):
    ``jacobi_solve_loop`` on phase 2's inputs over both, x bit-equal to the
    single-device loop with the same n_it and flag, the ms of one bundle of
    each (CUDA events) against the single kernel's, the x exchange's share,
-   a mesh bundle's bound and the tiled variant of each block; phase 3's
-   storm hour under ``fast_f32(use_pallas=True, mesh=2 x 2)`` (stats, MBR,
-   wall, host reads, 4 launches a bundle; |MBR| < 2e-3, heads within 1e-5 m
-   of phase 3's when the stats are equal, else within the float32
-   envelopes of tests/test_fast_f32.py); ``scaling_bench``'s line for the
-   768 box with 1 block and 4 blocks;
+   a mesh bundle's bound and the tiled variant of each block; the three
+   storm hours of phases 3-3c partitioned over 2 x 2 blocks (grid and
+   state cut by ``shard_pytree``, the whole water step on the blocks):
+   ``fast_f32(use_pallas=True, mesh=)`` (4 launches a bundle),
+   ``fast_f32(mesh=)`` (CG line) and ``SolverParameters(mesh=)`` (f64),
+   each with its stats, MBR, wall, host reads and launches; |MBR| < 2e-3,
+   host reads equal to the one-device hour's, heads within 1e-5 m (f32)
+   or 1e-9 m (f64) of phases 3-3c's when the stats are equal, else within
+   the float32 envelopes of tests/test_fast_f32.py; ``scaling_bench``'s
+   line for the 768 box (the float64 step and the bundle step, each on one
+   device and on 4 blocks); the seconds of each part of 3v;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
@@ -211,7 +216,10 @@ and ``c3d.outputs`` ranges, HYDRALL's ``c3d.hydrall``, the vineyard's
 the JAX package. ``side_phases(seed, card)`` runs 3m-3p alone,
 ``shell_phases(seed, card)`` 3q-3s, ``library_phases(seed, card)``
 3t-3u and ``mesh_phases(seed, card)`` 3v; with ``dev="cpu"`` and a small
-``n`` they rehearse them on the CPU.
+``n`` they rehearse them on the CPU. ``mesh_cards(seed, card)`` runs 3v's
+loop, the partitioned bundle hour (each card's peak memory against the
+one-card hour's) and the scaling bench with one block per card on a host
+with several.
 """
 
 from __future__ import annotations
@@ -1134,7 +1142,7 @@ VINE_3P_BOX = 16
 def _sync(dev) -> None:
     import torch
     if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(torch.device(dev))
 
 
 def _peak_gib(dev, reset: bool = False) -> float:
@@ -2506,7 +2514,8 @@ def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
     import numpy as np
     import torch
     from criteria3d_tpu_torch.bench_jacobi import bundle_inputs, cuda_ms
-    from criteria3d_tpu_torch.parallel.sharding import halo_exchange, split_blocks
+    from criteria3d_tpu_torch.parallel.sharding import (exchange, gather_pytree,
+                                                        shard_pytree)
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     K = JB.SWEEPS_PER_BUNDLE
     L = 7
@@ -2517,27 +2526,27 @@ def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
     single_ms = cuda_ms(lambda: JB.jacobi_bundle(*inputs), reps=20) if card else None
     out = dict(single_ms=single_ms, n_it=n1, meshes={})
     for mesh in meshes or [virtual_mesh(nb, dev) for nb in MESH_BLOCKS]:
-        xm, dm, nm = JB.jacobi_solve_loop(*inputs, MESH_MAX_ITER, 1e-7, n_nodes,
+        blocked = [shard_pytree(a, mesh) for a in inputs]
+        system, xs = tuple(blocked[:5]), blocked[5]
+        xm, dm, nm = JB.jacobi_solve_loop(*blocked, MESH_MAX_ITER, 1e-7, n_nodes,
                                           mesh=mesh)
+        xm = gather_pytree(xm, dev)
         _sync(dev)
         check(torch.equal(xm, x1) and (nm, dm) == (n1, d1),
               f"3v: the mesh loop over {mesh.shape} gave n_it {nm} diverged {dm}, "
               f"max |dx| {float((xm - x1).abs().max())} against the single-device "
               f"loop's n_it {n1} diverged {d1}")
-        system = JB.mesh_system(*inputs[:5], mesh)
-        xs = split_blocks(inputs[5], mesh)
-        xh = halo_exchange(xs, K, mesh)
-        variants = [JB.tiled_variant(*(a[i, j] for a in system), xh[i, j]) if card else None
-                    for (i, j), _ in np.ndenumerate(xh)]
-        grown = [int(x.numel()) for x in xh.flat]
+        variants = [JB.tiled_variant(*(a.blocks[i, j] for a in system), x) if card
+                    else None for (i, j), x in np.ndenumerate(xs.blocks)]
+        grown = [int(x.numel()) for x in xs.blocks.flat]
         bound_ms = (sum(max((14 * v + 1) * 4 / HBM_BYTES_PER_S,
                             v * (K * FLOPS_PER_NODE_SWEEP + FLOPS_PER_NODE_NORM) / F32_FLOPS)
                         for v in grown) + 2 * 4 * sum(grown) / HBM_BYTES_PER_S) * 1e3
         rec = dict(mesh=mesh.shape, n_it=nm, variants=variants, bound_ms=bound_ms,
                    grown_share=sum(grown) / (L * n * n))
         if card:
-            rec["ms"] = cuda_ms(lambda: JB.mesh_bundle(system, xs, mesh), reps=20)
-            rec["exchange_ms"] = cuda_ms(lambda: halo_exchange(xs, K, mesh), reps=20)
+            rec["ms"] = cuda_ms(lambda: JB.mesh_bundle(system, xs), reps=20)
+            rec["exchange_ms"] = cuda_ms(lambda: exchange(xs), reps=20)
         out["meshes"][mesh.devices.size] = rec
         share = rec["exchange_ms"] / rec["ms"] if card else None
         print(f"# 3v mesh loop over {mesh.shape} (blocks on "
@@ -2547,68 +2556,96 @@ def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
               f"(exchange {rec.get('exchange_ms')}, share {share}) against the single "
               f"kernel's {single_ms}, bound {bound_ms} ms; tiled variants {variants}",
               flush=True)
-        del system, xs, xh, xm
+        del blocked, system, xs, xm
     return out
 
 
-def mesh_hour(seed: int, card: str, dev, n: int, storm=None, storm_stats=None,
-              mesh=None) -> dict:
-    """3v (iii): the bundle storm hour under fast_f32(use_pallas=True) with
-    ``mesh`` (2 x 2 blocks on ``dev`` when None), against the single-device hour
-    (``storm`` = phase 3's (grid, params, state0, state) and
-    ``storm_stats`` its stats; run here when None): stats, MBR, wall, host
-    reads and launches (one per block and bundle); |MBR| < 2e-3; heads within 1e-5 m
-    when the stats equal the single-device hour's, else within the
-    free-running float32 envelopes of tests/test_fast_f32.py (max 0.1 m,
-    median 1e-2 m)."""
+# 3v (iii): the storm hours partitioned, in phases 3-3c's order
+MESH_FORMS = ("bundle", "cg_line", "f64")
+
+
+def mesh_form_params(form: str, mesh=None):
     from criteria3d_tpu_torch import SolverParameters
+    if form == "bundle":
+        return SolverParameters.fast_f32(use_pallas=True, mesh=mesh)
+    if form == "cg_line":
+        return SolverParameters.fast_f32(mesh=mesh)
+    return SolverParameters(mesh=mesh)
+
+
+def one_device_hour(form: str, seed: int, dev, n: int) -> dict:
+    """The storm hour of ``form`` on one device: the reference of a
+    partitioned hour (phases 3-3c give it in ``main``). The grid and
+    initial state stay on the host."""
     from criteria3d_tpu_torch.device import host_read
-    from criteria3d_tpu_torch.parallel.sharding import shard_pytree
     from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    params = mesh_form_params(form)
+    grid, state0 = build_problem(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768),
+                                 4.0, params, dev)
+    host_read.count = 0
+    out, stats = compute_period_stats(grid, params, state0, 3600.0)
+    return dict(grid=grid.to("cpu"), state0=state0.to("cpu"), h=out.h.to("cpu"),
+                stats=tuple(stats), reads=host_read.count)
+
+
+def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
+    """3v (iii): the storm hour of ``form`` partitioned over ``mesh``
+    (grid and state cut from the host by ``shard_pytree``, the whole
+    water step on the blocks, the result joined by ``gather_pytree``)
+    against the one-device hour ``ref``: stats, MBR, wall, host reads and
+    launches (one per block and bundle); |MBR| < 2e-3, host reads equal to
+    the one-device hour's; heads within 1e-5 m (f32) or 1e-9 m (f64) when
+    the stats equal the one-device hour's, else within the free-running
+    float32 envelopes of tests/test_fast_f32.py (max 0.1 m, median
+    1e-2 m)."""
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     from criteria3d_tpu_torch.solver.step import compute_period_stats
     K = JB.SWEEPS_PER_BUNDLE
-    if storm is None:
-        params = SolverParameters.fast_f32(use_pallas=True)
-        grid, state0 = build_problem(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768),
-                                     4.0, params, dev)
-        ref, storm_stats = compute_period_stats(grid, params, state0, 3600.0)
-        ref_h = ref.h
-        del ref
-    else:
-        grid, _, state0, ref = storm
-        grid, state0, ref_h = grid.to(dev), state0.to(dev), ref.h.to(dev)
-    mesh = mesh or virtual_mesh(4, dev)
     blocks = mesh.devices.size
-    p_mesh = SolverParameters.fast_f32(use_pallas=True, mesh=mesh)
-    grid_s, state_s = shard_pytree(grid, mesh), shard_pytree(state0, mesh)
+    params = mesh_form_params(form, mesh)
+    t0 = time.time()
+    grid_s, state_s = shard_pytree(ref["grid"], mesh), shard_pytree(ref["state0"], mesh)
+    _sync_mesh(mesh)
+    parts = dict(shard=time.time() - t0)
     JB.jacobi_bundle.launches = 0
     host_read.count = 0
-    _sync_mesh(mesh)
     t0 = time.time()
-    out, stats = compute_period_stats(grid_s, p_mesh, state_s, 3600.0)
+    out, stats = compute_period_stats(grid_s, params, state_s, 3600.0)
     _sync_mesh(mesh)
     wall = time.time() - t0
     launches, reads = JB.jacobi_bundle.launches, host_read.count
+    t0 = time.time()
+    out = gather_pytree(out, "cpu")
+    parts["gather"] = time.time() - t0
     mbr = float(out.balance_whole.mbr)
-    err = (out.h - ref_h).abs()[grid.mask]
+    err = (out.h - ref["h"]).abs()[ref["grid"].mask]
     dh_max, dh_median = float(err.max()), float(err.median())
-    print(f"# 3v mesh storm hour, {mesh.shape} blocks on "
+    print(f"# 3v {form} storm hour partitioned, {mesh.shape} blocks on "
           f"{sorted({str(d) for d in mesh.devices.flat})} ({card}): stats {stats} "
-          f"(single device {tuple(storm_stats)}) whole-period MBR={mbr} wall {wall} s "
-          f"host reads {reads} bundle launches {launches}; heads against the single-"
-          f"device hour: max {dh_max} m, median {dh_median} m", flush=True)
-    check(abs(mbr) < 2e-3, f"3v: |whole-period MBR| {mbr} >= 2e-3")
-    if torch_device_type(dev) == "cuda":
+          f"(one device {ref['stats']}) whole-period MBR={mbr} wall {wall} s "
+          f"host reads {reads} (one device {ref['reads']}) bundle launches "
+          f"{launches}; heads against the one-device hour: max {dh_max} m, median "
+          f"{dh_median} m", flush=True)
+    check(abs(mbr) < 2e-3, f"3v {form}: |whole-period MBR| {mbr} >= 2e-3")
+    check(reads == ref["reads"], f"3v {form}: {reads} host reads, the one-device "
+                                 f"hour {ref['reads']}")
+    if form == "bundle" and torch_device_type(mesh.home) == "cuda":
         check(launches * K == blocks * stats[3],
               f"3v: {launches} launches for {stats[3]} sweeps on {blocks} blocks")
-    if tuple(stats) == tuple(storm_stats):
-        check(dh_max <= 1e-5, f"3v: equal stats, heads {dh_max} m apart")
+    if form != "bundle":
+        check(launches == 0, f"3v {form}: {launches} bundle launches")
+    if tuple(stats) == tuple(ref["stats"]):
+        tol = 1e-9 if form == "f64" else 1e-5
+        check(dh_max <= tol, f"3v {form}: equal stats, heads {dh_max} m apart")
     else:
         check(dh_max < 0.1 and dh_median < 1e-2,
-              f"3v: heads {dh_max} m (median {dh_median}) outside the f32 envelopes")
+              f"3v {form}: heads {dh_max} m (median {dh_median}) outside the f32 "
+              "envelopes")
     return dict(stats=stats, mbr=mbr, wall_s=wall, host_reads=reads,
-                launches=launches, dh_max=dh_max)
+                launches=launches, dh_max=dh_max, parts=parts)
 
 
 def _sync_mesh(mesh) -> None:
@@ -2619,36 +2656,89 @@ def _sync_mesh(mesh) -> None:
 def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
     """3v on a host with several cards (``main`` needs one and does not run
     it): the mesh of one block per card (``make_mesh()``): the mesh loop on
-    phase 2's inputs against one card, the storm hour, and the scaling
-    bench's line, whose mesh leg takes one block per card."""
+    phase 2's inputs against one card; the bundle storm hour on one card
+    and partitioned over the cards, each card's peak memory of the
+    partitioned hour at most 0.35 of the one-card hour's (nothing whole
+    lives on a card: the grid and state are cut from the host); and the
+    scaling bench's line, whose mesh leg takes one block per card."""
     import torch
     from criteria3d_tpu_torch import scaling_bench
+    from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import make_mesh
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
     check(torch.cuda.device_count() > 1, "mesh_cards needs more than one card")
     mesh = make_mesh()
     loops = mesh_loops(seed, "cuda", n, [mesh])
-    hour = mesh_hour(seed, card, "cuda", n, mesh=mesh)
+    torch.cuda.empty_cache()
+    params = mesh_form_params("bundle")
+    grid, state0 = build_problem(synthetic_catchment(seed, n=n), 4.0, params, "cpu")
+    g0, s0 = grid.to("cuda:0"), state0.to("cuda:0")
+    torch.cuda.synchronize(0)
+    torch.cuda.reset_peak_memory_stats(0)
+    host_read.count = 0
+    out, stats = compute_period_stats(g0, params, s0, 3600.0)
+    torch.cuda.synchronize(0)
+    one_peak = torch.cuda.max_memory_allocated(0)
+    ref = dict(grid=grid, state0=state0, h=out.h.to("cpu"), stats=tuple(stats),
+               reads=host_read.count)
+    del g0, s0, out
+    torch.cuda.empty_cache()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    hour = mesh_hour("bundle", card, "cuda", ref, mesh)
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(torch.cuda.device_count())]
+    shares = [p / one_peak for p in peaks]
+    print(f"# 3v bundle storm hour: one card's peak {one_peak / 2**30} GiB; "
+          f"partitioned over {mesh.devices.size} cards, each card's peak "
+          f"{[p / 2**30 for p in peaks]} GiB, shares {shares} ({card})", flush=True)
+    check(max(shares) <= 0.35, f"3v: a card's peak is {max(shares)} of the one-card "
+                               "hour's, above 0.35")
+    del ref
+    torch.cuda.empty_cache()
     scaling = scaling_bench.scaling(n, n, mesh.devices.size, "cuda")
     print(json.dumps(scaling), flush=True)
-    return dict(loops=loops, hour=hour, scaling=scaling)
+    return dict(loops=loops, hour=hour, one_card_peak=one_peak, peaks=peaks,
+                shares=shares, scaling=scaling)
 
 
-def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, storm=None,
-                storm_stats=None) -> dict:
+def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> dict:
     """Phase 3v (the device mesh: the halo exchange, the mesh loop against
-    the single-device loop, the storm hour on 2 x 2 blocks, the scaling
-    bench's line); returns what it measured. ``dev="cpu"`` with a small
-    ``n`` rehearses it on the CPU (no times, no launches)."""
+    the single-device loop, the three storm hours partitioned over 2 x 2
+    blocks, the scaling bench's line); returns what it measured. ``refs``
+    maps each of MESH_FORMS to its one-device hour (phases 3-3c's; run here
+    when None). ``dev="cpu"`` with a small ``n`` rehearses it on the CPU
+    (no times, no launches)."""
     from criteria3d_tpu_torch import scaling_bench
     t0 = time.time()
+    parts = {}
+
+    def lap(name):
+        nonlocal t0
+        parts[name] = time.time() - t0
+        t0 = time.time()
+    start = t0
     mesh_halo(seed, dev, n)
+    lap("halo")
     loops = mesh_loops(seed, dev, n)
-    hour = mesh_hour(seed, card, dev, n, storm, storm_stats)
+    lap("loops")
+    mesh = virtual_mesh(4, dev)
+    hours = {}
+    for form in MESH_FORMS:
+        ref = refs[form] if refs else one_device_hour(form, seed, dev, n)
+        lap(f"{form} one-device hour")
+        hours[form] = mesh_hour(form, card, dev, ref, mesh)
+        lap(f"{form} partitioned")
     scaling = scaling_bench.scaling(n, n, 4, dev)
     print(json.dumps(scaling), flush=True)
-    seconds = time.time() - t0
-    print(f"# phase 3v took {seconds} s ({card})", flush=True)
-    return dict(loops=loops, hour=hour, scaling=scaling, seconds=seconds)
+    lap("scaling")
+    seconds = time.time() - start
+    print(f"# phase 3v took {seconds} s ({card}): " + "; ".join(
+        f"{k} {v} s" for k, v in parts.items()) + "; within the partitioned hours: "
+        + "; ".join(f"{form} wall {h['wall_s']} s " + " ".join(
+            f"{k} {v} s" for k, v in h["parts"].items()) for form, h in hours.items()),
+        flush=True)
+    return dict(loops=loops, hours=hours, scaling=scaling, seconds=seconds, parts=parts)
 
 
 def main() -> int:
@@ -2724,6 +2814,9 @@ def main() -> int:
         "bundle hour", grid, params, state0)
     # the hour's grid and states on the host for 3u (telemetry and the dump)
     storm = (grid.to("cpu"), params, state0.to("cpu"), out.to("cpu"))
+    # the one-device hours that 3v partitions (phases 3-3c), on the host
+    refs = {"bundle": dict(grid=storm[0], state0=storm[2], h=storm[3].h,
+                           stats=tuple(stats), reads=syncs)}
     check(launches > 0, "the main path launched no jacobi_bundle kernel")
     check(launches * K == stats[3], f"launches {launches} x K != sweeps {stats[3]}")
     if args.seed == 0:   # the per-sweep design's trajectory: x and norm are bit-equal
@@ -2755,6 +2848,8 @@ def main() -> int:
     out, stats_cg, first_cg, launches_cg, syncs_cg, mbr_cg = first_hour(
         "CG line hour", grid, p_cg, state0)
     check(launches_cg == 0, f"the CG hour launched {launches_cg} jacobi_bundle kernels")
+    refs["cg_line"] = dict(grid=storm[0], state0=storm[2], h=out.h.to("cpu"),
+                           stats=tuple(stats_cg), reads=syncs_cg)
     peak_cg = torch.cuda.max_memory_allocated() / 2**30
     del out
     walls_cg = timed_hours(grid, p_cg, state0, stats_cg, args.timed_hours)
@@ -2772,6 +2867,9 @@ def main() -> int:
     out, stats64, wall64, launches64, syncs64, mbr64 = first_hour(
         "f64 hour", grid64, p64, state64)
     check(launches64 == 0, f"the f64 hour launched {launches64} jacobi_bundle kernels")
+    # the f64 hour's grid is phase 3's (catchment_grid does not read params)
+    refs["f64"] = dict(grid=storm[0], state0=state64.to("cpu"), h=out.h.to("cpu"),
+                       stats=tuple(stats64), reads=syncs64)
     print(f"# f64 hour peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     busy64, _, _ = breakdown("f64 hour", water_hour(grid64, p64, state64), wall64)
@@ -2849,8 +2947,8 @@ def main() -> int:
     lp = library_phases(args.seed, card, storm=storm, state_map=pp["full"]["swc_map"])
 
     # ---- 3v. the device mesh ------------------------------------------------
-    vp = mesh_phases(args.seed, card, storm=storm, storm_stats=stats)
-    del storm
+    vp = mesh_phases(args.seed, card, refs=refs)
+    del storm, refs
 
     print(f"# phases 3g-3v done at {time.time() - t_start:.1f} s", flush=True)
 
@@ -2897,11 +2995,11 @@ def main() -> int:
         # launches in the shell's hours (3q) and the meteo-grid hours (3r)
         "launches_shell_hours": shp["shell"]["launches"],
         "launches_grid_hours": shp["grid"]["launches"],
-        # the mesh (3v): launches in the storm hour on 2 x 2 blocks (4 a
-        # bundle), one bundle on 2 x 2 blocks of phase 2's inputs, its x
-        # exchange alone, and its bound (the blocks' kernel bounds at their
-        # grown size plus the exchange's bytes)
-        "launches_mesh_hour": vp["hour"]["launches"],
+        # the mesh (3v): launches in the partitioned bundle storm hour on
+        # 2 x 2 blocks (4 a bundle), one bundle on 2 x 2 blocks of phase 2's
+        # inputs, its x exchange alone, and its bound (the blocks' kernel
+        # bounds at their grown size plus the exchange's bytes)
+        "launches_mesh_hour": vp["hours"]["bundle"]["launches"],
         "mesh_ms_per_bundle": vp["loops"]["meshes"][4]["ms"],
         "mesh_exchange_ms": vp["loops"]["meshes"][4]["exchange_ms"],
         "mesh_bound_ms": vp["loops"]["meshes"][4]["bound_ms"],
@@ -2949,11 +3047,12 @@ def main() -> int:
           f"{lp['full']['detrending_s']} s of device time), window card/CPU "
           f"walls={lp['small']['walls']} differing cells={lp['small']['differ']}; host library "
           f"walls={lp['host']['walls']}; phases 3t-3u {lp['seconds']:.1f} s; mesh 2 x 2 "
-          f"storm hour stats={list(vp['hour']['stats'])} mbr={vp['hour']['mbr']} "
-          f"wall_s={vp['hour']['wall_s']} host_reads={vp['hour']['host_reads']} "
-          f"launches={vp['hour']['launches']}; scaling 1 block "
-          f"{vp['scaling']['devices']['1']['step_s']} s/step, 4 blocks "
-          f"{vp['scaling']['devices']['4_pallas']['step_s']} s/step; phase 3v "
+          f"partitioned storm hours " + "; ".join(
+              f"{form} stats={list(h['stats'])} mbr={h['mbr']} wall_s={h['wall_s']} "
+              f"host_reads={h['host_reads']} launches={h['launches']}"
+              for form, h in vp["hours"].items()) + "; scaling legs " + "; ".join(
+              f"{k} {v['step_s']} s/step efficiency {v['efficiency']}"
+              for k, v in vp["scaling"]["devices"].items()) + "; phase 3v "
           f"{vp['seconds']:.1f} s; script "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,24 +10,28 @@ gisIO.cpp). The files are byte-identical to the synchronous
 
 The library is compiled at first use with ``g++ -O2 -shared -fPIC
 -std=c++17 -pthread`` into ``criteria3d_tpu_torch/build/`` (the file name
-carries the hash of the source and the flags). Unlike the JAX package,
-which degrades to the synchronous writer when the build fails, the port
-raises, naming the compiler's error: a run never changes its writer
-without saying so.
+carries the hash of the source, the flags, the compiler's version and the
+host's CPU flags: ``utils/buildcache.py``). When it cannot be built or
+loaded the pool writes synchronously with ``io.esri.write_flt``, as the
+JAX package's does, and says so once through ``utils/logger``, naming the
+compiler's error: this is a host writer, the files are the same either
+way.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import subprocess
 import tempfile
 
 import numpy as np
 
-__all__ = ["AsyncRasterWriter", "build_library", "SOURCE", "BUILD_DIR"]
+from criteria3d_tpu_torch.utils import buildcache
+
+__all__ = ["AsyncRasterWriter", "native_available", "build_library", "SOURCE",
+           "BUILD_DIR"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "output_writer.cpp")
@@ -36,12 +40,15 @@ CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def build_library(source: str = SOURCE, cxx: str = "g++") -> str:
-    """Compile ``source`` into ``build/`` (once per source and flag set)
-    and return the library's path; raises RuntimeError with the
-    compiler's output when the build fails."""
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(CXX_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"libc3d_writer_{digest.hexdigest()[:16]}.so")
+    """Compile ``source`` into ``build/`` (once per source, flags, compiler
+    version and host CPU flags) and return the library's path; raises
+    RuntimeError with the compiler's output when the build fails."""
+    try:
+        version = buildcache.compiler_version(cxx)
+    except RuntimeError as e:
+        raise RuntimeError(f"cannot build the raster writer: {e}") from e
+    path = buildcache.library_path(BUILD_DIR, "c3d_writer", source, " ".join(CXX_FLAGS),
+                                   version, buildcache.machine_fingerprint())
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -65,8 +72,17 @@ def build_library(source: str = SOURCE, cxx: str = "g++") -> str:
 
 
 @functools.cache
-def _library(source: str = SOURCE) -> ctypes.CDLL:
-    lib = ctypes.CDLL(build_library(source))
+def _library(source: str = SOURCE) -> ctypes.CDLL | None:
+    """The loaded library, or None (logged once per source) when it cannot
+    be built or loaded."""
+    try:
+        lib = ctypes.CDLL(build_library(source))
+    except (RuntimeError, OSError) as e:
+        from criteria3d_tpu_torch.utils.logger import ProjectLogger
+        ProjectLogger("native").warning(
+            f"the native raster writer is not available ({e}); rasters are "
+            "written synchronously with io.esri.write_flt")
+        return None
     lib.c3d_writer_create.restype = ctypes.c_void_p
     lib.c3d_writer_create.argtypes = [ctypes.c_int]
     lib.c3d_writer_submit.argtypes = [
@@ -79,6 +95,11 @@ def _library(source: str = SOURCE) -> ctypes.CDLL:
     lib.c3d_writer_errors.argtypes = [ctypes.c_void_p]
     lib.c3d_writer_destroy.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def native_available() -> bool:
+    """Whether the C++ writer pool builds and loads on this host."""
+    return _library(SOURCE) is not None
 
 
 def _header_text(header) -> str:
@@ -96,19 +117,33 @@ class AsyncRasterWriter:
 
     ``submit`` takes a host array, copies it into the queue and returns at
     once; ``flush`` blocks until the queue drains. ``written`` and
-    ``errors`` count the finished jobs."""
+    ``errors`` count the finished jobs. Without the native library
+    (``is_native`` False) ``submit`` writes at once with
+    :func:`criteria3d_tpu_torch.io.esri.write_flt`, as the JAX package's
+    pool does, and the counts stay 0."""
 
     def __init__(self, n_threads: int = 2, *, source: str = SOURCE):
         self._handle = None
+        self._closed = False
         self._closed_counts = (0, 0)
         self._lib = _library(source)
-        self._handle = ctypes.c_void_p(self._lib.c3d_writer_create(int(n_threads)))
+        if self._lib is not None:
+            self._handle = ctypes.c_void_p(self._lib.c3d_writer_create(int(n_threads)))
+
+    @property
+    def is_native(self) -> bool:
+        """Whether the writes go to the C++ worker threads."""
+        return self._lib is not None
 
     def submit(self, path: str, data: np.ndarray, header) -> None:
-        if self._handle is None:
+        if self._closed:
             raise RuntimeError("submit to a closed AsyncRasterWriter")
         base = path[:-4] if path.endswith((".flt", ".hdr")) else path
         arr = np.ascontiguousarray(np.asarray(data), dtype="<f4")
+        if self._handle is None:
+            from criteria3d_tpu_torch.io.esri import write_flt
+            write_flt(base, arr, header)
+            return
         self._lib.c3d_writer_submit(
             self._handle, base.encode(), _header_text(header).encode(),
             arr.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), arr.size)
@@ -131,6 +166,7 @@ class AsyncRasterWriter:
 
     def close(self) -> None:
         """Drain the queue, stop the threads and keep the final counts."""
+        self._closed = True
         if self._handle is not None:
             self._lib.c3d_writer_flush(self._handle)
             self._closed_counts = (self.written, self.errors)

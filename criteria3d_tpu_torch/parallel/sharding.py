@@ -7,27 +7,38 @@ blocks, as JAX's virtual CPU devices do. A field's block (i, j) holds the
 (i, j)-th tile of its last two dims and lives on ``devices[i, j]``; the
 exchanges between blocks are copies, across devices where they differ.
 
-What is decomposed is the loop JAX writes by hand under ``shard_map``: the
-bundled-Jacobi solve (``solver/jacobi_bundle.jacobi_solve_loop`` with a
-``mesh``). JAX partitions the rest of the step with GSPMD from the arrays'
-shardings; PyTorch has no counterpart, so :func:`shard_pytree` checks the
-decomposition as JAX's ``_spec_for`` does and places every tensor on the
-mesh's home device, ``devices[0, 0]``, where assembly, CG, heat and the
-balance run whole (the same numbers within float32 reduction order).
+JAX partitions the whole water step with GSPMD from the arrays'
+shardings: stencil shifts become halo exchanges, reductions all-reduces.
+PyTorch has no counterpart, so the port partitions by hand.
+:func:`shard_pytree` cuts every (..., R, C) field into tiles that carry a
+ring of :data:`RING` cells of their neighbours (zeros past the global edge,
+the fill of ``shift2d``); the step runs its per-cell arithmetic on every grown
+block unchanged, refreshes the rings with :func:`exchange` where a stencil
+reads them, and combines per-block partial reductions over the cells each
+block owns (:func:`block_sum`, :func:`block_max`) on ``mesh.home`` in
+row-major block order. :func:`gather_pytree` joins the owned cells again.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
 
+from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.device import map_tensors
 
-__all__ = ["Mesh", "make_mesh", "check_shardable", "shard_pytree",
-           "replicate_pytree", "split_blocks", "join_blocks",
-           "halo_exchange", "pad_to_multiple"]
+__all__ = ["Mesh", "Blocked", "RING", "make_mesh", "check_shardable",
+           "shard_pytree", "gather_pytree", "replicate_pytree", "split_blocks",
+           "join_blocks", "halo_exchange", "exchange", "owned", "bmap", "unzip",
+           "first_block", "block_sum", "block_max", "pad_to_multiple"]
+
+# the ring every block carries: the bundled-Jacobi kernel's K sweeps
+# (solver/jacobi_bundle.SWEEPS_PER_BUNDLE), so that its owned cells are exact
+# after a bundle and the assembly needs no coefficient exchange
+RING = 8
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -44,8 +55,23 @@ class Mesh:
 
     @property
     def home(self) -> torch.device:
-        """Where the unpartitioned part of the step runs."""
+        """Where the blocks' partial reductions are combined and the 0-d
+        state lives."""
         return self.devices[0, 0]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Blocked:
+    """A tensor or a :class:`Grid` over a mesh: ``blocks[i, j]`` is block
+    (i, j), on ``mesh.devices[i, j]``, grown by :data:`RING` cells on each
+    side of its last two dims. A Grid's blocks are Grids whose (..., R, C) fields
+    are tiles and whose (L, 1, 1), (8, 1, 1) and 0-d fields are replicated;
+    their metadata (``n_nodes``, ``has_culvert``, ...) stays the whole
+    grid's. Per-block results of :func:`bmap` are Blocked too. Compared and
+    hashed by identity."""
+
+    mesh: Mesh
+    blocks: np.ndarray
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
@@ -83,13 +109,11 @@ def check_shardable(leaf: torch.Tensor, mesh: Mesh) -> bool:
     helper fields), as JAX's ``_spec_for``. A full-size field whose
     trailing dims do not divide the mesh raises: silently replicating the
     whole state would defeat the decomposition."""
-    shape = tuple(leaf.shape)
-    if len(shape) < 2:
+    if not _is_field(leaf):
         return False
+    shape = tuple(leaf.shape)
     r, c = shape[-2], shape[-1]
     mr, mc = mesh.shape["row"], mesh.shape["col"]
-    if r == 1 and c == 1:
-        return False
     if r % mr != 0 or c % mc != 0 or r < mr or c < mc:
         raise ValueError(
             f"field of shape {shape} cannot be sharded over mesh "
@@ -99,7 +123,109 @@ def check_shardable(leaf: torch.Tensor, mesh: Mesh) -> bool:
     return True
 
 
-def _place(tree, mesh: Mesh):
+def _is_field(t: torch.Tensor) -> bool:
+    """A (..., R, C) field, as opposed to a 0-d, 1-d or (..., 1, 1) leaf."""
+    return t.dim() >= 2 and tuple(t.shape[-2:]) != (1, 1)
+
+
+def _leaves(obj) -> list:
+    """The tensors of a dataclass in :func:`map_tensors`' order."""
+    out = []
+    map_tensors(obj, lambda t: out.append(t) or t)
+    return out
+
+
+def _map_leaves(obj, fn):
+    """:func:`map_tensors` with ``fn(tensor, index in _leaves order)``."""
+    count = itertools.count()
+    return map_tensors(obj, lambda t: fn(t, next(count)))
+
+
+def _tiles(t: torch.Tensor, mesh: Mesh) -> np.ndarray:
+    return halo_exchange(split_blocks(t, mesh), RING, mesh)
+
+
+def shard_pytree(tree, mesh: Mesh):
+    """Cut a tensor, a :class:`Grid` or a state over the mesh, each block
+    grown by :data:`RING` cells of its neighbours (zeros past the global
+    edge); a (..., R, C) field whose (R, C) does not divide the mesh raises
+    (:func:`check_shardable`), as does a block side below the ring along an
+    axis with neighbours (:func:`halo_exchange`).
+
+    - a tensor becomes a :class:`Blocked` of tiles; a 0-d, 1-d or
+      (..., 1, 1) one moves to ``mesh.home``;
+    - a Grid becomes a Blocked of per-block Grids (see :class:`Blocked`);
+    - any other frozen dataclass (a ``WaterState``) keeps its class: each
+      (..., R, C) field becomes a Blocked of tiles and every other tensor
+      (the 0-d ``dt_curr``, ``courant`` and balances) moves to
+      ``mesh.home``.
+
+    The step runs on blocks when ``SolverParameters.mesh`` is this mesh;
+    :func:`gather_pytree` joins the result."""
+    if isinstance(tree, torch.Tensor):
+        if check_shardable(tree, mesh):
+            return Blocked(mesh, _tiles(tree, mesh))
+        return tree.to(mesh.home)
+    if isinstance(tree, Grid):
+        tiles = [_tiles(t, mesh) if check_shardable(t, mesh) else None
+                 for t in _leaves(tree)]
+        blocks = np.empty(mesh.devices.shape, dtype=object)
+        for (i, j), dev in np.ndenumerate(mesh.devices):
+            blocks[i, j] = _map_leaves(tree, lambda t, k: t.to(dev) if tiles[k] is None
+                                       else tiles[k][i, j])
+        return Blocked(mesh, blocks)
+    done = {}                     # a tensor held by several fields is cut once
+
+    def put(t):
+        if id(t) not in done:
+            done[id(t)] = shard_pytree(t, mesh)
+        return done[id(t)]
+    return map_tensors(tree, put)
+
+
+def gather_pytree(tree, device=None):
+    """The whole tree from :func:`shard_pytree`'s form: every Blocked
+    joined from its blocks' owned cells (rings dropped) on ``device``
+    (default: the mesh's home device); other tensors move to ``device``
+    when one is given. A Blocked of Grids gives a Grid."""
+    if isinstance(tree, Blocked):
+        dev = tree.mesh.home if device is None else torch.device(device)
+        first = tree.blocks[0, 0]
+        if isinstance(first, torch.Tensor):
+            return _join_owned(tree.blocks, dev)
+        leaves = np.empty(tree.blocks.shape, dtype=object)
+        for idx, b in np.ndenumerate(tree.blocks):
+            leaves[idx] = _leaves(b)
+
+        def join(t, k):
+            if not _is_field(t):
+                return t.to(dev)
+            parts = np.empty(tree.blocks.shape, dtype=object)
+            for idx in np.ndindex(tree.blocks.shape):
+                parts[idx] = leaves[idx][k]
+            return _join_owned(parts, dev)
+        return _map_leaves(first, join)
+    if isinstance(tree, torch.Tensor):
+        return tree if device is None else tree.to(device)
+    changes = {}
+    for f in dataclasses.fields(tree):
+        v = getattr(tree, f.name)
+        if isinstance(v, (torch.Tensor, Blocked)) or (
+                dataclasses.is_dataclass(v) and not isinstance(v, Mesh)):
+            changes[f.name] = gather_pytree(v, device)
+    return dataclasses.replace(tree, **changes)
+
+
+def _join_owned(blocks: np.ndarray, dev) -> torch.Tensor:
+    owned_blocks = np.empty(blocks.shape, dtype=object)
+    for idx, b in np.ndenumerate(blocks):
+        owned_blocks[idx] = owned(b, RING).to(dev)
+    return join_blocks(owned_blocks, dev)
+
+
+def replicate_pytree(tree, mesh: Mesh):
+    """Every tensor of a tensor or frozen dataclass checked against the
+    mesh (:func:`check_shardable`) and placed whole on its home device."""
     def put(t):
         check_shardable(t, mesh)
         return t.to(mesh.home)
@@ -108,17 +234,82 @@ def _place(tree, mesh: Mesh):
     return map_tensors(tree, put)
 
 
-def shard_pytree(tree, mesh: Mesh):
-    """Every tensor of a tensor or frozen dataclass checked against the
-    mesh (:func:`check_shardable`) and placed on its home device: the
-    bundled-Jacobi loop splits its inputs into blocks itself."""
-    return _place(tree, mesh)
+def owned(t: torch.Tensor, ring: int) -> torch.Tensor:
+    """The cells a block owns: a view of ``t`` without its ring (``t``
+    itself for ring 0, a whole box)."""
+    if ring == 0:
+        return t
+    return t[..., ring:t.shape[-2] - ring, ring:t.shape[-1] - ring]
 
 
-def replicate_pytree(tree, mesh: Mesh):
-    """As :func:`shard_pytree`: without GSPMD, a replicated and a sharded
-    tree both live whole on the home device."""
-    return _place(tree, mesh)
+def exchange(x: Blocked) -> Blocked:
+    """``x`` with fresh rings: every block's owned cells grown again by its
+    neighbours' owned cells (:func:`halo_exchange`), zeros past the global
+    edge. Each new block is a contiguous tensor on its device."""
+    owned_blocks = np.empty(x.blocks.shape, dtype=object)
+    for idx, b in np.ndenumerate(x.blocks):
+        owned_blocks[idx] = owned(b, RING)
+    return Blocked(x.mesh, halo_exchange(owned_blocks, RING, x.mesh))
+
+
+def bmap(fn, *args):
+    """``fn`` block by block: each :class:`Blocked` argument gives its
+    block, every other argument is passed as it is; the results form a
+    Blocked. Without a Blocked argument it is ``fn(*args)``, once, on the
+    whole tensors."""
+    blocked = [a for a in args if isinstance(a, Blocked)]
+    if not blocked:
+        return fn(*args)
+    first = blocked[0]
+    for a in blocked[1:]:
+        if a.mesh is not first.mesh:
+            raise ValueError("bmap: the arguments are blocked over different meshes")
+    out = np.empty(first.blocks.shape, dtype=object)
+    for idx in np.ndindex(first.blocks.shape):
+        out[idx] = fn(*(a.blocks[idx] if isinstance(a, Blocked) else a for a in args))
+    return Blocked(first.mesh, out)
+
+
+def unzip(x):
+    """A Blocked of tuples as a tuple of Blocked (a plain tuple as it is)."""
+    if not isinstance(x, Blocked):
+        return x
+    n = len(x.blocks.flat[0])
+    outs = []
+    for k in range(n):
+        arr = np.empty(x.blocks.shape, dtype=object)
+        for idx, v in np.ndenumerate(x.blocks):
+            arr[idx] = v[k]
+        outs.append(Blocked(x.mesh, arr))
+    return tuple(outs)
+
+
+def first_block(x):
+    """Block (0, 0) of a Blocked (a Grid's metadata and dtypes), else
+    ``x``."""
+    return x.blocks[0, 0] if isinstance(x, Blocked) else x
+
+
+def block_sum(parts):
+    """The blocks' 0-d partials added on ``mesh.home`` in row-major block
+    order (JAX's all-reduce; a fixed order, so a run repeats itself); a
+    tensor is returned as it is."""
+    return _combine(parts, torch.add)
+
+
+def block_max(parts):
+    """As :func:`block_sum`, for a maximum."""
+    return _combine(parts, torch.maximum)
+
+
+def _combine(parts, op):
+    if not isinstance(parts, Blocked):
+        return parts
+    total = None
+    for p in parts.blocks.flat:
+        p = p.to(parts.mesh.home)
+        total = p if total is None else op(total, p)
+    return total
 
 
 def _index(ndim: int, dim: int, sl: slice, dim2: int | None = None,
@@ -142,10 +333,13 @@ def split_blocks(a: torch.Tensor, mesh: Mesh) -> np.ndarray:
     return blocks
 
 
-def join_blocks(blocks: np.ndarray, mesh: Mesh) -> torch.Tensor:
-    """The whole field from its blocks, on the mesh's home device."""
+def join_blocks(blocks: np.ndarray, device) -> torch.Tensor:
+    """The whole field from its (rows, cols) tiles, on ``device`` (a
+    :class:`Mesh` means its home device)."""
+    if isinstance(device, Mesh):
+        device = device.home
     mr, mc = blocks.shape
-    return torch.cat([torch.cat([blocks[i, j].to(mesh.home) for j in range(mc)], dim=-1)
+    return torch.cat([torch.cat([blocks[i, j].to(device) for j in range(mc)], dim=-1)
                       for i in range(mr)], dim=-2)
 
 

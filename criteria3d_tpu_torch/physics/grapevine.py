@@ -427,10 +427,11 @@ def trapezoid_root_density(layer_depth, layer_thickness,
     return roots / s if s > 0 else roots
 
 
-def layer_uptake_fractions(root_density, saw_stress_profile):
+def layer_uptake_fractions(root_density, saw_stress):
     """Per-layer share of a transpiration demand: root density times the
-    saw-tooth water-stress coefficient, renormalised over the layer axis."""
-    w = root_density * saw_stress_profile
+    saw-tooth water-stress coefficient ``saw_stress`` (:func:`saw_stress`'s
+    profile), renormalised over the layer axis."""
+    w = root_density * saw_stress
     s = torch.sum(w, dim=0, keepdim=True)
     return where(s > 0, w / torch.clamp_min(s, 1e-12), 0.0)
 

@@ -1,18 +1,20 @@
-"""Scaling harness: grid nodes per second of the bundled-Jacobi water step
-on one device and on a mesh of blocks.
+"""Scaling harness: grid nodes per second of the water step on one device
+and on a mesh of blocks.
 
     python -m criteria3d_tpu_torch.scaling_bench [n_rows] [n_cols] [--blocks N]
 
 Counterpart of ``scripts/scaling_bench.py``, on the CUDA card: the same
-sloped DEM, a warm-up step and then 4 timed steps, and the same JSON keys.
-Leg ``"1"`` runs ``fast_f32(use_pallas=True)``; leg ``"<n>_pallas"`` runs
-the same step with a mesh of n blocks (``--blocks`` blocks on one card, or
-one block per card where there are several). ``efficiency`` is the speed-up
-over leg "1" per card of the mesh, so blocks sharing one card measure what
-the decomposition costs. The JAX script's float64 leg measures GSPMD's
-partitioning of the whole step, which the port does not have (it runs the
-step outside the bundle loop on the mesh's home device), so it is not run.
-The card's name and power limit are printed with the numbers.
+sloped DEM, a warm-up step and then 4 timed steps, and the same legs
+under the same JSON keys. Leg ``"1"`` runs ``SolverParameters()`` (the
+float64 path) on one device and leg ``"<n>"`` the same step partitioned
+over a mesh of n blocks (``--blocks`` blocks on one card, or one block per
+card where there are several); leg ``"<n>_pallas"`` runs
+``fast_f32(use_pallas=True)`` on that mesh, and leg ``"1_pallas"``, which
+the JAX script has not, the bundle on one device. The whole step runs on
+the blocks, as JAX's GSPMD partitions it. ``efficiency`` is the speed-up
+over the one-device leg of the same parameters per card of the mesh, so
+blocks sharing one card measure what the decomposition costs. The card's
+name and power limit are printed with the numbers.
 """
 
 from __future__ import annotations
@@ -28,15 +30,10 @@ import torch
 
 from criteria3d_tpu_torch.core.state import SolverParameters
 from criteria3d_tpu_torch.device import resolve_device
-from criteria3d_tpu_torch.parallel.sharding import make_mesh, shard_pytree
+from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh,
+                                                    shard_pytree)
 from criteria3d_tpu_torch.problems import SMALL_SOIL, build_problem
 from criteria3d_tpu_torch.solver.step import compute_period_stats, compute_step
-
-NO_F64_LEG = ("the float64 leg of scripts/scaling_bench.py times GSPMD's "
-              "partitioning of the whole step; the port decomposes only the "
-              "bundled-Jacobi loop and runs the rest on the mesh's home device, "
-              "so that leg would measure nothing and is not run")
-
 
 def sloped_dem(nr: int, nc: int) -> np.ndarray:
     rows, cols = np.mgrid[0:nr, 0:nc]
@@ -82,21 +79,25 @@ def leg_mesh(blocks: int, dev: torch.device):
 
 
 def scaling(nr: int, nc: int, blocks: int, dev) -> dict:
-    """Both legs on ``dev``; the JSON object the script prints."""
+    """The four legs on ``dev``; the JSON object the script prints."""
     dev = torch.device(dev)
     grid, state = build_case(nr, nc, dev)
     n_nodes = grid.n_nodes
-    t1 = time_steps(grid, SolverParameters.fast_f32(use_pallas=True), state)
-    results = {"1": dict(step_s=t1, nodes_per_s=n_nodes / t1, efficiency=1.0)}
     mesh = leg_mesh(blocks, dev)
     n = mesh.devices.size
     cards = len({str(d) for d in mesh.devices.flat})
-    tn = time_steps(shard_pytree(grid, mesh),
-                    SolverParameters.fast_f32(use_pallas=True, mesh=mesh),
-                    shard_pytree(state, mesh))
-    results[f"{n}_pallas"] = dict(step_s=tn, nodes_per_s=n_nodes / tn,
-                                  efficiency=(t1 / tn) / cards,
-                                  mesh=mesh.shape, devices=cards)
+    grid_s, state_s = shard_pytree(grid, mesh), shard_pytree(state, mesh)
+    results = {}
+    for suffix, make in (("", SolverParameters),
+                         ("_pallas", lambda **kw: SolverParameters.fast_f32(
+                             use_pallas=True, **kw))):
+        t1 = time_steps(grid, make(), state)
+        results["1" + suffix] = dict(step_s=t1, nodes_per_s=n_nodes / t1,
+                                     efficiency=1.0)
+        tn = time_steps(grid_s, make(mesh=mesh), state_s)
+        results[f"{n}{suffix}"] = dict(step_s=tn, nodes_per_s=n_nodes / tn,
+                                       efficiency=(t1 / tn) / cards,
+                                       mesh=mesh.shape, devices=cards)
     out = {"metric": "scaling_node_steps_per_s", "grid": [grid.n_layers, nr, nc],
            "n_nodes": n_nodes, "devices": results,
            "platform": "gpu" if dev.type == "cuda" else dev.type}
@@ -124,6 +125,7 @@ def dryrun_mesh(n_blocks: int, dev) -> dict:
     t0 = time.perf_counter()
     out, stats = compute_period_stats(shard_pytree(grid, mesh), params,
                                       shard_pytree(state, mesh), 3600.0)
+    out = gather_pytree(out)
     mbr = float(out.balance_whole.mbr)
     wall = time.perf_counter() - t0
     if not (stats[0] > 0 and stats[3] > 0 and abs(mbr) < 1e-2):
@@ -142,7 +144,6 @@ def main() -> int:
                     help="blocks of the mesh leg on one card")
     args = ap.parse_args()
     dev = resolve_device(None)
-    print(f"# {NO_F64_LEG}", flush=True)
     print(json.dumps(scaling(args.n_rows, args.n_cols, args.blocks, dev)))
     return 0
 

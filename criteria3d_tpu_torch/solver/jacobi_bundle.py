@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
 import subprocess
@@ -32,13 +31,15 @@ import numpy as np
 import torch
 
 from criteria3d_tpu_torch.device import host_read
-from criteria3d_tpu_torch.parallel.sharding import (Mesh, halo_exchange,
-                                                    join_blocks, split_blocks)
+from criteria3d_tpu_torch.parallel.sharding import (RING, Blocked, Mesh,
+                                                    block_sum, bmap, exchange,
+                                                    unzip)
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
+from criteria3d_tpu_torch.utils import buildcache
 
 __all__ = ["jacobi_bundle", "jacobi_bundle_tiled", "jacobi_bundle_per_sweep",
-           "jacobi_bundle_reference", "jacobi_solve_loop", "mesh_system",
-           "mesh_bundle", "plan_tiles",
+           "jacobi_bundle_reference", "jacobi_solve_loop", "mesh_bundle",
+           "plan_tiles",
            "tiled_variant", "tile_smem", "modelled_passes", "build_library",
            "SWEEPS_PER_BUNDLE"]
 
@@ -123,17 +124,20 @@ def _nvcc() -> str:
 
 
 def build_library(verbose: bool = False) -> str:
-    """Compile ``csrc/jacobi_bundle.cu`` into ``build/`` (once per source
-    and flag set: the file name carries their hash) and return its path."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"libjacobi_bundle_{digest.hexdigest()[:16]}.so")
+    """Compile ``csrc/jacobi_bundle.cu`` into ``build/`` (once per source,
+    flags, nvcc version and the card's compute capability: the file name
+    carries their hash, ``utils/buildcache.py``) and return its path."""
+    nvcc = _nvcc()
+    major, minor = torch.cuda.get_device_capability()
+    path = buildcache.library_path(BUILD_DIR, "jacobi_bundle", SOURCE, " ".join(NVCC_FLAGS),
+                                   buildcache.compiler_version(nvcc),
+                                   f"sm_{major}{minor}")
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE]
     if verbose:
         cmd.insert(1, "-Xptxas=-v")
     try:
@@ -308,33 +312,19 @@ def jacobi_bundle_per_sweep(b, c_up, c_down, c_lat, mask_f, x,
     return out, norm
 
 
-def mesh_system(b, c_up, c_down, c_lat, mask_f, mesh: Mesh,
-                K: int = SWEEPS_PER_BUNDLE) -> tuple:
-    """The five coefficient arrays split over ``mesh`` and halo-exchanged by
-    K cells, once per solve (they are constant across it): a tuple of
-    (rows, cols) object arrays of grown blocks, in :func:`jacobi_bundle`'s
-    argument order."""
-    return tuple(halo_exchange(split_blocks(a, mesh), K, mesh)
-                 for a in (b, c_up, c_down, c_lat, mask_f))
-
-
-def mesh_bundle(system: tuple, xs: np.ndarray, mesh: Mesh,
-                K: int = SWEEPS_PER_BUNDLE):
-    """One bundle on every block: exchange x by K cells, run
-    :func:`jacobi_bundle` with ``halo=K`` on each grown block (its outer K
-    ring, whose sweeps read stale or missing neighbours, is left out of the
-    norm), crop the ring. Returns the new blocks (views of the kernel's
-    outputs) and the sum of the blocks' norm sums on the home device, added
-    in row-major block order (the counterpart of JAX's ``psum``)."""
-    xh = halo_exchange(xs, K, mesh)
-    out = np.empty(xs.shape, dtype=object)
-    total = None
-    for (i, j), x in np.ndenumerate(xh):
-        o, s = jacobi_bundle(*(a[i, j] for a in system), x, K=K, halo=K)
-        out[i, j] = o[:, K:-K, K:-K]
-        s = s.to(mesh.home)
-        total = s if total is None else total + s
-    return out, total
+def mesh_bundle(system: tuple, x: Blocked, K: int = SWEEPS_PER_BUNDLE):
+    """One bundle on every block: :func:`jacobi_bundle` with ``halo`` =
+    ``RING`` on each grown block, then an :func:`exchange` of x. ``system`` is
+    (b, c_up, c_down, c_lat, mask_f) blocked as x, exact on all but each
+    block's outer cell (an assembly on the grown block), and x's rings are
+    fresh; with K at most the ring the K sweeps leave the owned cells
+    exact, and the ring (whose sweeps read stale or missing neighbours) is
+    left out of the norm. Returns x with fresh rings and the sum of the
+    blocks' norm sums on the home device, added in row-major block order
+    (the counterpart of JAX's ``psum``)."""
+    out, sums = unzip(bmap(lambda b, cu, cd, cl, m, xb: jacobi_bundle(
+        b, cu, cd, cl, m, xb, K=K, halo=RING), *system, x))
+    return exchange(out), block_sum(sums)
 
 
 def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
@@ -351,9 +341,11 @@ def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
     synchronisation per bundle) and divides in float32.
 
     With ``mesh`` the loop runs on the mesh's blocks, as JAX's runs under
-    ``shard_map`` (pallas_jacobi.py:258-282): :func:`mesh_system` once,
-    then :func:`mesh_bundle` per bundle, still one host read per bundle;
-    x is joined on the home device at the end. Each sweep does the same
+    ``shard_map`` (pallas_jacobi.py:258-282): every array is a
+    :class:`~criteria3d_tpu_torch.parallel.sharding.Blocked` over ``mesh``
+    (``shard_pytree``; K at most its ring), x with fresh rings, and
+    :func:`mesh_bundle` is the loop body, still one host read per bundle;
+    x is returned blocked, with fresh rings. Each sweep does the same
     arithmetic per cell as on one device, so x is bit-equal to the
     single-device loop's when the stops agree; only the norm's summation
     order differs.
@@ -362,16 +354,20 @@ def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
     n32 = np.float32(n_nodes)
     ten = np.float32(10.0)
     best = np.float32(1.0)
+    arrays = (b, c_up, c_down, c_lat, mask_f)
     if mesh is None:
         def bundle(x):
-            return jacobi_bundle(b, c_up, c_down, c_lat, mask_f, x, K=K)
-        x = x0
+            return jacobi_bundle(*arrays, x, K=K)
     else:
-        system = mesh_system(b, c_up, c_down, c_lat, mask_f, mesh, K)
+        if K > RING or not all(isinstance(a, Blocked) and a.mesh is mesh
+                               for a in (*arrays, x0)):
+            raise ValueError(f"jacobi_solve_loop: with a mesh every array must be "
+                             f"blocked over it (shard_pytree) and K at most the "
+                             f"ring, {RING}")
 
-        def bundle(xs):
-            return mesh_bundle(system, xs, mesh, K)
-        x = split_blocks(x0, mesh)
+        def bundle(x):
+            return mesh_bundle(arrays, x, K)
+    x = x0
     it, done, diverged = 0, False, False
     while not done and it < max_iter:
         x, norm_sum = bundle(x)
@@ -381,6 +377,4 @@ def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
         best = np.minimum(best, norm)
         it += K
         done = converged or diverged
-    if mesh is not None:
-        x = join_blocks(x, mesh)
     return x, diverged, it

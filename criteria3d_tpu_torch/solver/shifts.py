@@ -10,7 +10,7 @@ import torch
 
 from criteria3d_tpu_torch.core.grid import LATERAL_OFFSETS
 
-__all__ = ["shift2d", "LATERAL_OFFSETS", "MIRROR"]
+__all__ = ["shift2d", "shift_all_lateral", "LATERAL_OFFSETS", "MIRROR"]
 
 # index of the mirrored offset: neighbour k of node i sees node i as MIRROR[k]
 MIRROR = tuple(LATERAL_OFFSETS.index((-di, -dj)) for (di, dj) in LATERAL_OFFSETS)
@@ -29,3 +29,9 @@ def shift2d(x: torch.Tensor, di: int, dj: int, fill=0.0) -> torch.Tensor:
     dst_c = slice(max(-dj, 0), C + min(-dj, 0))
     y[..., dst_r, dst_c] = x[..., src_r, src_c]
     return y
+
+
+def shift_all_lateral(x: torch.Tensor, fill=0.0) -> torch.Tensor:
+    """The 8 lateral-neighbour views stacked: ``out[k] = shift2d(x,
+    *LATERAL_OFFSETS[k], fill)``, shape ``(8, *x.shape)``."""
+    return torch.stack([shift2d(x, di, dj, fill) for (di, dj) in LATERAL_OFFSETS])

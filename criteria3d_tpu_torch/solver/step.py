@@ -19,6 +19,18 @@ float64, the type JAX uses for it; the inner solver's convergence tests run
 in the sweep dtype. Every select of the JAX step is reproduced, including
 those applied whether or not the step was accepted (best_h, dt_curr,
 courant, balance_current).
+
+With ``params.mesh`` the step runs on the blocks of ``shard_pytree``'s grid
+and state, as JAX's GSPMD partitions it: the field arithmetic goes through
+:func:`~criteria3d_tpu_torch.parallel.sharding.bmap` (once on the whole
+tensors without a mesh, so that path runs the same kernels as before),
+every global sum is a per-block partial over owned cells added on
+``mesh.home`` before the decision's single host read, and each stencil
+reads fresh rings: the state fields keep theirs fresh (the solvers end
+with an exchange), the bundle exchanges x once a bundle, CG exchanges p
+once an iteration and per-sweep Jacobi x once every ``RING`` sweeps. The
+assembly on a grown block is exact on all but its outer cell, so no
+coefficient is exchanged.
 """
 
 from __future__ import annotations
@@ -33,6 +45,9 @@ from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
                                              WaterState)
 from criteria3d_tpu_torch.device import host_read, scalar
+from criteria3d_tpu_torch.parallel.sharding import (RING, Blocked, block_max,
+                                                    block_sum, bmap, exchange,
+                                                    first_block, owned, unzip)
 from criteria3d_tpu_torch.solver import water as W
 from criteria3d_tpu_torch.solver.jacobi_bundle import jacobi_solve_loop
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
@@ -72,18 +87,61 @@ def check_supported(params: SolverParameters) -> None:
                          "solver takes 'diag' or 'line')")
 
 
+def _check_blocks(grid, params: SolverParameters, state: WaterState,
+                  hooks: bool) -> None:
+    """Raise ``ValueError`` unless grid and state are whole with no mesh,
+    or blocked over ``params.mesh`` in a form the partitioned
+    step runs: no quiet gathering to one device."""
+    mesh = params.mesh
+    fields = [v for v in (getattr(state, f.name) for f in dataclasses.fields(state))
+              if isinstance(v, Blocked)]
+    if mesh is None:
+        if isinstance(grid, Blocked) or fields:
+            raise ValueError("blocked grid or state with params.mesh None: set "
+                             "SolverParameters.mesh to the mesh they were sharded "
+                             "over, or join them with gather_pytree")
+        return
+    if not (isinstance(grid, Blocked) and grid.mesh is mesh
+            and isinstance(state.h, Blocked)
+            and all(f.mesh is mesh for f in fields)):
+        raise ValueError("params.mesh is set: cut grid and state over it with "
+                         "criteria3d_tpu_torch.parallel.sharding.shard_pytree(x, "
+                         "params.mesh)")
+    if hooks:
+        raise ValueError("heat is not partitioned yet (ROADMAP A4): join the "
+                         "grid and states with gather_pytree and run the coupled "
+                         "step without a mesh")
+    if params.use_pallas:
+        if params.sweep_dtype != torch.float32:
+            raise ValueError("use_pallas on a mesh runs the float32 bundle: set "
+                             "sweep_dtype=torch.float32 (fast_f32)")
+
+
+def _home(grid) -> torch.device:
+    """Where the 0-d values of a step live: the grid's device, or its
+    mesh's home device."""
+    return grid.mesh.home if isinstance(grid, Blocked) else grid.device
+
+
+def _ring(grid) -> int:
+    return RING if isinstance(grid, Blocked) else 0
+
+
 def initialize_balance(grid: Grid, params: SolverParameters,
                        state: WaterState) -> WaterState:
     """Reset all balance counters to the current storage
     (initializeWaterBalance, water.cpp:35-65)."""
-    se = W.compute_se(grid, params, state.h)
-    storage = W.total_water_content(grid, params, state.h, se)
-    zero = torch.zeros((), dtype=params.dtype, device=state.h.device)
+    ring = _ring(grid)
+    se = bmap(lambda g, h: W.compute_se(g, params, h), grid, state.h)
+    surf, soil = unzip(bmap(lambda g, h, se_b: W.water_content_sums(
+        g, params, h, se_b, ring), grid, state.h, se))
+    storage = (block_sum(surf) + block_sum(soil)).to(params.dtype)
+    zero = torch.zeros((), dtype=params.dtype, device=_home(grid))
     bal = BalanceData(storage=storage, sink_source=zero, mbe=zero, mbr=zero)
     return dataclasses.replace(
         state, h_old=state.h, best_h=state.h, se=se,
-        boundary_flow_sum=torch.zeros_like(state.boundary_flow_sum),
-        link_flow_sum=torch.zeros_like(state.link_flow_sum),
+        boundary_flow_sum=bmap(torch.zeros_like, state.boundary_flow_sum),
+        link_flow_sum=bmap(torch.zeros_like, state.link_flow_sum),
         balance_prev=bal, balance_current=bal,
         balance_period=bal, balance_whole=bal)
 
@@ -104,37 +162,51 @@ def _jacobi_solve(system: W.LinearSystem, x0: torch.Tensor, grid: Grid,
     per check (:func:`water.jacobi_sweep_psi` on the fast path,
     :func:`water.jacobi_sweep` on the float64 one). On the fast path the
     tolerance is at least 1e-7, for CG too; the float64 path keeps
-    ``residual_tolerance`` as it is."""
+    ``residual_tolerance`` as it is.
+
+    On a mesh ``system``, ``x0`` and the returned x are blocked, x with
+    fresh rings."""
     max_iter = params.max_iterations_for(approx)
     tol = params.residual_tolerance
     fast = _is_fast(params)
     if fast:
         tol = max(tol, 1e-7)
+    n_nodes = first_block(grid).n_nodes
 
     if params.inner_solver == "cg":
         return _cg_solve(system, x0, grid, params, max_iter, tol,
                          psi_form=fast)
 
     if fast and params.use_pallas:
-        mask_f = grid.mask.to(params.sweep_dtype)
-        return jacobi_solve_loop(system.b, system.c_up, system.c_down,
-                                 system.c_lat, mask_f, x0, max_iter, tol,
-                                 grid.n_nodes, mesh=params.mesh)
+        mask_f = bmap(lambda g: g.mask.to(params.sweep_dtype), grid)
+        b, c_up, c_down, c_lat = (bmap(lambda sy, k=k: sy[k], system)
+                                  for k in range(4))
+        return jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter,
+                                 tol, n_nodes, mesh=params.mesh)
 
     # the comparisons run in the sweep dtype, as in JAX: float32 on the
     # fast path (tol rounded to float32), float64 on the parity path
     ftype = np.float32 if fast else np.float64
-    sweep = W.jacobi_sweep_psi if fast else W.jacobi_sweep
+    sweep = W.jacobi_sweep_psi_sum if fast else W.jacobi_sweep_sum
+    ring = _ring(grid)
     tol_s, ten, best = ftype(tol), ftype(10.0), ftype(1.0)
-    x, it, done, diverged = x0, 0, False, False
+    # a sweep leaves the outer cell of a block stale, so the owned cells
+    # stay exact for ``ring`` sweeps between exchanges
+    x, it, done, diverged, stale = x0, 0, False, False, 0
     while not done and it < max_iter:
-        x, norm = sweep(system, x, grid, grid.n_nodes)
+        x, total = unzip(bmap(lambda sy, xb, g: sweep(sy, xb, g, ring),
+                              system, x, grid))
+        total = block_sum(total)
+        norm = total / scalar(float(n_nodes), total.dtype, total.device)
         norm = ftype(host_read(norm))
         converged = bool(norm < tol_s)
         diverged = (not converged) and bool(norm > best * ten)
         best = np.minimum(best, norm)
         it += 1
         done = converged or diverged
+        stale += 1
+        if ring and (stale == ring or done or it >= max_iter):
+            x, stale = exchange(x), 0
     return x, diverged, it
 
 
@@ -160,36 +232,48 @@ def _cg_solve(system: W.LinearSystem, x_init: torch.Tensor, grid: Grid,
     floats would do CG's scalar arithmetic in float64 and the iterates
     would drift from JAX's. The host reads one number per iteration, the
     done/diverged flags together, through ``host_read``.
-    """
-    dt = x_init.dtype
-    dev = x_init.device
-    mask = grid.mask
-    diag = system.diag.to(dt)
-    z_field = grid.z.to(dt)
-    line = params.cg_precond == "line"
-    n_nodes = scalar(float(grid.n_nodes), dt, dev)
-    tol_t = scalar(tol, dt, dev)
 
-    def precond(s):
+    On a mesh the dot products and norms are per-block partials over owned
+    cells added on ``mesh.home``, and p's rings are exchanged before each
+    matvec; x then stays exact on the rings (every update adds a fresh p),
+    so the solution leaves with fresh rings.
+    """
+    first = first_block(x_init)
+    dt = first.dtype
+    home = _home(grid)
+    ring = _ring(grid)
+    diag = bmap(lambda sy: sy.diag.to(dt), system)
+    z_field = bmap(lambda g: g.z.to(dt), grid)
+    line = params.cg_precond == "line"
+    n_nodes = scalar(float(first_block(grid).n_nodes), dt, home)
+    tol_t = scalar(tol, dt, home)
+
+    def precond(sy, g, s):
         if line:
-            return torch.where(mask, W.tridiag_vertical_solve(
-                system.c_up, system.c_down, s), 0.0)
+            return torch.where(g.mask, W.tridiag_vertical_solve(
+                sy.c_up, sy.c_down, s), 0.0)
         return s
 
-    def weight_norm(z, x):
-        apsi = torch.abs(x) if psi_form else torch.abs(x - z_field)
+    def weight_sum(g, zf, z, x):
+        apsi = torch.abs(x) if psi_form else torch.abs(x - zf)
         w = torch.where(apsi > 1.0, 1.0 / apsi, 1.0)
-        return torch.where(mask, torch.abs(z) * w, 0.0).sum() / n_nodes
+        return owned(torch.where(g.mask, torch.abs(z) * w, 0.0), ring).sum()
+
+    def weight_norm(z, x):
+        return block_sum(bmap(weight_sum, grid, z_field, z, x)) / n_nodes
+
+    def dot_sum(g, d, a, b):
+        return owned(torch.where(g.mask, d * a * b, 0.0), ring).sum(
+            dtype=torch.float64)
 
     def mdot(a, b):
         # <a, b>_D: products in the working dtype, summed in float64 (the
         # balance gate's precision), cast back
-        return torch.where(mask, diag * a * b, 0.0).sum(
-            dtype=torch.float64).to(dt)
+        return block_sum(bmap(dot_sum, grid, diag, a, b)).to(dt)
 
-    s = torch.where(mask, system.b + W.stencil_apply(system, x_init) - x_init,
-                    0.0)
-    p = precond(s)
+    s = bmap(lambda sy, g, x: torch.where(
+        g.mask, sy.b + W.stencil_apply(sy, x) - x, 0.0), system, grid, x_init)
+    p = bmap(precond, system, grid, s)
     rho = mdot(s, p)                                 # r . M^-1 r
     norm0 = weight_norm(s, x_init)
     best = torch.maximum(norm0, tol_t)
@@ -197,18 +281,23 @@ def _cg_solve(system: W.LinearSystem, x_init: torch.Tensor, grid: Grid,
     done = bool(host_read(norm0 < tol_t))
     x, it, diverged = x_init, 0, False
     while not done and it < max_iter:
-        w = torch.where(mask, p - W.stencil_apply(system, p), 0.0)  # D^-1 A p
+        if ring:
+            p = exchange(p)
+        w = bmap(lambda sy, g, p: torch.where(
+            g.mask, p - W.stencil_apply(sy, p), 0.0), system, grid, p)  # D^-1 A p
         pAp = mdot(p, w)
         breakdown = pAp <= 0.0
         # guarded divisions, as in JAX (step.py:205, :210)
         alpha = torch.where(breakdown, 0.0,
                             rho / torch.where(pAp != 0.0, pAp, 1.0))
-        x = torch.where(mask, x + alpha * p, 0.0)
-        s = torch.where(mask, s - alpha * w, 0.0)
-        z = precond(s)
+        x = bmap(lambda g, x, p: torch.where(
+            g.mask, x + alpha.to(x.device) * p, 0.0), grid, x, p)
+        s = bmap(lambda g, s, w: torch.where(
+            g.mask, s - alpha.to(s.device) * w, 0.0), grid, s, w)
+        z = bmap(precond, system, grid, s)
         rho_new = mdot(s, z)
         beta = rho_new / torch.where(rho != 0.0, rho, 1.0)
-        p = z + beta * p
+        p = bmap(lambda z, p: z + beta.to(z.device) * p, z, p)
         rho = rho_new
         norm = weight_norm(s, x)
         converged = norm < tol_t
@@ -221,12 +310,13 @@ def _cg_solve(system: W.LinearSystem, x_init: torch.Tensor, grid: Grid,
 
     # the surface clamp once on the solution (JacobiWaterCPU applies it per
     # sweep, water.cpp:583-585; the lineal path not at all): floor 0 in psi
-    # form, z[0] in head form; then the mask
-    floor0 = torch.zeros_like(z_field[0]) if psi_form else z_field[0]
-    x = x.clone()
-    x[0] = torch.maximum(x[0], floor0)
-    x = torch.where(mask, x, 0.0)
-    return x, diverged, it
+    # form, z[0] in head form; then the mask. It runs on the rings too.
+    def clamp(g, zf, x):
+        floor0 = torch.zeros_like(zf[0]) if psi_form else zf[0]
+        x = x.clone()
+        x[0] = torch.maximum(x[0], floor0)
+        return torch.where(g.mask, x, 0.0)
+    return bmap(clamp, grid, z_field, x), diverged, it
 
 
 def _decimal_floor_dt(dt: float) -> float:
@@ -282,28 +372,67 @@ def restore_best_step(grid: Grid, params: SolverParameters,
     on either path. Restores are rare: ``restore_best_step.count`` counts
     them (reset it to 0 before a run)."""
     restore_best_step.count += 1
-    if _is_fast(params):
-        se_r = W.compute_se_psi(grid, params, h_r)
-        _, flow_r, rate_r, k_r = W.assemble_fast(
-            grid, params, h_r, h_old, se_r, sink_source, pond, approx, dt,
-            boundary_flux_fn=boundary_flux_fn)
-        bal = W.current_mass_balance_psi(grid, params, h_r, se_r, flow_r,
-                                         prev_storage, dt)
-    else:
-        se_r = W.compute_se(grid, params, h_r)
-        _, k_r = W.compute_capacity(grid, params, h_r, h_old, se_r)
-        flow_r, rate_r = W.update_boundary_water(
-            grid, params, h_r, h_old, k_r, sink_source, pond, dt)
-        if boundary_flux_fn is not None:
-            br_r = boundary_flux_fn(h_r - grid.z, dt)
-            flow_r = flow_r + br_r
-            rate_r = rate_r + br_r
-        bal = W.current_mass_balance(grid, params, h_r, se_r, flow_r,
-                                     prev_storage, dt)
+
+    def restore(g, h_r, h_old, sink_source, pond):
+        if _is_fast(params):
+            se_r = W.compute_se_psi(g, params, h_r)
+            _, flow_r, rate_r, k_r = W.assemble_fast(
+                g, params, h_r, h_old, se_r, sink_source, pond, approx, dt,
+                boundary_flux_fn=boundary_flux_fn)
+        else:
+            se_r = W.compute_se(g, params, h_r)
+            _, k_r = W.compute_capacity(g, params, h_r, h_old, se_r)
+            flow_r, rate_r = W.update_boundary_water(
+                g, params, h_r, h_old, k_r, sink_source, pond, dt)
+            if boundary_flux_fn is not None:
+                br_r = boundary_flux_fn(h_r - g.z, dt)
+                flow_r = flow_r + br_r
+                rate_r = rate_r + br_r
+        return se_r, k_r, flow_r, rate_r
+    se_r, k_r, flow_r, rate_r = unzip(bmap(restore, grid, h_r, h_old,
+                                           sink_source, pond))
+    bal = _balance(grid, params, h_r, se_r, flow_r, prev_storage, dt)
     return h_r, se_r, k_r, flow_r, rate_r, bal
 
 
 restore_best_step.count = 0
+
+
+def _balance(grid, params: SolverParameters, h, se, water_flow,
+             prev_storage, dt: float) -> tuple:
+    """(storage, sink, MBE, MBR) of the domain: the blocks' sums over
+    their owned cells combined on the home device."""
+    sums = W.mass_balance_sums_psi if _is_fast(params) else W.mass_balance_sums
+    ring = _ring(grid)
+    surf, soil, flow = unzip(bmap(lambda g, h, se, wf: sums(g, params, h, se, wf, ring),
+                                  grid, h, se, water_flow))
+    return W.balance_from_sums(params, block_sum(surf), block_sum(soil),
+                               block_sum(flow), prev_storage, dt)
+
+
+def _assemble(g: Grid, params: SolverParameters, h, h_old, se, sink_source,
+              pond, approx: int, dt: float, extra_flux_fn, boundary_flux_fn):
+    """One block's (system, water_flow, boundary_rate, k) of a Picard
+    iteration: the fused float32 psi-form pass on the fast path, else
+    capacity + boundary flows + assemble_system, each with the hooks."""
+    if _is_fast(params):
+        # one fused float32 psi-form pass (capacity + boundary + stencil)
+        return W.assemble_fast(g, params, h, h_old, se, sink_source, pond,
+                               approx, dt, extra_flux_fn=extra_flux_fn,
+                               boundary_flux_fn=boundary_flux_fn)
+    capacity, k = W.compute_capacity(g, params, h, h_old, se)
+    flow, rate = W.update_boundary_water(g, params, h, h_old, k, sink_source,
+                                         pond, dt)
+    if boundary_flux_fn is not None or extra_flux_fn is not None:
+        psi64 = h - g.z
+    if boundary_flux_fn is not None:
+        br = boundary_flux_fn(psi64, dt)
+        flow = flow + br
+        rate = rate + br
+    flow_rhs = flow if extra_flux_fn is None else flow + extra_flux_fn(psi64, k)
+    system = W.assemble_system(g, params, h, h_old, k, flow_rhs, capacity,
+                               pond, approx, dt)
+    return system, flow, rate, k
 
 
 def _approximation_loop(grid: Grid, params: SolverParameters,
@@ -327,17 +456,18 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
     water.cpp:708-747) enters the RHS and the balance, and the restore
     branch too. ``dt`` reaches it as a Python float."""
     fast = _is_fast(params)
-    dev = h.device
-    zero = torch.zeros((), dtype=params.dtype, device=dev)
+    zero = torch.zeros((), dtype=params.dtype, device=_home(grid))
     if params.track_link_flow:
         # zeros of the system's dtype (float32 on the fast path)
-        a_up0 = torch.zeros_like(h)
-        a_lat0 = torch.zeros((8,) + tuple(h.shape), dtype=h.dtype, device=dev)
+        a_up0 = bmap(torch.zeros_like, h)
+        a_lat0 = bmap(lambda t: torch.zeros((8,) + tuple(t.shape), dtype=t.dtype,
+                                            device=t.device), h)
     else:
         a_up0 = a_lat0 = None
     c = _ApproxCarry(
-        approx=0, result=RUNNING, h=h, se=se, k=torch.zeros_like(h),
-        water_flow=torch.zeros_like(h), boundary_rate=torch.zeros_like(h),
+        approx=0, result=RUNNING, h=h, se=se, k=bmap(torch.zeros_like, h),
+        water_flow=bmap(torch.zeros_like, h),
+        boundary_rate=bmap(torch.zeros_like, h),
         best_h=h, best_mbr=math.inf, dt_curr=dt_curr, courant=0.0,
         balance=(zero, zero, zero, zero), n_sweeps=0, a_up=a_up0,
         a_lat=a_lat0)
@@ -345,9 +475,8 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
     def evaluate():
         """evaluateWaterBalance (water.cpp:165-227) + accept/restore."""
         approx = c.approx
-        balance = W.current_mass_balance_psi if fast else W.current_mass_balance
-        storage, sink, mbe, mbr = balance(grid, params, c.h, c.se,
-                                          c.water_flow, prev_storage, dt)
+        storage, sink, mbe, mbr = _balance(grid, params, c.h, c.se,
+                                           c.water_flow, prev_storage, dt)
         err = abs(host_read(mbr))
         is_nan = not math.isfinite(err)
         can_halve = dt > params.delta_t_min
@@ -390,29 +519,12 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
     while c.result == RUNNING and c.approx < params.max_approximations:
         approx = c.approx
         with torch.profiler.record_function(ASSEMBLE_RANGE):
-            if fast:
-                # one fused float32 psi-form pass (capacity + boundary +
-                # stencil)
-                system, flow, rate, k = W.assemble_fast(
-                    grid, params, c.h, h_old, c.se, sink_source, pond, approx,
-                    dt, extra_flux_fn=extra_flux_fn,
-                    boundary_flux_fn=boundary_flux_fn)
-            else:
-                capacity, k = W.compute_capacity(grid, params, c.h, h_old,
-                                                 c.se)
-                flow, rate = W.update_boundary_water(
-                    grid, params, c.h, h_old, k, sink_source, pond, dt)
-                if boundary_flux_fn is not None or extra_flux_fn is not None:
-                    psi64 = c.h - grid.z
-                if boundary_flux_fn is not None:
-                    br = boundary_flux_fn(psi64, dt)
-                    flow = flow + br
-                    rate = rate + br
-                flow_rhs = flow if extra_flux_fn is None else \
-                    flow + extra_flux_fn(psi64, k)
-                system = W.assemble_system(grid, params, c.h, h_old, k,
-                                           flow_rhs, capacity, pond, approx, dt)
-        courant = host_read(system.courant)
+            system, flow, rate, k = unzip(bmap(
+                lambda g, h, ho, se, sk, pd: _assemble(
+                    g, params, h, ho, se, sk, pd, approx, dt, extra_flux_fn,
+                    boundary_flux_fn),
+                grid, c.h, h_old, c.se, sink_source, pond))
+        courant = host_read(block_max(bmap(lambda sy: sy.courant, system)))
 
         if courant >= 1.01 and dt > params.delta_t_min:
             # checkCourant (cpusolver.cpp:248-281)
@@ -433,42 +545,44 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
             continue
 
         c.h = x
-        c.se = (W.compute_se_psi(grid, params, x) if fast
-                else W.compute_se(grid, params, x))
+        se_fn = W.compute_se_psi if fast else W.compute_se
+        c.se = bmap(lambda g, xb: se_fn(g, params, xb), grid, x)
         c.k, c.water_flow, c.boundary_rate, c.courant = k, flow, rate, courant
         if params.track_link_flow:
             # physical conductances from the preconditioned stencil
             # (updateLinkFlux analogue, water.cpp:269-277), taken only here
-            c.a_up = system.c_up * system.diag
-            c.a_lat = system.c_lat * system.diag[None]
+            c.a_up = bmap(lambda sy: sy.c_up * sy.diag, system)
+            c.a_lat = bmap(lambda sy: sy.c_lat * sy.diag[None], system)
         evaluate()
         c.approx = approx + 1
     return c
 
 
-def _link_flows(grid: Grid, params: SolverParameters, out: _ApproxCarry,
+def _link_flows(grid: Grid, params: SolverParameters, h_n: torch.Tensor,
+                a_up: torch.Tensor, a_lat: torch.Tensor,
                 dt: float) -> torch.Tensor:
     """Per-link flows [m3] of an accepted step, (10, L, R, C): up, down and
     the 8 lateral links, positive = inflow to the node (linkData
     waterFlowSum, water.cpp:269-277, with physical conductances). The psi
     form adds the static per-link dz (vert_dist, dz_lat) to its head
     differences and is summed in float64, as JAX's promotion by the float64
-    dt does; the float64 form differences total heads."""
-    h_n = out.h
-    a_down = torch.roll(out.a_up, -1, dims=0)
+    dt does; the float64 form differences total heads. On a block the
+    flows are exact on all but its outer cell (the heads' rings are
+    fresh)."""
+    a_down = torch.roll(a_up, -1, dims=0)
     a_down[-1] = 0.0
     if _is_fast(params):
         g32 = grid.astype(params.sweep_dtype)
         vd32, dzl32 = g32.vert_dist, g32.dz_lat
-        f_up = out.a_up * (torch.roll(h_n, 1, dims=0) - h_n + vd32)
+        f_up = a_up * (torch.roll(h_n, 1, dims=0) - h_n + vd32)
         f_down = a_down * (torch.roll(h_n, -1, dims=0) - h_n
                            - torch.roll(vd32, -1, dims=0))
-        f_lat = [out.a_lat[i] * (shift2d(h_n, di, dj) - h_n + dzl32[i])
+        f_lat = [a_lat[i] * (shift2d(h_n, di, dj) - h_n + dzl32[i])
                  for i, (di, dj) in enumerate(LATERAL_OFFSETS)]
     else:
-        f_up = out.a_up * (torch.roll(h_n, 1, dims=0) - h_n)
+        f_up = a_up * (torch.roll(h_n, 1, dims=0) - h_n)
         f_down = a_down * (torch.roll(h_n, -1, dims=0) - h_n)
-        f_lat = [out.a_lat[i] * (shift2d(h_n, di, dj) - h_n)
+        f_lat = [a_lat[i] * (shift2d(h_n, di, dj) - h_n)
                  for i, (di, dj) in enumerate(LATERAL_OFFSETS)]
     return torch.stack([f.to(params.dtype) * dt
                         for f in [f_up, f_down] + f_lat])
@@ -488,11 +602,13 @@ def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
     boundary_rate, dt_curr)`` with the host copy of the new step size;
     ``boundary_rate`` is the last assembly's, which the heat boundary of
     the coupled step reads. The heat-coupling hooks go to every Picard
-    iteration (see :func:`_approximation_loop`)."""
+    iteration (see :func:`_approximation_loop`). On a mesh grid and state
+    are blocked (:func:`_check_blocks`)."""
     check_supported(params)
+    _check_blocks(grid, params, state,
+                  extra_flux_fn is not None or boundary_flux_fn is not None)
     dtype = params.dtype
     fast = _is_fast(params)
-    mask, z = grid.mask, grid.z
     st = state
     n_att = n_app = n_sw = 0
     while True:
@@ -501,14 +617,16 @@ def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
         if fast:
             # psi-carry: ONE f64 subtraction per attempt, then the whole
             # Picard loop runs in f32 signed psi
-            psi_seed = torch.where(mask, st.h - z, 0.0).to(params.sweep_dtype)
-            se_seed = W.compute_se_psi(grid, params, psi_seed)
+            psi_seed = bmap(lambda g, h: torch.where(g.mask, h - g.z, 0.0).to(
+                params.sweep_dtype), grid, st.h)
+            se_seed = bmap(lambda g, p: W.compute_se_psi(g, params, p), grid,
+                           psi_seed)
             out = _approximation_loop(
                 grid, params, psi_seed, psi_seed, se_seed, st.sink_source,
                 st.pond, st.balance_prev.storage, dt, dt_curr,
                 extra_flux_fn, boundary_flux_fn)
         else:
-            se = W.compute_se(grid, params, st.h)
+            se = bmap(lambda g, h: W.compute_se(g, params, h), grid, st.h)
             out = _approximation_loop(
                 grid, params, st.h, h_old, se, st.sink_source, st.pond,
                 st.balance_prev.storage, dt, dt_curr,
@@ -519,32 +637,33 @@ def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
         fatal = out.result in (NAN, RUNNING)
         storage, sink, mbe, mbr = out.balance
 
+        def to_head(g, x):
+            return torch.where(g.mask, g.z + x.to(dtype), 0.0)
+
         # best_h is taken whether or not the attempt was accepted
-        best_acc = (torch.where(mask, z + out.best_h.to(dtype), 0.0) if fast
-                    else out.best_h)
+        best_acc = bmap(to_head, grid, out.best_h) if fast else out.best_h
         if accepted:
             # acceptStep (water.cpp:230-251); on the fast path the f64
             # state is reconstructed once here
             bp, per = st.balance_prev, st.balance_period
-            if fast:
-                h_acc = torch.where(mask, z + out.h.to(dtype), 0.0)
-            else:
-                h_acc = out.h
+            h_acc = bmap(to_head, grid, out.h) if fast else out.h
             changes = dict(
                 h=h_acc,
                 h_old=h_old,
-                se=out.se.to(dtype),
-                k=out.k.to(dtype),
-                boundary_flow_sum=(st.boundary_flow_sum
-                                   + out.boundary_rate.to(dtype) * dt),
+                se=bmap(lambda t: t.to(dtype), out.se),
+                k=bmap(lambda t: t.to(dtype), out.k),
+                boundary_flow_sum=bmap(lambda b, r: b + r.to(dtype) * dt,
+                                       st.boundary_flow_sum, out.boundary_rate),
                 balance_prev=BalanceData(storage, sink, bp.mbe, bp.mbr),
                 balance_period=BalanceData(per.storage,
                                            per.sink_source + sink,
                                            per.mbe, per.mbr))
             if params.track_link_flow:
                 # link_flow_sum changes only on accepted steps
-                changes["link_flow_sum"] = (st.link_flow_sum
-                                            + _link_flows(grid, params, out, dt))
+                changes["link_flow_sum"] = bmap(
+                    lambda g, lf, h, a_up, a_lat: lf + _link_flows(
+                        g, params, h, a_up, a_lat, dt),
+                    grid, st.link_flow_sum, out.h, out.a_up, out.a_lat)
         else:
             changes = {}
         st = dataclasses.replace(
@@ -557,7 +676,7 @@ def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
         n_att, n_app, n_sw = n_att + 1, n_app + out.approx, n_sw + out.n_sweeps
         if accepted or fatal:
             return (st, dt, (n_att, n_app, n_sw),
-                    out.boundary_rate.to(dtype), dt_curr)
+                    bmap(lambda t: t.to(dtype), out.boundary_rate), dt_curr)
 
 
 def compute_step(grid: Grid, params: SolverParameters, state: WaterState,

@@ -379,7 +379,9 @@ def test_port_imports_no_jax():
         from criteria3d_tpu_torch.bench_jacobi import bundle_inputs
         mesh = sharding.make_mesh(4, devices=[torch.device("cpu")] * 4)
         inp = bundle_inputs((3, 20, 20), 0, "cpu")
-        xm, dm, nm = jacobi_bundle.jacobi_solve_loop(*inp, 40, 1e-7, 1200, mesh=mesh)
+        xm, dm, nm = jacobi_bundle.jacobi_solve_loop(
+            *(sharding.shard_pytree(a, mesh) for a in inp), 40, 1e-7, 1200, mesh=mesh)
+        xm = sharding.gather_pytree(xm)
         xs, ds, ns = jacobi_bundle.jacobi_solve_loop(*inp, 40, 1e-7, 1200)
         assert mesh.shape == {"row": 2, "col": 2} and torch.equal(xm, xs) and nm == ns
         assert scaling_bench.sloped_dem(8, 8).shape == (8, 8)

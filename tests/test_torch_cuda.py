@@ -1,6 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
-tiled bundled-Jacobi design against the per-sweep one, the mesh loop on
-blocks of the card against one device, small hours of
+tiled bundled-Jacobi design against the per-sweep one, the mesh loop and
+the partitioned water hour on blocks of the card against one device,
+small hours of
 the float64, CG and coupled water + heat paths, the model cycle's physics
 maps and hours, and a project's hours from files, on the card against the
 CPU path. Every test here carries the ``cuda`` marker and skips where
@@ -149,16 +150,55 @@ def test_mesh_loop_on_card_matches_one_device(blocks):
     card (the kernel's halo mode on every grown block) against the
     one-device loop: x bit-equal, the same n_it and flag, one launch per
     block and bundle."""
-    from criteria3d_tpu_torch.parallel.sharding import make_mesh
+    from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh,
+                                                        shard_pytree)
     arrays = _cuda_arrays((7, 64, 96), seed=blocks)
     n_nodes = int(arrays[4].sum())
     x1, d1, n1 = TB.jacobi_solve_loop(*arrays, 200, 1e-7, n_nodes)
     mesh = make_mesh(blocks, devices=[torch.device("cuda")] * blocks)
+    blocked = [shard_pytree(a, mesh) for a in arrays]
     before = TB.jacobi_bundle.launches
-    xm, dm, nm = TB.jacobi_solve_loop(*arrays, 200, 1e-7, n_nodes, mesh=mesh)
+    xm, dm, nm = TB.jacobi_solve_loop(*blocked, 200, 1e-7, n_nodes, mesh=mesh)
+    xm = gather_pytree(xm)
     torch.cuda.synchronize()
     assert torch.equal(xm, x1) and (nm, dm) == (n1, d1)
     assert TB.jacobi_bundle.launches - before == blocks * nm // TB.SWEEPS_PER_BUNDLE
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["bundle", "cg_line", "f64"])
+def test_partitioned_hour_on_card_matches_one_device(form):
+    """The water hour of a 64-box catchment on 2 x 2 blocks of the card
+    (grid and state cut by shard_pytree, the whole step on the blocks)
+    against the same hour on the card whole: the same stats; float32 heads
+    bit-equal, float64 within 1e-9 m; four bundle launches for each of the
+    whole hour's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only on the card")
+    from criteria3d_tpu_torch import SolverParameters, compute_period_stats
+    from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh,
+                                                        shard_pytree)
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    make = {"bundle": lambda **kw: SolverParameters.fast_f32(use_pallas=True, **kw),
+            "cg_line": lambda **kw: SolverParameters.fast_f32(**kw),
+            "f64": lambda **kw: SolverParameters(**kw)}[form]
+    grid, state = build_problem(synthetic_catchment(0, n=64, radius=30.0), 4.0, make(),
+                                "cuda")
+    before = TB.jacobi_bundle.launches
+    whole, stats = compute_period_stats(grid, make(), state, 3600.0)
+    launches = TB.jacobi_bundle.launches - before
+    mesh = make_mesh(4, devices=[torch.device("cuda")] * 4)
+    before = TB.jacobi_bundle.launches
+    out, stats_m = compute_period_stats(shard_pytree(grid, mesh), make(mesh=mesh),
+                                        shard_pytree(state, mesh), 3600.0)
+    out = gather_pytree(out)
+    torch.cuda.synchronize()
+    assert tuple(stats_m) == tuple(stats)
+    assert TB.jacobi_bundle.launches - before == 4 * launches
+    if form == "f64":
+        assert float((out.h - whole.h).abs().max()) <= 1e-9
+    else:
+        assert torch.equal(out.h, whole.h)
 
 
 @pytest.mark.cuda

@@ -5,12 +5,14 @@ package's pool.
 The inputs are those of tests/test_native.py (eight seeded 40 x 30 float32
 grids, a constant grid mutated after ``submit``) and the output maps of
 ``problems.write_project(n=8)`` hours. The library builds with g++ into
-``criteria3d_tpu_torch/build/``; the files it writes are byte-identical to
-``io.esri.write_flt``'s and to the JAX pool's; a build that fails raises
-(the JAX package falls back to the synchronous writer instead).
+``criteria3d_tpu_torch/build/``, keyed by the host (``utils/buildcache.py``);
+the files it writes are byte-identical to ``io.esri.write_flt``'s and to the
+JAX pool's; where the build fails the pool writes synchronously, as the
+JAX package's does, and logs it once.
 """
 
 import datetime
+import logging
 import os
 
 import numpy as np
@@ -24,6 +26,7 @@ from criteria3d_tpu_torch import problems
 from criteria3d_tpu_torch.device import host_read
 from criteria3d_tpu_torch.io.esri import RasterHeader, read_flt, write_flt
 from criteria3d_tpu_torch.project import Criteria3DProject
+from criteria3d_tpu_torch.utils import buildcache
 
 HDR = dict(nrows=40, ncols=30, xllcorner=1000.0, yllcorner=2000.0, cellsize=25.0,
            nodata=-9999.0)
@@ -46,7 +49,9 @@ def test_async_files_equal_sync_and_jax(tmp_path):
     rng = np.random.default_rng(0)
     grids = [rng.normal(size=(40, 30)).astype(np.float32) for _ in range(8)]
     grids[3][5, 7] = np.nan
+    assert TN.native_available() and JN.native_available()
     with TN.AsyncRasterWriter(n_threads=3) as w:
+        assert w.is_native
         for i, g in enumerate(grids):
             w.submit(str(tmp_path / f"async_{i}.flt"), g, RasterHeader(**HDR))
         w.flush()
@@ -94,20 +99,110 @@ def test_unwritable_path_counts_an_error(tmp_path):
         assert (w.written, w.errors) == (1, 1)
 
 
-def test_failed_build_raises(tmp_path):
-    """No hidden fallback: a source that does not compile, or a compiler
-    that is not there, raises with the reason; so does a pool built from
-    it."""
+class Lines(logging.Handler):
+    """The messages of the port's native logger, collected."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@pytest.fixture
+def native_log():
+    """The native logger's lines during a test, with the library cache
+    emptied before and after (a failed build is remembered per source)."""
+    handler = Lines()
+    log = logging.getLogger("criteria3d_tpu_torch.native")
+    log.addHandler(handler)
+    TN._library.cache_clear()
+    yield handler.lines
+    TN._library.cache_clear()
+    log.removeHandler(handler)
+
+
+def test_failed_build_raises(tmp_path, native_log):
+    """build_library hides nothing: a source that does not compile, or a
+    compiler that is not there, raises with the reason. A pool built from
+    it writes synchronously (is_native False) and says so once, naming
+    the compiler's error."""
     bad = tmp_path / "broken.cpp"
     bad.write_text('extern "C" void* c3d_writer_create(int n) { return n +; }\n')
     with pytest.raises(RuntimeError, match="g\\+\\+ failed") as err:
         TN.build_library(str(bad))
     assert "broken.cpp" in str(err.value)
-    with pytest.raises(RuntimeError, match="cannot build the raster writer"):
-        TN.AsyncRasterWriter(source=str(bad))
+    for _ in range(2):
+        with TN.AsyncRasterWriter(source=str(bad)) as w:
+            assert not w.is_native
+            w.submit(str(tmp_path / "sync.flt"), np.ones((40, 30)), RasterHeader(**HDR))
+    assert len(native_log) == 1 and "g++ failed" in native_log[0]
+    assert (read_flt(str(tmp_path / "sync.flt"))[0] == 1.0).all()
     with pytest.raises(RuntimeError, match="no-such-compiler"):
         TN.build_library(str(bad), cxx="no-such-compiler")
     assert not [f for f in os.listdir(TN.BUILD_DIR) if f.startswith("tmp")]
+
+
+def test_writer_falls_back_without_a_compiler(tmp_path, monkeypatch, native_log):
+    """With no compiler on the PATH the project's pool writes synchronously:
+    is_native False, one log line naming the missing g++, and the hours'
+    rasters byte-identical to those the native pool writes for the same
+    project; at the writer, the fallback's files are byte-identical to the
+    JAX pool's and to write_flt's."""
+    def hours(name):
+        ini = problems.write_project(str(tmp_path / name), n=8, seed=1, n_stations=6)
+        prj = Criteria3DProject.load(ini, output_dir=str(tmp_path / name / "out"))
+        prj.initialize(device="cpu")
+        prj.run_period(datetime.datetime(*problems.PROJECT_DATE, 10), 2)
+        prj._raster_writer.flush()
+        root = tmp_path / name / "out" / "rasters"
+        return prj._raster_writer, {os.path.relpath(os.path.join(d, f), root):
+                                    read_bytes(os.path.join(d, f))
+                                    for d, _, fs in os.walk(root) for f in fs}
+    native, files_native = hours("native")
+    assert native.is_native and native.written == len(files_native) // 2 > 0
+    monkeypatch.setenv("PATH", str(tmp_path / "no-compilers-here"))
+    TN._library.cache_clear()
+    fallback, files_sync = hours("fallback")
+    assert not fallback.is_native and not TN.native_available()
+    assert files_sync == files_native
+    assert len(native_log) == 1 and "g++" in native_log[0] and "write_flt" in native_log[0]
+    rng = np.random.default_rng(3)
+    grid = rng.normal(size=(40, 30)).astype(np.float32)
+    with TN.AsyncRasterWriter() as w, JN.AsyncRasterWriter() as jw:
+        assert not w.is_native
+        w.submit(str(tmp_path / "port.flt"), grid, RasterHeader(**HDR))
+        jw.submit(str(tmp_path / "jax"), grid, JHeader(**HDR))
+        jw.flush()
+    write_flt(str(tmp_path / "sync"), grid, RasterHeader(**HDR))
+    for ext in (".flt", ".hdr"):
+        a = read_bytes(tmp_path / f"port{ext}")
+        assert a == read_bytes(tmp_path / f"jax{ext}") == read_bytes(tmp_path / f"sync{ext}")
+    assert len(native_log) == 1
+
+
+def test_build_key_rebuilds_on_a_changed_host(tmp_path, monkeypatch):
+    """The library's name carries its host key: an unchanged key loads the
+    built file again without compiling; another CPU-flag fingerprint or
+    another compiler version builds a new one."""
+    monkeypatch.setattr(TN, "BUILD_DIR", str(tmp_path))
+    first = TN.build_library()
+    stamp = os.stat(first).st_mtime_ns
+    assert TN.build_library() == first and os.stat(first).st_mtime_ns == stamp
+    assert os.path.dirname(first) == str(tmp_path)
+    fingerprint = buildcache.machine_fingerprint()
+    monkeypatch.setattr(buildcache, "machine_fingerprint", lambda: fingerprint + "x")
+    other_host = TN.build_library()
+    assert other_host != first and os.path.exists(other_host)
+    monkeypatch.setattr(buildcache, "machine_fingerprint", lambda: fingerprint)
+    version = buildcache.compiler_version("g++")
+    monkeypatch.setattr(buildcache, "compiler_version", lambda cxx: version + "x")
+    other_compiler = TN.build_library()
+    assert other_compiler not in (first, other_host) and os.path.exists(other_compiler)
+    assert sorted(os.listdir(tmp_path)) == sorted(
+        os.path.basename(p) for p in (first, other_host, other_compiler))
+    assert os.stat(first).st_mtime_ns == stamp
 
 
 def test_project_hours_written_through_the_pool(tmp_path):

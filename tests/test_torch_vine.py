@@ -138,6 +138,20 @@ def test_training_roots_and_stress_match_jax():
           name="uptake fractions")
 
 
+def test_layer_uptake_fractions_by_keyword():
+    """``layer_uptake_fractions`` called with its arguments by name, as
+    JAX names them (root_density, saw_stress): the positional call's
+    values, and JAX's keyword call's."""
+    rng = np.random.default_rng(5)
+    roots = JG.vine_root_density(8, 6, 1)[:, None, None]
+    saw = np.asarray(JG.saw_stress(jnp.asarray(rng.uniform(0.0, 1.0, (8, 3, 5)))))
+    t = TG.layer_uptake_fractions(root_density=_t(roots), saw_stress=_t(saw))
+    assert torch.equal(t, TG.layer_uptake_fractions(_t(roots), _t(saw)))
+    close(t, JG.layer_uptake_fractions(root_density=jnp.asarray(roots),
+                                       saw_stress=jnp.asarray(saw)),
+          name="uptake fractions by keyword")
+
+
 # ----------------------------------------------------------------------
 # vine photosynthesis
 # ----------------------------------------------------------------------

@@ -84,6 +84,24 @@ def test_shift2d_matches_jax(dtype):
     assert TS.MIRROR == JS.MIRROR
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bool"])
+def test_shift_all_lateral_matches_jax(dtype):
+    """The stack of the 8 lateral shifts on (L, R, C) and (R, C) inputs,
+    with the default and a custom fill: shape (8, ...), bit-equal."""
+    from criteria3d_tpu.solver import shifts as JS
+    from criteria3d_tpu_torch.solver import shifts as TS
+    rng = np.random.default_rng(12)
+    fill = True if dtype == "bool" else -2.5
+    for shape in ((3, 5, 7), (6, 4)):
+        x = rng.uniform(-1, 1, shape)
+        x = (x > 0) if dtype == "bool" else x.astype(np.float32)
+        for kw in ({}, dict(fill=fill)):
+            j = np.asarray(JS.shift_all_lateral(_j(x), **kw))
+            t = TS.shift_all_lateral(_t(x), **kw).numpy()
+            assert t.shape == (8,) + shape and t.dtype == j.dtype
+            np.testing.assert_array_equal(t, j, err_msg=str((shape, kw)))
+
+
 def test_power_matches_xla():
     """``core.soil.power`` (float32 powers evaluated in float64, rounded
     once) against XLA:CPU's float32 pow: within one ulp everywhere and
