@@ -195,7 +195,16 @@ Phases (any failed check exits non-zero before the last line):
    or 1e-9 m (f64) of phases 3-3c's when the stats are equal, else within
    the float32 envelopes of tests/test_fast_f32.py; ``scaling_bench``'s
    line for the 768 box (the float64 step and the bundle step, each on one
-   device and on 4 blocks); the seconds of each part of 3v;
+   device and on 4 blocks); (iv) phase 3e's coupled storm hour
+   partitioned over 2 x 2 blocks (grid, water, heat and boundary cut by
+   ``shard_pytree``, the whole coupled step on the blocks, the result
+   joined by ``gather_pytree``) under ``fast_f32(heat_vapor=True,
+   heat_frozen_props=True, mesh=)``: water stats, chunks, sub-steps,
+   heat sweeps, host reads, wall, launches (0), water and heat MBR and the
+   gaps of h and T to 3e's hour; |water MBR| < 2e-3, the heat MBR finite,
+   host reads equal to 3e's, h and T within 1e-5 of 3e's when every count
+   is equal, else within the float32 envelopes (h: max 0.1 m, median
+   1e-2 m; T 0.2 K); the seconds of each part of 3v;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
@@ -217,9 +226,9 @@ the JAX package. ``side_phases(seed, card)`` runs 3m-3p alone,
 ``shell_phases(seed, card)`` 3q-3s, ``library_phases(seed, card)``
 3t-3u and ``mesh_phases(seed, card)`` 3v; with ``dev="cpu"`` and a small
 ``n`` they rehearse them on the CPU. ``mesh_cards(seed, card)`` runs 3v's
-loop, the partitioned bundle hour (each card's peak memory against the
-one-card hour's) and the scaling bench with one block per card on a host
-with several.
+loop, the partitioned bundle and coupled hours (each card's peak memory
+against the one-card hour's; ``mesh_cards_coupled`` the coupled one alone)
+and the scaling bench with one block per card on a host with several.
 """
 
 from __future__ import annotations
@@ -516,7 +525,8 @@ def coupled_hour(label, grid, params, water0, heat0, boundary):
     check_coupled(label, list(tensors_of(w)) + list(tensors_of(h)), counts, launches,
                   mbr, heat_mbr, t_min, t_max)
     return dict(counts=counts, syncs=syncs, wall_s=wall_s, peak_gib=peak, mbr=mbr,
-                heat_mbr=heat_mbr, t_min=t_min, t_max=t_max, cold_share=cold)
+                heat_mbr=heat_mbr, t_min=t_min, t_max=t_max, cold_share=cold,
+                h=w.h.to("cpu"), t=h.t.to("cpu"))
 
 
 def heat_outcome(label, grid, params, water, heat):
@@ -2566,6 +2576,9 @@ MESH_FORMS = ("bundle", "cg_line", "f64")
 
 def mesh_form_params(form: str, mesh=None):
     from criteria3d_tpu_torch import SolverParameters
+    if form == "coupled":       # phase 3e's
+        return SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=True,
+                                         mesh=mesh)
     if form == "bundle":
         return SolverParameters.fast_f32(use_pallas=True, mesh=mesh)
     if form == "cg_line":
@@ -2648,6 +2661,92 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
                 launches=launches, dh_max=dh_max, parts=parts)
 
 
+def one_device_coupled_hour(seed: int, dev, n: int) -> dict:
+    """Phase 3e's coupled storm hour on one device: the reference of 3v
+    (iv) (phase 3e gives it in ``main``): its inputs, h and T on the host,
+    its counts and host reads."""
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.problems import build_coupled_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import coupled as CP
+    params = mesh_form_params("coupled")
+    inputs = build_coupled_problem(
+        synthetic_catchment(seed, n=n, radius=n * 366.0 / 768), 4.0, params, dev)
+    CP.reset_counts()
+    host_read.count = 0
+    w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], 3600.0)
+    return dict(inputs=[x.to("cpu") for x in inputs], h=w.h.to("cpu"),
+                t=h.t.to("cpu"), counts=CP.counts(), reads=host_read.count)
+
+
+def mesh_coupled_hour(card: str, dev, ref: dict, mesh) -> dict:
+    """3v (iv): phase 3e's coupled storm hour partitioned over ``mesh``
+    (grid, water, heat and boundary cut from the host by ``shard_pytree``,
+    the whole coupled step on the blocks, the result joined by
+    ``gather_pytree``) against the one-device hour ``ref``: water stats,
+    chunks, sub-steps, heat sweeps, host reads, wall, bundle launches,
+    water and heat MBR, the gaps of h and T. |water MBR| < 2e-3, the heat
+    MBR finite, no launch, host reads equal to the one-device hour's; h
+    and T within 1e-5 of it when every count is equal, else within the
+    float32 envelopes (h: max 0.1 m, median 1e-2 m, tests/test_fast_f32.py;
+    T 0.2 K, JAX's sharded-vs-single bar, tests/test_sharding.py)."""
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    grid = ref["inputs"][0]
+    t0 = time.time()
+    blocked = [shard_pytree(x, mesh) for x in ref["inputs"]]
+    _sync_mesh(mesh)
+    parts = dict(shard=time.time() - t0)
+    CP.reset_counts()
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    t0 = time.time()
+    w, h = CP.compute_period_coupled(blocked[0], mesh_form_params("coupled", mesh),
+                                     *blocked[1:], 3600.0)
+    _sync_mesh(mesh)
+    wall = time.time() - t0
+    counts, reads, launches = CP.counts(), host_read.count, JB.jacobi_bundle.launches
+    del blocked
+    t0 = time.time()
+    w, h = gather_pytree(w, "cpu"), gather_pytree(h, "cpu")
+    parts["gather"] = time.time() - t0
+    mbr = float(w.balance_whole.mbr)
+    heat_mbr = heat_outcome("3v coupled", grid, mesh_form_params("coupled"), w, h)[0]
+    heat_mask = grid.mask.clone()
+    heat_mask[0] = False
+    dh = (w.h - ref["h"]).abs()[grid.mask]
+    dt = (h.t - ref["t"]).abs()[heat_mask]
+    dh_max, dh_median = float(dh.max()), float(dh.median())
+    dt_max, dt_median = float(dt.max()), float(dt.median())
+    stats = tuple(counts[k] for k in ("steps", "attempts", "approximations",
+                                      "inner_iterations"))
+    print(f"# 3v coupled storm hour partitioned, {mesh.shape} blocks on "
+          f"{sorted({str(d) for d in mesh.devices.flat})} ({card}): water stats {stats}; "
+          f"heat chunks {counts['chunks']}, sub-steps accepted "
+          f"{counts['substeps_accepted']} rejected {counts['substeps_rejected']}, heat "
+          f"sweeps {counts['heat_sweeps']} (one device {ref['counts']}); host reads "
+          f"{reads} (one device {ref['reads']}); wall {wall} s; bundle launches "
+          f"{launches}; water whole-period MBR {mbr}, heat MBR {heat_mbr}; against the "
+          f"one-device hour: h max {dh_max} m, median {dh_median} m; T max {dt_max} K, "
+          f"median {dt_median} K", flush=True)
+    check(abs(mbr) < 2e-3, f"3v coupled: |water whole-period MBR| {mbr} >= 2e-3")
+    check(math.isfinite(heat_mbr), f"3v coupled: heat MBR {heat_mbr} is not finite")
+    check(launches == 0, f"3v coupled: {launches} bundle launches")
+    check(reads == ref["reads"], f"3v coupled: {reads} host reads, the one-device "
+                                 f"hour {ref['reads']}")
+    if counts == ref["counts"]:
+        check(dh_max <= 1e-5 and dt_max <= 1e-5,
+              f"3v coupled: equal counts, h {dh_max} m and T {dt_max} K apart")
+    else:
+        check(dh_max < 0.1 and dh_median < 1e-2 and dt_max <= 0.2,
+              f"3v coupled: h {dh_max} m (median {dh_median}), T {dt_max} K outside "
+              "the float32 envelopes")
+    return dict(stats=stats, counts=counts, mbr=mbr, heat_mbr=heat_mbr, wall_s=wall,
+                host_reads=reads, launches=launches, dh_max=dh_max, dt_max=dt_max,
+                parts=parts)
+
+
 def _sync_mesh(mesh) -> None:
     for dev in {str(d) for d in mesh.devices.flat}:
         _sync(dev)
@@ -2696,19 +2795,65 @@ def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
                                "hour's, above 0.35")
     del ref
     torch.cuda.empty_cache()
+    coupled = mesh_cards_coupled(seed, card, n, mesh)
     scaling = scaling_bench.scaling(n, n, mesh.devices.size, "cuda")
     print(json.dumps(scaling), flush=True)
     return dict(loops=loops, hour=hour, one_card_peak=one_peak, peaks=peaks,
-                shares=shares, scaling=scaling)
+                shares=shares, coupled=coupled, scaling=scaling)
+
+
+def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
+    """3v (iv) with one block per card (``make_mesh()`` when ``mesh`` is
+    None): phase 3e's coupled storm hour on one card, then partitioned over
+    the cards (``mesh_coupled_hour`` against it), each card's peak memory
+    of the partitioned hour at most 0.35 of the one-card hour's."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh
+    from criteria3d_tpu_torch.problems import build_coupled_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import coupled as CP
+    check(torch.cuda.device_count() > 1, "mesh_cards_coupled needs more than one card")
+    mesh = mesh or make_mesh()
+    params = mesh_form_params("coupled")
+    inputs = build_coupled_problem(synthetic_catchment(seed, n=n), 4.0, params, "cpu")
+    on0 = [x.to("cuda:0") for x in inputs]
+    torch.cuda.synchronize(0)
+    torch.cuda.reset_peak_memory_stats(0)
+    CP.reset_counts()
+    host_read.count = 0
+    t0 = time.time()
+    w, h = CP.compute_period_coupled(on0[0], params, *on0[1:], 3600.0)
+    torch.cuda.synchronize(0)
+    one_wall = time.time() - t0
+    one_peak = torch.cuda.max_memory_allocated(0)
+    ref = dict(inputs=inputs, h=w.h.to("cpu"), t=h.t.to("cpu"), counts=CP.counts(),
+               reads=host_read.count)
+    del on0, w, h
+    torch.cuda.empty_cache()
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+    hour = mesh_coupled_hour(card, "cuda", ref, mesh)
+    peaks = [torch.cuda.max_memory_allocated(i) for i in range(torch.cuda.device_count())]
+    shares = [p / one_peak for p in peaks]
+    print(f"# 3v coupled storm hour: one card {one_wall} s, peak {one_peak / 2**30} GiB; "
+          f"partitioned over {mesh.devices.size} cards, each card's peak "
+          f"{[p / 2**30 for p in peaks]} GiB, shares {shares} ({card})", flush=True)
+    check(max(shares) <= 0.35, f"3v coupled: a card's peak is {max(shares)} of the "
+                               "one-card hour's, above 0.35")
+    del ref
+    torch.cuda.empty_cache()
+    return dict(hour=hour, one_card_wall_s=one_wall, one_card_peak=one_peak,
+                peaks=peaks, shares=shares)
 
 
 def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> dict:
     """Phase 3v (the device mesh: the halo exchange, the mesh loop against
     the single-device loop, the three storm hours partitioned over 2 x 2
-    blocks, the scaling bench's line); returns what it measured. ``refs``
-    maps each of MESH_FORMS to its one-device hour (phases 3-3c's; run here
-    when None). ``dev="cpu"`` with a small ``n`` rehearses it on the CPU
-    (no times, no launches)."""
+    blocks, the scaling bench's line, phase 3e's coupled hour partitioned
+    over 2 x 2 blocks); returns what it measured. ``refs`` maps each of
+    MESH_FORMS and "coupled" to its one-device hour (phases 3-3c's and
+    3e's; run here when None). ``dev="cpu"`` with a small ``n`` rehearses
+    it on the CPU (no times, no launches)."""
     from criteria3d_tpu_torch import scaling_bench
     t0 = time.time()
     parts = {}
@@ -2732,6 +2877,11 @@ def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> di
     scaling = scaling_bench.scaling(n, n, 4, dev)
     print(json.dumps(scaling), flush=True)
     lap("scaling")
+    ref = refs["coupled"] if refs else one_device_coupled_hour(seed, dev, n)
+    lap("coupled one-device hour")
+    hours["coupled"] = mesh_coupled_hour(card, dev, ref, mesh)
+    del ref
+    lap("coupled partitioned")
     seconds = time.time() - start
     print(f"# phase 3v took {seconds} s ({card}): " + "; ".join(
         f"{k} {v} s" for k, v in parts.items()) + "; within the partitioned hours: "
@@ -2903,6 +3053,10 @@ def main() -> int:
             synthetic_catchment(args.seed, n=384, radius=183.0), 4.0, p_cp, "cuda")
         box = f"384 box ({gc.n_nodes} nodes; the full box took {full_wall_s} s)"
         cp = coupled_hour("coupled hour, 384 box", gc, p_cp, wc0, hc0, bc)
+    # the one-device hour that 3v (iv) partitions, on the host
+    refs["coupled"] = dict(inputs=[x.to("cpu") for x in (gc, wc0, hc0, bc)],
+                           h=cp.pop("h"), t=cp.pop("t"), counts=cp["counts"],
+                           reads=cp["syncs"])
     busy_cp, _, layers_cp = breakdown(
         "coupled hour", lambda: CP.compute_period_coupled(gc, p_cp, wc0, hc0, bc, 3600.0),
         cp["wall_s"])

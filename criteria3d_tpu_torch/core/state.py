@@ -44,15 +44,15 @@ class SolverParameters:
       on the float32 path, ``heat_frozen_props``.
 
     ``mesh`` (a :class:`criteria3d_tpu_torch.parallel.sharding.Mesh`)
-    runs the whole water step on the mesh's blocks, as JAX's GSPMD
-    partitions it: cut grid and state with ``shard_pytree(x, mesh)``
-    (each block carries a ring of its neighbours' cells), step them, and
-    join the result with ``gather_pytree``. Every form above runs
-    partitioned, per-cell results bit-equal to the whole box's; only the
-    order of the global sums differs (partials over each block's owned
-    cells, added on ``mesh.home``). The bundled kernel needs a ring of at
-    least its K sweeps (``shard_pytree``'s default) and the float32 path;
-    coupled heat is not partitioned and raises.
+    runs the whole water step, and the coupled water + heat step, on the
+    mesh's blocks, as JAX's GSPMD partitions them: cut grid and states
+    (and the heat boundary) with ``shard_pytree(x, mesh)`` (each block
+    carries a ring of its neighbours' cells), step them, and join the
+    result with ``gather_pytree``. Every form above runs partitioned,
+    per-cell results bit-equal to the whole box's; only the order of the
+    global sums differs (partials over each block's owned cells, added on
+    ``mesh.home``). The bundled kernel needs a ring of at least its K
+    sweeps (``shard_pytree``'s default) and the float32 path.
     """
 
     mbr_threshold: float = 1e-3

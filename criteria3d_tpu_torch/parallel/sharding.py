@@ -7,9 +7,9 @@ blocks, as JAX's virtual CPU devices do. A field's block (i, j) holds the
 (i, j)-th tile of its last two dims and lives on ``devices[i, j]``; the
 exchanges between blocks are copies, across devices where they differ.
 
-JAX partitions the whole water step with GSPMD from the arrays'
-shardings: stencil shifts become halo exchanges, reductions all-reduces.
-PyTorch has no counterpart, so the port partitions by hand.
+JAX partitions the whole coupled water + heat step with GSPMD from the
+arrays' shardings: stencil shifts become halo exchanges, reductions
+all-reduces. PyTorch has no counterpart, so the port partitions by hand.
 :func:`shard_pytree` cuts every (..., R, C) field into tiles that carry a
 ring of :data:`RING` cells of their neighbours (zeros past the global edge,
 the fill of ``shift2d``); the step runs its per-cell arithmetic on every grown
@@ -17,6 +17,8 @@ block unchanged, refreshes the rings with :func:`exchange` where a stencil
 reads them, and combines per-block partial reductions over the cells each
 block owns (:func:`block_sum`, :func:`block_max`) on ``mesh.home`` in
 row-major block order. :func:`gather_pytree` joins the owned cells again.
+Code that takes a whole state (a ``HeatState``, ``HeatBoundary`` or
+``WaterState``) gets one block's state from :func:`blocks_of`.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ from criteria3d_tpu_torch.device import map_tensors
 __all__ = ["Mesh", "Blocked", "RING", "make_mesh", "check_shardable",
            "shard_pytree", "gather_pytree", "replicate_pytree", "split_blocks",
            "join_blocks", "halo_exchange", "exchange", "owned", "bmap", "unzip",
-           "first_block", "block_sum", "block_max", "pad_to_multiple"]
+           "blocks_of", "is_field", "first_block", "block_sum", "block_max",
+           "pad_to_multiple"]
 
 # the ring every block carries: the bundled-Jacobi kernel's K sweeps
 # (solver/jacobi_bundle.SWEEPS_PER_BUNDLE), so that its owned cells are exact
@@ -109,7 +112,7 @@ def check_shardable(leaf: torch.Tensor, mesh: Mesh) -> bool:
     helper fields), as JAX's ``_spec_for``. A full-size field whose
     trailing dims do not divide the mesh raises: silently replicating the
     whole state would defeat the decomposition."""
-    if not _is_field(leaf):
+    if not is_field(leaf):
         return False
     shape = tuple(leaf.shape)
     r, c = shape[-2], shape[-1]
@@ -123,7 +126,7 @@ def check_shardable(leaf: torch.Tensor, mesh: Mesh) -> bool:
     return True
 
 
-def _is_field(t: torch.Tensor) -> bool:
+def is_field(t: torch.Tensor) -> bool:
     """A (..., R, C) field, as opposed to a 0-d, 1-d or (..., 1, 1) leaf."""
     return t.dim() >= 2 and tuple(t.shape[-2:]) != (1, 1)
 
@@ -155,10 +158,11 @@ def shard_pytree(tree, mesh: Mesh):
     - a tensor becomes a :class:`Blocked` of tiles; a 0-d, 1-d or
       (..., 1, 1) one moves to ``mesh.home``;
     - a Grid becomes a Blocked of per-block Grids (see :class:`Blocked`);
-    - any other frozen dataclass (a ``WaterState``) keeps its class: each
-      (..., R, C) field becomes a Blocked of tiles and every other tensor
-      (the 0-d ``dt_curr``, ``courant`` and balances) moves to
-      ``mesh.home``.
+    - any other frozen dataclass (a ``WaterState``, ``HeatState`` or
+      ``HeatBoundary``) keeps its class: each (..., R, C) field becomes a
+      Blocked of tiles, every other tensor (the 0-d ``dt_curr``,
+      ``courant`` and balances, the heat balance scalars) moves to
+      ``mesh.home`` and a ``None`` field stays ``None``.
 
     The step runs on blocks when ``SolverParameters.mesh`` is this mesh;
     :func:`gather_pytree` joins the result."""
@@ -198,7 +202,7 @@ def gather_pytree(tree, device=None):
             leaves[idx] = _leaves(b)
 
         def join(t, k):
-            if not _is_field(t):
+            if not is_field(t):
                 return t.to(dev)
             parts = np.empty(tree.blocks.shape, dtype=object)
             for idx in np.ndindex(tree.blocks.shape):
@@ -282,6 +286,23 @@ def unzip(x):
             arr[idx] = v[k]
         outs.append(Blocked(x.mesh, arr))
     return tuple(outs)
+
+
+def blocks_of(tree):
+    """A frozen dataclass with :class:`Blocked` fields (a sharded state) as
+    a Blocked of per-block copies: copy (i, j) holds block (i, j) of every
+    Blocked field and every other field as it is (the 0-d scalars on
+    ``mesh.home``), so that :func:`bmap` hands a function one block's
+    state. A dataclass without a Blocked field is returned as it is."""
+    fields = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree)}
+    blocked = {k: v for k, v in fields.items() if isinstance(v, Blocked)}
+    if not blocked:
+        return tree
+    mesh = next(iter(blocked.values())).mesh
+    out = np.empty(mesh.devices.shape, dtype=object)
+    for idx in np.ndindex(out.shape):
+        out[idx] = dataclasses.replace(tree, **{k: v.blocks[idx] for k, v in blocked.items()})
+    return Blocked(mesh, out)
 
 
 def first_block(x):

@@ -30,7 +30,10 @@ reads fresh rings: the state fields keep theirs fresh (the solvers end
 with an exchange), the bundle exchanges x once a bundle, CG exchanges p
 once an iteration and per-sweep Jacobi x once every ``RING`` sweeps. The
 assembly on a grown block is exact on all but its outer cell, so no
-coefficient is exchanged.
+coefficient is exchanged. The heat-coupling hooks are then a
+:class:`~criteria3d_tpu_torch.parallel.sharding.Blocked` of per-block
+closures (solver/coupled.py builds them), which ``bmap`` hands to each
+block's assembly like any other blocked argument.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
 from criteria3d_tpu_torch.device import host_read, scalar
 from criteria3d_tpu_torch.parallel.sharding import (RING, Blocked, block_max,
                                                     block_sum, bmap, exchange,
-                                                    first_block, owned, unzip)
+                                                    first_block, is_field, owned,
+                                                    unzip)
 from criteria3d_tpu_torch.solver import water as W
 from criteria3d_tpu_torch.solver.jacobi_bundle import jacobi_solve_loop
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
@@ -87,30 +91,27 @@ def check_supported(params: SolverParameters) -> None:
                          "solver takes 'diag' or 'line')")
 
 
-def _check_blocks(grid, params: SolverParameters, state: WaterState,
-                  hooks: bool) -> None:
-    """Raise ``ValueError`` unless grid and state are whole with no mesh,
-    or blocked over ``params.mesh`` in a form the partitioned
+def _check_blocks(grid, params: SolverParameters, *states) -> None:
+    """Raise ``ValueError`` unless grid and states (a water state, and the
+    heat state and boundary of the coupled step) are all whole with no
+    mesh, or all blocked over ``params.mesh`` in a form the partitioned
     step runs: no quiet gathering to one device."""
     mesh = params.mesh
-    fields = [v for v in (getattr(state, f.name) for f in dataclasses.fields(state))
-              if isinstance(v, Blocked)]
+    fields = [getattr(st, f.name) for st in states for f in dataclasses.fields(st)]
+    blocked = [v for v in fields if isinstance(v, Blocked)]
     if mesh is None:
-        if isinstance(grid, Blocked) or fields:
+        if isinstance(grid, Blocked) or blocked:
             raise ValueError("blocked grid or state with params.mesh None: set "
                              "SolverParameters.mesh to the mesh they were sharded "
                              "over, or join them with gather_pytree")
         return
-    if not (isinstance(grid, Blocked) and grid.mesh is mesh
-            and isinstance(state.h, Blocked)
-            and all(f.mesh is mesh for f in fields)):
-        raise ValueError("params.mesh is set: cut grid and state over it with "
+    # a field shard_pytree would have cut, left whole
+    whole = [v for v in fields if isinstance(v, torch.Tensor) and is_field(v)]
+    if not (isinstance(grid, Blocked) and grid.mesh is mesh and not whole
+            and all(f.mesh is mesh for f in blocked)):
+        raise ValueError("params.mesh is set: cut grid and states over it with "
                          "criteria3d_tpu_torch.parallel.sharding.shard_pytree(x, "
                          "params.mesh)")
-    if hooks:
-        raise ValueError("heat is not partitioned yet (ROADMAP A4): join the "
-                         "grid and states with gather_pytree and run the coupled "
-                         "step without a mesh")
     if params.use_pallas:
         if params.sweep_dtype != torch.float32:
             raise ValueError("use_pallas on a mesh runs the float32 bundle: set "
@@ -368,12 +369,12 @@ def restore_best_step(grid: Grid, params: SolverParameters,
     On the fast path ``h_r``/``h_old`` are float32 psi and the fused
     assembly recomputes flows and k (its stencil is discarded); on the
     float64 path capacity, boundary flows and balance are recomputed.
-    ``boundary_flux_fn`` (the heat-coupling boundary hook) joins the flows
-    on either path. Restores are rare: ``restore_best_step.count`` counts
+    ``boundary_flux_fn`` (the heat-coupling boundary hook; on a mesh a
+    Blocked of per-block closures) joins the flows on either path. Restores are rare: ``restore_best_step.count`` counts
     them (reset it to 0 before a run)."""
     restore_best_step.count += 1
 
-    def restore(g, h_r, h_old, sink_source, pond):
+    def restore(g, h_r, h_old, sink_source, pond, boundary_flux_fn):
         if _is_fast(params):
             se_r = W.compute_se_psi(g, params, h_r)
             _, flow_r, rate_r, k_r = W.assemble_fast(
@@ -390,7 +391,7 @@ def restore_best_step(grid: Grid, params: SolverParameters,
                 rate_r = rate_r + br_r
         return se_r, k_r, flow_r, rate_r
     se_r, k_r, flow_r, rate_r = unzip(bmap(restore, grid, h_r, h_old,
-                                           sink_source, pond))
+                                           sink_source, pond, boundary_flux_fn))
     bal = _balance(grid, params, h_r, se_r, flow_r, prev_storage, dt)
     return h_r, se_r, k_r, flow_r, rate_r, bal
 
@@ -520,10 +521,10 @@ def _approximation_loop(grid: Grid, params: SolverParameters,
         approx = c.approx
         with torch.profiler.record_function(ASSEMBLE_RANGE):
             system, flow, rate, k = unzip(bmap(
-                lambda g, h, ho, se, sk, pd: _assemble(
-                    g, params, h, ho, se, sk, pd, approx, dt, extra_flux_fn,
-                    boundary_flux_fn),
-                grid, c.h, h_old, c.se, sink_source, pond))
+                lambda g, h, ho, se, sk, pd, xf, bf: _assemble(
+                    g, params, h, ho, se, sk, pd, approx, dt, xf, bf),
+                grid, c.h, h_old, c.se, sink_source, pond, extra_flux_fn,
+                boundary_flux_fn))
         courant = host_read(block_max(bmap(lambda sy: sy.courant, system)))
 
         if courant >= 1.01 and dt > params.delta_t_min:
@@ -605,8 +606,7 @@ def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
     iteration (see :func:`_approximation_loop`). On a mesh grid and state
     are blocked (:func:`_check_blocks`)."""
     check_supported(params)
-    _check_blocks(grid, params, state,
-                  extra_flux_fn is not None or boundary_flux_fn is not None)
+    _check_blocks(grid, params, state)
     dtype = params.dtype
     fast = _is_fast(params)
     st = state

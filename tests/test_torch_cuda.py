@@ -1,6 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
 tiled bundled-Jacobi design against the per-sweep one, the mesh loop and
-the partitioned water hour on blocks of the card against one device,
+the partitioned water and coupled hours on blocks of the card against one
+device,
 small hours of
 the float64, CG and coupled water + heat paths, the model cycle's physics
 maps and hours, and a project's hours from files, on the card against the
@@ -199,6 +200,40 @@ def test_partitioned_hour_on_card_matches_one_device(form):
         assert float((out.h - whole.h).abs().max()) <= 1e-9
     else:
         assert torch.equal(out.h, whole.h)
+
+
+@pytest.mark.cuda
+def test_partitioned_coupled_hour_on_card_matches_one_device():
+    """The coupled storm hour of a 32 valley (tests/test_catchment3d.py's
+    valley_dem) under fast_f32(heat_vapor=True, heat_frozen_props=True) on
+    2 x 2 blocks of the card (grid, water, heat and boundary cut by
+    shard_pytree) against the same hour on the card whole: every count of
+    the coupled step equal; float32 h and T bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card path runs only on the card")
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh,
+                                                        shard_pytree)
+    from criteria3d_tpu_torch.problems import build_coupled_problem
+    from criteria3d_tpu_torch.solver import coupled as CP
+    n = 32
+    rows, cols = np.mgrid[0:n, 0:n]
+    dem = 100.0 + (n - 1 - rows) * 0.5 + np.abs(cols - n // 2) * 0.8
+
+    def make(**kw):
+        return SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=True, **kw)
+    inputs = build_coupled_problem(dem, 10.0, make(), "cuda")
+    CP.reset_counts()
+    w1, h1 = CP.compute_period_coupled(inputs[0], make(), *inputs[1:], 3600.0)
+    counts = CP.counts()
+    mesh = make_mesh(4, devices=[torch.device("cuda")] * 4)
+    blocked = [shard_pytree(t, mesh) for t in inputs]
+    CP.reset_counts()
+    w2, h2 = CP.compute_period_coupled(blocked[0], make(mesh=mesh), *blocked[1:], 3600.0)
+    w2, h2 = gather_pytree(w2), gather_pytree(h2)
+    torch.cuda.synchronize()
+    assert CP.counts() == counts and counts["heat_sweeps"] > 0
+    assert torch.equal(w2.h, w1.h) and torch.equal(h2.t, h1.t)
 
 
 @pytest.mark.cuda

@@ -481,25 +481,6 @@ def test_mesh_configurations_it_does_not_run_raise(valley32):
         TS.shard_pytree(tg, cpu_mesh(8, 1))
 
 
-def test_coupled_heat_refuses_blocks():
-    """Heat is not partitioned: compute_step_coupled and
-    compute_period_coupled with blocked inputs, or with a mesh in the
-    parameters, raise a ValueError naming gather_pytree; nothing gathers
-    quietly."""
-    from criteria3d_tpu_torch.problems import build_coupled_problem
-    from criteria3d_tpu_torch.solver import coupled as CP
-    mesh = cpu_mesh(2, 2)
-    params = T.SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=True)
-    grid, water, heat, boundary = build_coupled_problem(valley_dem(16), 10.0, params, "cpu")
-    blocked = [TS.shard_pytree(t, mesh) for t in (grid, water, heat, boundary)]
-    p_mesh = dataclasses.replace(params, mesh=mesh)
-    for p, args in ((p_mesh, blocked), (params, blocked),
-                    (p_mesh, (grid, water, heat, boundary))):
-        for fn in (CP.compute_step_coupled, CP.compute_period_coupled):
-            with pytest.raises(ValueError, match="gather_pytree"):
-                fn(args[0], p, *args[1:], 600.0)
-
-
 def test_dryrun_mesh():
     """scaling_bench.dryrun_mesh, the counterpart of dryrun_multichip's
     shard_map leg: one hour on 2 x 4 CPU blocks of a 128 box closes mass
