@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
-    python3 chip_smoke.py [--seed 0] [--timed-hours 1]
+    python3 chip_smoke.py [--seed 0]
 
 Phases (any failed check exits non-zero before the last line):
 
@@ -19,36 +19,38 @@ Phases (any failed check exits non-zero before the last line):
    bit-equal);
 3. the main path: one simulated hour of a 20 mm/h storm on a synthetic
    catchment at the scale of the Ravone benchmark (768 x 768 box of 4 m
-   cells, a disc of 420,836 valid cells, 7 layers, 2,945,852 nodes) through
-   ``compute_period_stats`` under ``SolverParameters.fast_f32(use_pallas=True)``,
-   with the kernel's launch count read from that run (at ``--seed 0`` the
-   stats must be (91, 92, 193, 1640), the per-sweep design's); then the same hour
-   timed ``--timed-hours`` times, and once more under torch.profiler for
-   the device-time breakdown; then a small locked-dt hour on the card
-   against the same hour on the CPU (the plain twin);
+   cells, a disc of 420,836 valid cells, 7 layers, 2,945,852 nodes) under
+   ``SolverParameters.fast_f32(use_pallas=True)``, through the port bench's
+   storm leg (``bench.storm_leg``: ``compute_period_stats`` under bench.py's
+   sampling rule, at most 2 runs), with the kernel's launch count read from
+   the last run (at ``--seed 0`` the stats must be (91, 92, 193, 1640), the
+   per-sweep design's); then once more under torch.profiler for the
+   device-time breakdown; then a small locked-dt hour on the card against
+   the same hour on the CPU (the plain twin);
 3b. the production preset ``SolverParameters.fast_f32()`` (CG with the
-   vertical-line preconditioner) on the same storm hour: stats, MBR
-   (|MBR| < 2e-3), the first hour's wall, the median of ``--timed-hours``
-   (each repeat gives the same stats), host syncs, the profiled breakdown
-   and peak memory; no ``jacobi_bundle`` launch, every output on the card;
+   vertical-line preconditioner) on the same storm hour through the port
+   bench's storm leg (at most 2 runs under bench.py's sampling rule):
+   stats ((45, 52, 164, 528) at ``--seed 0``), MBR (|MBR| < 2e-3), the
+   walls and their median, host syncs, the profiled breakdown and peak
+   memory; no ``jacobi_bundle`` launch, every output on the card;
 3c. the float64 parity path ``SolverParameters()`` (per-sweep float64
    Jacobi, tolerance 1e-10) on the same storm hour at full size, once
-   (then once more, profiled): stats, MBR (|MBR| < 2e-3), wall, host
-   syncs, the breakdown; no ``jacobi_bundle`` launch, float64 heads on
+   through the bench's storm leg (then once more, profiled): stats, MBR
+   (|MBR| < 2e-3), wall, host syncs, the breakdown; no ``jacobi_bundle`` launch, float64 heads on
    the card;
 3d. small locked-dt hours on the card against the port's CPU path: the
    float64 path, ``fast_f32()`` CG line, and ``fast_f32()`` CG diag with
    ``track_link_flow``: the same steps, attempts and approximations; heads
    within 1e-6 m (f64) or 1e-4 m, link flows within 1e-3 of their max;
-3e. the coupled water + heat storm hour of bench.py's coupled leg
-   (``fast_f32(heat_vapor=True, heat_frozen_props=True)``, every layer-1
-   node a HeatSurface) on the same catchment, once with every count read
-   (water steps, attempts, approximations, CG iterations; heat chunks,
-   accepted and rejected sub-steps, heat sweeps; host syncs, wall, peak
-   memory, water and heat MBR), then once profiled; checks every output on
-   the card, |water MBR| < 2e-3, a finite heat MBR and heat-node
-   temperatures finite within [200, 330] K. If the hour takes more than
-   300 s it runs again on a 384 box;
+3e. the coupled water + heat storm hour through the port bench's coupled
+   leg (``bench.coupled_leg``, bench.py's: ``fast_f32(heat_vapor=True,
+   heat_frozen_props=True)``, every layer-1 node a HeatSurface, one run)
+   on the same catchment, every count read (water steps, attempts,
+   approximations, CG iterations; heat chunks, accepted and rejected
+   sub-steps, heat sweeps; host syncs, wall, peak memory, water and heat
+   MBR), then once profiled through trace_coupled's
+   roll-up; checks every output on the card, |water MBR| < 2e-3, a finite
+   heat MBR and heat-node temperatures finite within [200, 330] K;
 3f. small coupled hours of a 6 x 6 heat column on the card against the
    port's CPU path, float64 with vapor and ``fast_f32`` frozen with vapor:
    the same water steps and heat sub-steps, T within 1e-6 K / 1e-3 K,
@@ -182,21 +184,21 @@ Phases (any failed check exits non-zero before the last line):
    (``make_mesh(n, devices=[cuda] * n)``): ``halo_exchange`` of a seeded
    (7, 768, 768) and (8, 7, 768, 768) array over 2 x 2 and 2 x 4 blocks,
    bit-equal to the zero-padded windows; the mesh form of
-   ``jacobi_solve_loop`` on phase 2's inputs over both, x bit-equal to the
-   single-device loop with the same n_it and flag, the ms of one bundle of
-   each (CUDA events) against the single kernel's, the x exchange's share,
-   a mesh bundle's bound and the tiled variant of each block; the three
-   storm hours of phases 3-3c partitioned over 2 x 2 blocks (grid and
-   state cut by ``shard_pytree``, the whole water step on the blocks):
-   ``fast_f32(use_pallas=True, mesh=)`` (4 launches a bundle),
-   ``fast_f32(mesh=)`` (CG line) and ``SolverParameters(mesh=)`` (f64),
-   each with its stats, MBR, wall, host reads and launches; |MBR| < 2e-3,
-   host reads equal to the one-device hour's, heads within 1e-5 m (f32)
-   or 1e-9 m (f64) of phases 3-3c's when the stats are equal, else within
-   the float32 envelopes of tests/test_fast_f32.py; ``scaling_bench``'s
-   line for the 768 box (the float64 step and the bundle step, each on one
-   device and on 4 blocks); (iv) phase 3e's coupled storm hour
-   partitioned over 2 x 2 blocks (grid, water, heat and boundary cut by
+   ``jacobi_solve_loop`` on phase 2's inputs over 2 x 2 blocks, x
+   bit-equal to the single-device loop with the same n_it and flag, the
+   ms of one bundle (CUDA events) against the single kernel's, the x
+   exchange's share, a mesh bundle's bound and the tiled variant of each
+   block; the three storm hours of phases 3-3c partitioned over 2 x 2
+   blocks (grid and state cut by ``shard_pytree``, the whole water step on
+   the blocks): ``fast_f32(use_pallas=True, mesh=)`` (4 launches a
+   bundle), ``fast_f32(mesh=)`` (CG line) and ``SolverParameters(mesh=)``
+   (f64), each with its stats, MBR, wall, host reads and launches; |MBR| <
+   2e-3, host reads equal to the one-device hour's, heads within 1e-5 m
+   (f32) or 1e-9 m (f64) of phases 3-3c's when the stats are equal, else
+   within the float32 envelopes of tests/test_fast_f32.py;
+   ``scaling_bench``'s line for the 768 box (the float64 step and the
+   bundle step, each on one device and on 4 blocks); (iv) phase 3e's
+   coupled storm hour partitioned over 2 x 2 blocks (grid, water, heat and boundary cut by
    ``shard_pytree``, the whole coupled step on the blocks, the result
    joined by ``gather_pytree``) under ``fast_f32(heat_vapor=True,
    heat_frozen_props=True, mesh=)``: water stats, chunks, sub-steps,
@@ -204,14 +206,28 @@ Phases (any failed check exits non-zero before the last line):
    gaps of h and T to 3e's hour; |water MBR| < 2e-3, the heat MBR finite,
    host reads equal to 3e's, h and T within 1e-5 of 3e's when every count
    is equal, else within the float32 envelopes (h: max 0.1 m, median
-   1e-2 m; T 0.2 K); the seconds of each part of 3v;
+   1e-2 m; T 0.2 K); the seconds of each part of 3v (the 2 x 4 loop made
+   room for 3w);
+3w. the port's bench (``python -m criteria3d_tpu_torch.bench``), the legs
+   phases 3b and 3e do not run: (i) the day leg at coarsen 4 (chained
+   hours of 6 periods of 600 s under ``fast_f32()``), cut to its 3 storm
+   hours (the whole day's 21 drainage hours take minutes: ``python -m
+   criteria3d_tpu_torch.bench`` runs them): each hour's wall and host
+   reads, the closing |MBR| < 2e-3; (ii) the mesh leg, the bundle hour on
+   a (1, 1) mesh (one 784 tile with an 8-cell ring) at full size, against
+   phase 3's hour: the same stats and host reads, heads bit-equal, one
+   launch a bundle; (iii) the coupled trace's roll-up of 3e's profiled
+   hour: some launch matched a layer's range, each water and heat layer
+   holds device time, "other" less than half the busy time, the layers sum
+   to the busy time and the activities' durations less their overlaps
+   equal it; the seconds of each part;
 4. the ``kernels`` line: one JSON object per ported kernel with its
    launches, error, times and bound, and for the tiled bundle its tile, the
    sweeps it keeps on chip, its modelled bytes and rate, the per-sweep
    design's time in the same run, its halo mode's error, its launches
    in the 3i model hour (and 0 in the 3o vineyard, 3q shell and 3r
-   meteo-grid hours) and in 3v's mesh hour, and 3v's ms, exchange ms and
-   bound of a 2 x 2 mesh bundle;
+   meteo-grid hours), in 3v's mesh hour and in 3w's mesh leg, and 3v's ms,
+   exchange ms and bound of a 2 x 2 mesh bundle;
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -221,10 +237,11 @@ cycle's ``c3d.radiation`` (shadow march included), ``c3d.snow``,
 ``c3d.et0`` and ``c3d.sinks`` ranges, the project's ``c3d.interpolation``
 and ``c3d.outputs`` ranges, HYDRALL's ``c3d.hydrall``, the vineyard's
 ``c3d.vine`` and ``c3d.diseases`` ranges, the library's
-``c3d.detrending``, and the rest. It imports nothing of JAX and nothing of
-the JAX package. ``side_phases(seed, card)`` runs 3m-3p alone,
-``shell_phases(seed, card)`` 3q-3s, ``library_phases(seed, card)``
-3t-3u and ``mesh_phases(seed, card)`` 3v; with ``dev="cpu"`` and a small
+``c3d.detrending``, and the rest (``utils/profiling.py``). It imports
+nothing of JAX and nothing of the JAX package. ``side_phases(seed, card)``
+runs 3m-3p alone, ``shell_phases(seed, card)`` 3q-3s,
+``library_phases(seed, card)`` 3t-3u, ``mesh_phases(seed, card)`` 3v and
+``bench_phases(seed, card)`` 3w; with ``dev="cpu"`` and a small
 ``n`` they rehearse them on the CPU. ``mesh_cards(seed, card)`` runs 3v's
 loop, the partitioned bundle and coupled hours (each card's peak memory
 against the one-card hour's; ``mesh_cards_coupled`` the coupled one alone)
@@ -234,7 +251,6 @@ and the scaling bench with one block per card on a host with several.
 from __future__ import annotations
 
 import argparse
-import bisect
 import json
 import math
 import os
@@ -244,14 +260,15 @@ import sys
 import tempfile
 import time
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 non-tensor rate
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-# float32 operations per node: one sweep (10 multiplies, 10 adds, the mask
-# multiply) and the last sweep's norm (sub, 2 abs, compare, divide,
-# 2 multiplies, add)
-FLOPS_PER_NODE_SWEEP = 21
-FLOPS_PER_NODE_NORM = 8
+try:
+    from criteria3d_tpu_torch.utils.profiling import (F32_FLOPS, FLOPS_PER_NODE_NORM,
+                                                      FLOPS_PER_NODE_SWEEP,
+                                                      HBM_BYTES_PER_S, breakdown,
+                                                      layer_ranges)
+except ImportError as e:
+    print(f"chip_smoke: the criteria3d_tpu_torch package is missing ({e}); "
+          "run from the repository root", file=sys.stderr)
+    sys.exit(2)
 
 
 def fail(msg: str) -> None:
@@ -320,148 +337,32 @@ def water_hour(grid, params, state):
     return lambda: compute_period_stats(grid, params, state, 3600.0)
 
 
-def layer_ranges() -> tuple:
-    """The record_function ranges that name the layers of an hour: the
-    water step's assembly and inner solve, the heat sub-steps' assembly and
-    solve, and the model cycle's radiation, snow, ET0 and sinks."""
-    from criteria3d_tpu_torch.model import ET0_RANGE
-    from criteria3d_tpu_torch.physics.crop import SINKS_RANGE
-    from criteria3d_tpu_torch.physics.radiation import RADIATION_RANGE
-    from criteria3d_tpu_torch.physics.snow import SNOW_RANGE
-    from criteria3d_tpu_torch.solver.heat import HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE
-    from criteria3d_tpu_torch.solver.step import ASSEMBLE_RANGE, SOLVE_RANGE
-    return (ASSEMBLE_RANGE, SOLVE_RANGE, HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE,
-            RADIATION_RANGE, SNOW_RANGE, ET0_RANGE, SINKS_RANGE)
-
-
-def device_activity(prof, range_names) -> tuple:
-    """The device activities of a finished torch.profiler run, read from
-    its Kineto events (no trace file): ``(spans, {kernel name: seconds},
-    {layer: seconds}, matched)``. Spans are the (start, end) [us] of the
-    kernels, copies and fills (the device-side copies of the host
-    annotations left out); each activity is charged to the host range in
-    ``range_names`` its launch call lies in (matched through the launch's
-    correlation id), else to "other"; ``matched`` says whether any was."""
-    from torch.autograd import DeviceType
-    ranges, launch_at, device = [], {}, []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CPU:
-            if e.is_user_annotation():
-                if e.name() in range_names:
-                    ranges.append((e.start_ns(), e.end_ns(), e.name()))
-            elif e.name().startswith("cu"):          # cudaLaunchKernel, cudaMemcpyAsync, ...
-                launch_at[e.correlation_id()] = e.start_ns()
-        elif e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
-            device.append((e.start_ns(), e.end_ns(), e.name(), e.correlation_id()))
-    ranges.sort()
-    starts = [r[0] for r in ranges]
-    spans, per_name, layers, matched = [], {}, {}, False
-    for t0, t1, name, corr in device:
-        spans.append((t0 * 1e-3, t1 * 1e-3))
-        dur = (t1 - t0) * 1e-9
-        per_name[name] = per_name.get(name, 0.0) + dur
-        layer = "other"
-        ts = launch_at.get(corr)
-        if ts is not None:
-            i = bisect.bisect_right(starts, ts) - 1
-            if i >= 0 and ts <= ranges[i][1]:
-                layer, matched = ranges[i][2], True
-        layers[layer] = layers.get(layer, 0.0) + dur
-    return spans, per_name, layers, matched
-
-
-def breakdown(label, run, wall_s: float, ranges=None):
-    """``run()`` (one more hour) under torch.profiler: device time by
-    kernel, by layer (the kernels launched inside the ranges of
-    :func:`layer_ranges`, or of ``ranges``) and the device's idle share;
-    returns ``(busy_s, {kernel name: seconds}, {layer: seconds})`` (0.0, {}
-    and {} when the profiler saw no device activity).
-
-    Busy time is the union of the device activity intervals (kernels,
-    copies, fills, :func:`device_activity`). A layer's time is the device
-    time of the activities launched inside its host range. The idle share
-    is given
-    against the unprofiled median wall time ``wall_s`` (the profiler slows
-    the host, not the kernels) and against the profiled hour's own wall
-    time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    range_names = ranges or layer_ranges()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        run()
-        torch.cuda.synchronize()
-        prof_wall_s = time.time() - t0
-    spans, per_name, layers, matched = device_activity(prof, range_names)
-    if not spans:
-        print(f"# {label} breakdown: the profiler saw no device activity "
-              "(not measured)")
-        return 0.0, {}, {}
-    spans.sort()
-    busy_us, (lo, hi) = 0.0, spans[0]
-    for s, t in spans[1:]:
-        if s > hi:
-            busy_us, lo, hi = busy_us + (hi - lo), s, t
-        else:
-            hi = max(hi, t)
-    busy_s = (busy_us + (hi - lo)) * 1e-6
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
-    by_layer = ("; ".join(f"{k} {v} s ({v / busy_s:.3f})"
-                          for k, v in sorted(layers.items()))
-                if matched else "not measured (no launch matched a range)")
-    print(f"# {label} breakdown: {len(spans)} device activities per hour, device "
-          f"busy {busy_s} s; idle share {1.0 - busy_s / wall_s} of the unprofiled "
-          f"{wall_s} s, {1.0 - busy_s / prof_wall_s} of the profiled "
-          f"{prof_wall_s} s; device time by layer: " + by_layer
-          + "; top: "
-          + "; ".join(f"{k[:90]} {v:.4f} s ({v / busy_s:.3f})" for k, v in top),
+def storm_hour(label, grid, params, max_runs: int) -> dict:
+    """A storm hour through the port bench's storm leg (``bench.storm_leg``:
+    bench.py's sampling, at most ``max_runs`` runs, every count set to 0
+    before each): prints the walls, their median and the last run's stats,
+    MBR, launches, host syncs and peak memory, and checks the last run
+    (:func:`check_hour`). Returns the leg's dict."""
+    from criteria3d_tpu_torch import bench
+    sl = bench.storm_leg(grid, params, max_runs)
+    print(f"# {label} (the bench's storm leg): stats (steps, attempts, approximations, "
+          f"inner iterations) = {sl['stats']} whole-period MBR={sl['mbr']} walls "
+          f"{sl['runs_s']} s, median {sl['wall_s']}; bundle launches={sl['launches']} "
+          f"host syncs={sl['host_reads']}; peak memory {sl['peak_gib']} GiB",
           flush=True)
-    return busy_s, per_name, layers
+    check_hour(label, sl["out"], params, sl["mbr"])
+    return sl
 
 
-def timed_hours(grid, params, state0, stats, n: int):
-    """The hour ``n`` more times from the same state; each repeat must give
-    ``stats``. Returns the wall times [s]."""
+def check_hour(label, out, params, mbr) -> None:
+    """Every output of a storm hour on the card, heads of the state dtype
+    and finite, the whole-period |MBR| < 2e-3."""
     import torch
-    from criteria3d_tpu_torch.solver.step import compute_period_stats
-    walls = []
-    for _ in range(n):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        _, stats_t = compute_period_stats(grid, params, state0, 3600.0)
-        torch.cuda.synchronize()
-        walls.append(time.time() - t0)
-        check(stats_t == stats, f"a repeated hour gave other stats {stats_t}")
-    return walls
-
-
-def first_hour(label, grid, params, state0):
-    """The hour once, with the launch and host-read counts set to 0 just
-    before it and read just after: ``(out, stats, wall_s, launches,
-    host_syncs, mbr)``; checks that every output is on the card and
-    finite and that the whole-period |MBR| < 2e-3."""
-    import torch
-    from criteria3d_tpu_torch.device import host_read
-    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
-    from criteria3d_tpu_torch.solver.step import compute_period_stats
-    torch.cuda.reset_peak_memory_stats()
-    JB.jacobi_bundle.launches = 0
-    host_read.count = 0
-    t0 = time.time()
-    out, stats = compute_period_stats(grid, params, state0, 3600.0)
-    torch.cuda.synchronize()
-    wall_s = time.time() - t0
-    launches, syncs = JB.jacobi_bundle.launches, host_read.count
-    mbr = float(out.balance_whole.mbr)
-    print(f"# {label}: stats (steps, attempts, approximations, inner iterations) = "
-          f"{stats} whole-period MBR={mbr} first run {wall_s} s "
-          f"bundle launches={launches} host syncs={syncs}", flush=True)
     for name, t in tensors_of(out):
         check(t.device.type == "cuda", f"{label}: output {name} is on {t.device}")
     check(out.h.dtype == params.dtype, f"{label}: heads are {out.h.dtype}")
     check(bool(torch.isfinite(out.h).all()), f"{label}: non-finite heads")
     check(abs(mbr) < 2e-3, f"{label}: |whole-period MBR| {mbr} >= 2e-3")
-    return out, stats, wall_s, launches, syncs, mbr
 
 
 def small_card_vs_cpu(name: str):
@@ -490,53 +391,42 @@ def small_card_vs_cpu(name: str):
     return sc, sp, dh
 
 
-def coupled_hour(label, grid, params, water0, heat0, boundary):
-    """The coupled water + heat hour once, with every count (the coupled
-    step's, the heat sweeps, the bundle launches, the host reads) set to 0
-    just before it and read just after. Checks that every output is on the
-    card, the water whole-period |MBR| < 2e-3, the heat MBR (bench.py's
-    whole-period formula) is finite, and every heat-node temperature is
-    finite and within [200, 330] K. Returns a dict of what it measured."""
-    import torch
-    from criteria3d_tpu_torch.device import host_read
-    from criteria3d_tpu_torch.solver import coupled as C
-    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    C.reset_counts()
-    JB.jacobi_bundle.launches = 0
-    host_read.count = 0
-    t0 = time.time()
-    w, h = C.compute_period_coupled(grid, params, water0, heat0, boundary, 3600.0)
-    torch.cuda.synchronize()
-    wall_s = time.time() - t0
-    counts, syncs, launches = C.counts(), host_read.count, JB.jacobi_bundle.launches
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    mbr = float(w.balance_whole.mbr)
-    heat_mbr, t_min, t_max, cold = heat_outcome(label, grid, params, w, h)
+def coupled_hour(label, grid, params):
+    """Phase 3e: the bench's coupled leg (``bench.coupled_leg``, bench.py's
+    heat leg, one run with every count set to 0 before it) on ``grid``
+    from ``params`` (heat vapor and frozen properties added). Checks it:
+    every output on the card, the water whole-period |MBR| < 2e-3, the heat
+    MBR (bench.py's whole-period formula) finite, and every heat-node
+    temperature finite and within [200, 330] K. Returns a dict of
+    what it measured, with the leg's inputs."""
+    from criteria3d_tpu_torch import bench
+    cp = bench.coupled_leg(grid, params, {}, max_runs=1)
+    w, h = cp.pop("out")
+    hparams, hgrid = cp["inputs"][:2]
+    heat_mbr, t_min, t_max, cold = heat_outcome(label, hgrid, hparams, w, h)
+    counts, syncs, mbr = cp["counts"], cp["host_reads"], cp["mbr"]
     print(f"# {label}: water steps, attempts, approximations, CG iterations = "
           f"({counts['steps']}, {counts['attempts']}, {counts['approximations']}, "
           f"{counts['inner_iterations']}); heat chunks {counts['chunks']}, sub-steps "
           f"accepted {counts['substeps_accepted']} rejected {counts['substeps_rejected']}, "
-          f"heat sweeps {counts['heat_sweeps']}; host syncs {syncs}; wall {wall_s} s; "
-          f"peak memory {peak:.2f} GiB; water whole-period MBR {mbr}; heat MBR "
-          f"{heat_mbr}; heat-node T {t_min}..{t_max} K, share below 273.15 K {cold}; "
-          f"bundle launches {launches}", flush=True)
-    check_coupled(label, list(tensors_of(w)) + list(tensors_of(h)), counts, launches,
+          f"heat sweeps {counts['heat_sweeps']}; host syncs {syncs}; walls {cp['runs_s']} s "
+          f"(median {cp['wall_s']}); peak memory {cp['peak_gib']} GiB; water "
+          f"whole-period MBR {mbr}; heat MBR {heat_mbr}; heat-node T {t_min}..{t_max} K, "
+          f"share below 273.15 K {cold}; bundle launches {cp['launches']}", flush=True)
+    check_coupled(label, list(tensors_of(w)) + list(tensors_of(h)), counts, cp["launches"],
                   mbr, heat_mbr, t_min, t_max)
-    return dict(counts=counts, syncs=syncs, wall_s=wall_s, peak_gib=peak, mbr=mbr,
-                heat_mbr=heat_mbr, t_min=t_min, t_max=t_max, cold_share=cold,
-                h=w.h.to("cpu"), t=h.t.to("cpu"))
+    return dict(counts=counts, syncs=syncs, wall_s=cp["wall_s"], runs_s=cp["runs_s"],
+                peak_gib=cp["peak_gib"], mbr=mbr, heat_mbr=heat_mbr, t_min=t_min,
+                t_max=t_max, cold_share=cold, h=w.h.to("cpu"), t=h.t.to("cpu"),
+                inputs=cp["inputs"])
 
 
 def heat_outcome(label, grid, params, water, heat):
     """The whole-period heat MBR (bench.py:279-282), the heat nodes' T
     range [K] and their share below 273.15 K."""
     import torch
-    from criteria3d_tpu_torch.solver import heat as H
-    st_end = H.heat_storage(grid, params, heat, water)
-    heat_mbr = float((st_end - heat.storage_whole - heat.sink_whole)
-                     / torch.clamp_min(torch.abs(heat.sink_whole), 1.0))
+    from criteria3d_tpu_torch.bench import coupled_heat_mbr
+    heat_mbr = coupled_heat_mbr(grid, params, water, heat)
     heat_mask = grid.mask.clone()
     heat_mask[0] = False
     t_nodes = heat.t[heat_mask]
@@ -661,7 +551,7 @@ def model_hours(label, model, hours, card):
 def model_coupled_hour(label, model, hour, card):
     """One coupled ``run_hour`` (compute_heat) with the coupled step's
     counts, the bundle launches and the host reads set to 0 just before
-    it; the checks of :func:`coupled_hour`, the water MBR in its |sink|
+    it; the checks of :func:`check_coupled`, the water MBR in its |sink|
     form. Returns what it measured."""
     import torch
     from criteria3d_tpu_torch.device import host_read
@@ -2514,8 +2404,8 @@ def mesh_halo(seed: int, dev, n: int) -> None:
 
 def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
     """3v (ii): the mesh loop on phase 2's seeded (7, n, n) inputs over
-    ``meshes`` (2 x 2 and 2 x 4 blocks on ``dev`` when None), keyed by
-    their block counts, against the single-device loop (x bit-equal,
+    ``meshes`` (2 x 2 blocks on ``dev`` when None: the script's 600 s
+    leave no room for 2 x 4), keyed by their block counts, against the single-device loop (x bit-equal,
     the same n_it and flag); the ms of one bundle of each (CUDA events on
     the card), of the x exchange alone, the bound of a mesh bundle (each
     block's kernel bound at its grown size plus the exchange's bytes:
@@ -2535,7 +2425,7 @@ def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
     x1, d1, n1 = JB.jacobi_solve_loop(*inputs, MESH_MAX_ITER, 1e-7, n_nodes)
     single_ms = cuda_ms(lambda: JB.jacobi_bundle(*inputs), reps=20) if card else None
     out = dict(single_ms=single_ms, n_it=n1, meshes={})
-    for mesh in meshes or [virtual_mesh(nb, dev) for nb in MESH_BLOCKS]:
+    for mesh in meshes or [virtual_mesh(4, dev)]:
         blocked = [shard_pytree(a, mesh) for a in inputs]
         system, xs = tuple(blocked[:5]), blocked[5]
         xm, dm, nm = JB.jacobi_solve_loop(*blocked, MESH_MAX_ITER, 1e-7, n_nodes,
@@ -2891,12 +2781,105 @@ def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> di
     return dict(loops=loops, hours=hours, scaling=scaling, seconds=seconds, parts=parts)
 
 
+# ----------------------------------------------------------------------
+# the port's bench (3w): the legs that no other phase runs
+# ----------------------------------------------------------------------
+
+# 3w (i): the day leg's coarsen level (bench.py's BENCH_DAY_COARSEN
+# default) and its hours: the storm's 3 (the day's drainage hours take
+# minutes on the card, at coarsen 16 as at 4)
+BENCH_DAY_COARSEN = 4
+BENCH_DAY_HOURS = 3
+
+
+def bench_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None,
+                 trace=None) -> dict:
+    """Phase 3w, the legs of ``python -m criteria3d_tpu_torch.bench`` that
+    phases 3b and 3e do not run: (i) the day leg at coarsen
+    ``BENCH_DAY_COARSEN`` under ``fast_f32()``, its first
+    ``BENCH_DAY_HOURS`` hours (the hour walls, the closing |MBR| < 2e-3,
+    host reads); (ii) the mesh leg, the bundle hour on a (1,
+    1) mesh at full size, against the one-device bundle hour (phase 3's in
+    ``refs["bundle"]``, run here when None): the same stats and host reads,
+    heads bit-equal, one launch a bundle; (iii) trace_coupled's roll-up of
+    the coupled hour (phase 3e's ``trace``; ``trace_coupled.trace`` at
+    coarsen 4 when None): its layers sum to its busy time. Returns what it
+    measured. ``dev="cpu"`` with a small ``n`` rehearses it on the CPU (no
+    device time: the roll-up is 0)."""
+    import torch
+    from criteria3d_tpu_torch import SolverParameters, bench, trace_coupled
+    from criteria3d_tpu_torch.problems import synthetic_catchment
+    from criteria3d_tpu_torch.solver.jacobi_bundle import SWEEPS_PER_BUNDLE as K
+    start = t0 = time.time()
+    parts = {}
+    dem = bench.Dem(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768), -9999.0,
+                    4.0, f"synthetic_catchment(seed={seed})")
+    day_grid = bench.build_grid(BENCH_DAY_COARSEN, dev, dem)
+    day = bench.day_leg(day_grid, SolverParameters.fast_f32(), hours=BENCH_DAY_HOURS)
+    del day["out"]
+    walls = day["hour_walls_s"]
+    print(f"# 3w day leg at coarsen {BENCH_DAY_COARSEN} ({day_grid.n_nodes} nodes, "
+          f"{card}): {day['wall_s']} s for its first {BENCH_DAY_HOURS} hours; hour walls "
+          f"{walls} s; host reads {day['host_reads']} ({sum(day['host_reads'])} in all); "
+          f"closing MBR {day['mbr']}; peak memory {day['peak_gib']} GiB", flush=True)
+    check(len(walls) == BENCH_DAY_HOURS, f"3w: the day ran {len(walls)} hours")
+    check(abs(day["mbr"]) < 2e-3, f"3w: the day's closing |MBR| {day['mbr']} >= 2e-3")
+    del day_grid
+    parts["day"] = time.time() - t0
+    t0 = time.time()
+    ref = refs["bundle"] if refs else one_device_hour("bundle", seed, dev, n)
+    ml = bench.mesh_leg(ref["grid"].to(dev))
+    h = ml.pop("out").h.to("cpu")
+    dh = float((h - ref["h"]).abs().max())
+    print(f"# 3w mesh leg, {ml['mesh']} blocks on {dev} ({card}): stats {ml['stats']} "
+          f"(one device {ref['stats']}), whole-period MBR {ml['mbr']}, walls {ml['runs_s']} "
+          f"s (median {ml['wall_s']}), host reads {ml['host_reads']} (one device "
+          f"{ref['reads']}), bundle launches {ml['launches']}, peak memory "
+          f"{ml['peak_gib']} GiB; heads against the one-device hour: max {dh} m",
+          flush=True)
+    check(tuple(ml["stats"]) == tuple(ref["stats"]),
+          f"3w: the mesh leg gave stats {ml['stats']}, one device {ref['stats']}")
+    check(torch.equal(h, ref["h"]), f"3w: the mesh leg's heads are {dh} m from one device's")
+    check(ml["host_reads"] == ref["reads"], f"3w: the mesh leg read the host "
+                                            f"{ml['host_reads']} times, one device {ref['reads']}")
+    if torch_device_type(dev) == "cuda":
+        check(ml["launches"] * K == ml["stats"][3],
+              f"3w: {ml['launches']} launches for {ml['stats'][3]} sweeps")
+    parts["mesh leg"] = time.time() - t0
+    t0 = time.time()
+    if trace is None:
+        trace = trace_coupled.trace(4, dev, dem)
+    layers, busy = trace["layers"], trace["busy_s"]
+    layer_sum = sum(layers.values())
+    print(f"# 3w coupled-trace roll-up ({card}): layers {layers} sum to {layer_sum} s "
+          f"of {busy} s busy; the activities' durations {trace['durations_s']} s, "
+          f"overlaps {trace['overlap_s']} s; a launch matched a range: "
+          f"{trace['matched']}; idle share {trace['idle_share']}", flush=True)
+    check(abs(layer_sum - busy) <= 1e-6 * busy,
+          f"3w: the trace's layers sum to {layer_sum} s, its busy time is {busy} s")
+    if torch_device_type(dev) == "cuda":
+        # the attribution itself: launches found in the layers' ranges and
+        # each water and heat layer with device time of its own; then the
+        # durations less their overlaps (each activity's own part, as the
+        # layers) against the busy union that roll_up merges apart
+        check(trace["matched"], "3w: no launch of the traced hour matched a layer's range")
+        for name in ("water assembly", "water inner solve", "heat assembly", "heat solve"):
+            check(layers[name] > 0.0, f"3w: the trace's {name} layer holds no device time")
+        check(layers["other"] < 0.5 * busy,
+              f"3w: {layers['other']} s of {busy} s busy charged to no layer")
+        check(abs(trace["durations_s"] - trace["overlap_s"] - busy) <= 1e-6 * busy,
+              f"3w: durations {trace['durations_s']} s less overlaps "
+              f"{trace['overlap_s']} s are not the busy {busy} s")
+    parts["trace"] = time.time() - t0
+    seconds = time.time() - start
+    print(f"# phase 3w took {seconds} s ({card}): " + "; ".join(
+        f"{k} {v} s" for k, v in parts.items()), flush=True)
+    return dict(day=day, mesh=ml, trace=trace, seconds=seconds, parts=parts)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    # one timed repeat of the bundle and CG-line storm hours (three until
-    # the project phases joined the run): the script stays near 600 s
-    ap.add_argument("--timed-hours", type=int, default=1)
     args = ap.parse_args()
 
     import torch
@@ -2960,8 +2943,10 @@ def main() -> int:
     for name, t in list(tensors_of(grid)) + list(tensors_of(state0)):
         check(t.device.type == "cuda", f"{name} is on {t.device}, not on the card")
 
-    out, stats, first_s, launches, syncs, mbr = first_hour(
-        "bundle hour", grid, params, state0)
+    # at most two runs: the script stays near 600 s
+    sl = storm_hour("bundle hour", grid, params, 2)
+    out, stats, wall, launches, syncs, mbr = (sl["out"], sl["stats"], sl["wall_s"],
+                                              sl["launches"], sl["host_reads"], sl["mbr"])
     # the hour's grid and states on the host for 3u (telemetry and the dump)
     storm = (grid.to("cpu"), params, state0.to("cpu"), out.to("cpu"))
     # the one-device hours that 3v partitions (phases 3-3c), on the host
@@ -2972,11 +2957,7 @@ def main() -> int:
     if args.seed == 0:   # the per-sweep design's trajectory: x and norm are bit-equal
         check(tuple(stats) == (91, 92, 193, 1640),
               f"seed 0 hour gave stats {stats}, not (91, 92, 193, 1640)")
-    walls = timed_hours(grid, params, state0, stats, args.timed_hours)
-    wall = statistics.median(walls) if walls else first_s
-    print(f"# bundle hour wall s: median {wall} of {walls}; host syncs per hour "
-          f"{syncs}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
+    del sl
     busy_s, per_name, _ = breakdown("bundle hour", water_hour(grid, params, state0), wall)
     jacobi_s = sum(v for k, v in per_name.items()
                    if any(name in k for name in JACOBI_KERNELS))
@@ -2992,20 +2973,21 @@ def main() -> int:
     print(f"# phase 3 done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 3b. the production preset: CG with the line preconditioner ------
+    from criteria3d_tpu_torch import bench
     p_cg = SolverParameters.fast_f32()
     check(p_cg.inner_solver == "cg" and p_cg.cg_precond == "line" and not p_cg.use_pallas,
           f"fast_f32() is not CG line: {p_cg}")
-    out, stats_cg, first_cg, launches_cg, syncs_cg, mbr_cg = first_hour(
-        "CG line hour", grid, p_cg, state0)
+    check(bench.storm_params({}) == p_cg, "the bench's storm leg is not fast_f32()")
+    sl = storm_hour("CG line hour", grid, p_cg, 2)
+    out, stats_cg, syncs_cg, mbr_cg = sl["out"], sl["stats"], sl["host_reads"], sl["mbr"]
+    wall_cg, launches_cg = sl["wall_s"], sl["launches"]
     check(launches_cg == 0, f"the CG hour launched {launches_cg} jacobi_bundle kernels")
+    if args.seed == 0:
+        check(tuple(stats_cg) == (45, 52, 164, 528),
+              f"seed 0 CG line hour gave stats {stats_cg}, not (45, 52, 164, 528)")
     refs["cg_line"] = dict(grid=storm[0], state0=storm[2], h=out.h.to("cpu"),
                            stats=tuple(stats_cg), reads=syncs_cg)
-    peak_cg = torch.cuda.max_memory_allocated() / 2**30
-    del out
-    walls_cg = timed_hours(grid, p_cg, state0, stats_cg, args.timed_hours)
-    wall_cg = statistics.median(walls_cg) if walls_cg else first_cg
-    print(f"# CG line hour wall s: median {wall_cg} of {walls_cg}; host syncs per "
-          f"hour {syncs_cg}; peak memory {peak_cg:.2f} GiB", flush=True)
+    del out, sl
     busy_cg, _, _ = breakdown("CG line hour", water_hour(grid, p_cg, state0), wall_cg)
     check(busy_cg > 0.0, "the profiler saw no device activity in the CG hour")
     del grid, state0
@@ -3014,17 +2996,16 @@ def main() -> int:
     # ---- 3c. the float64 parity path --------------------------------------
     p64 = SolverParameters()
     grid64, state64 = build_problem(dem, 4.0, p64, "cuda")
-    out, stats64, wall64, launches64, syncs64, mbr64 = first_hour(
-        "f64 hour", grid64, p64, state64)
-    check(launches64 == 0, f"the f64 hour launched {launches64} jacobi_bundle kernels")
+    sl = storm_hour("f64 hour", grid64, p64, 1)
+    out, stats64, wall64, syncs64, mbr64 = (sl["out"], sl["stats"], sl["wall_s"],
+                                            sl["host_reads"], sl["mbr"])
+    check(sl["launches"] == 0, f"the f64 hour launched {sl['launches']} jacobi_bundle kernels")
     # the f64 hour's grid is phase 3's (catchment_grid does not read params)
     refs["f64"] = dict(grid=storm[0], state0=state64.to("cpu"), h=out.h.to("cpu"),
                        stats=tuple(stats64), reads=syncs64)
-    print(f"# f64 hour peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
-          flush=True)
     busy64, _, _ = breakdown("f64 hour", water_hour(grid64, p64, state64), wall64)
     check(busy64 > 0.0, "the profiler saw no device activity in the f64 hour")
-    del out, grid64, state64
+    del out, sl, grid64, state64
     torch.cuda.empty_cache()
 
     print(f"# phases 3b-3c done at {time.time() - t_start:.1f} s", flush=True)
@@ -3036,48 +3017,30 @@ def main() -> int:
     print(f"# phase 3d done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 3e. the coupled water + heat storm hour --------------------------
-    from criteria3d_tpu_torch.problems import build_coupled_problem
-    from criteria3d_tpu_torch.solver import coupled as CP
-    from criteria3d_tpu_torch.solver.heat import HEAT_ASSEMBLE_RANGE, HEAT_SOLVE_RANGE
-    from criteria3d_tpu_torch.solver.step import ASSEMBLE_RANGE, SOLVE_RANGE
-    p_cp = SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=True)
-    gc, wc0, hc0, bc = build_coupled_problem(dem, 4.0, p_cp, "cuda")
-    cp = coupled_hour("coupled hour", gc, p_cp, wc0, hc0, bc)
-    full_wall_s = cp["wall_s"]
-    box = "768 box (2,945,852 nodes)"
-    if full_wall_s > 300.0:
-        # cut to a 384 box, as the time limit requires
-        del gc, wc0, hc0, bc
-        torch.cuda.empty_cache()
-        gc, wc0, hc0, bc = build_coupled_problem(
-            synthetic_catchment(args.seed, n=384, radius=183.0), 4.0, p_cp, "cuda")
-        box = f"384 box ({gc.n_nodes} nodes; the full box took {full_wall_s} s)"
-        cp = coupled_hour("coupled hour, 384 box", gc, p_cp, wc0, hc0, bc)
+    from criteria3d_tpu_torch import trace_coupled
+    from criteria3d_tpu_torch.problems import catchment_grid
+    cp = coupled_hour("coupled hour", catchment_grid(dem, 4.0, "cuda"), p_cg)
     # the one-device hour that 3v (iv) partitions, on the host
-    refs["coupled"] = dict(inputs=[x.to("cpu") for x in (gc, wc0, hc0, bc)],
+    refs["coupled"] = dict(inputs=[x.to("cpu") for x in cp["inputs"][1:]],
                            h=cp.pop("h"), t=cp.pop("t"), counts=cp["counts"],
                            reads=cp["syncs"])
-    busy_cp, _, layers_cp = breakdown(
-        "coupled hour", lambda: CP.compute_period_coupled(gc, p_cp, wc0, hc0, bc, 3600.0),
-        cp["wall_s"])
-    check(busy_cp > 0.0, "the profiler saw no device activity in the coupled hour")
-    named = {"water assembly": ASSEMBLE_RANGE, "water inner solve": SOLVE_RANGE,
-             "heat assembly": HEAT_ASSEMBLE_RANGE, "heat solve": HEAT_SOLVE_RANGE,
-             "other": "other"}
-    sweeps = cp["counts"]["heat_sweeps"]
-    heat_solve_s = layers_cp.get(HEAT_SOLVE_RANGE, 0.0)
+    # one more hour, profiled: trace_coupled's roll-up (3w holds its layers
+    # to its busy time)
+    trace = trace_coupled.traced_hour(cp.pop("inputs"), cp["wall_s"])
+    check(trace["busy_s"] > 0.0, "the profiler saw no device activity in the coupled hour")
+    layers_cp, sweeps = trace["layers"], cp["counts"]["heat_sweeps"]
     # a heat sweep's least bytes: b, c_up, c_down, 8 c_lat and x read as
     # float32, the bool mask, x written
-    sweep_bytes = gc.mask.numel() * (12 * 4 + 1 + 4)
-    print(f"# coupled hour on the {box}: device time by layer "
-          + "; ".join(f"{k} {layers_cp.get(v, 0.0)} s" for k, v in named.items())
-          + f"; heat sweep {heat_solve_s / max(sweeps, 1) * 1e3} ms of device time "
-          f"per sweep against a {sweep_bytes / HBM_BYTES_PER_S * 1e3} ms bound "
-          f"(bytes), {sweeps} sweeps per hour", flush=True)
-    del gc, wc0, hc0, bc
+    sweep_bytes = refs["coupled"]["inputs"][0].mask.numel() * (12 * 4 + 1 + 4)
+    print(f"# coupled hour breakdown: {trace['activities']} device activities, busy "
+          f"{trace['busy_s']} s, idle share {trace['idle_share']} of the median "
+          f"{cp['wall_s']} s; device time by layer "
+          + "; ".join(f"{k} {v} s" for k, v in layers_cp.items())
+          + f"; heat sweep {layers_cp['heat solve'] / max(sweeps, 1) * 1e3} ms of device "
+          f"time per sweep against a {sweep_bytes / HBM_BYTES_PER_S * 1e3} ms bound "
+          f"(bytes), {sweeps} sweeps per hour; top: " + "; ".join(
+              f"{k[:90]} {v:.4f} s x{n}" for k, v, n in trace["top"][:10]), flush=True)
     torch.cuda.empty_cache()
-
-    print(f"# phase 3e done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 3f. small coupled hours on the card against the CPU path --------
     for name in ("f64_vapor", "frozen_vapor"):
@@ -3102,9 +3065,12 @@ def main() -> int:
 
     # ---- 3v. the device mesh ------------------------------------------------
     vp = mesh_phases(args.seed, card, refs=refs)
+
+    # ---- 3w. the port's bench: the day and mesh legs, the trace -------------
+    wp = bench_phases(args.seed, card, refs=refs, trace=trace)
     del storm, refs
 
-    print(f"# phases 3g-3v done at {time.time() - t_start:.1f} s", flush=True)
+    print(f"# phases 3g-3w done at {time.time() - t_start:.1f} s", flush=True)
 
     # ---- 4. kernel line ---------------------------------------------------
     # the two designs in turns (tiled, per-sweep, per-sweep, tiled)
@@ -3157,6 +3123,9 @@ def main() -> int:
         "mesh_ms_per_bundle": vp["loops"]["meshes"][4]["ms"],
         "mesh_exchange_ms": vp["loops"]["meshes"][4]["exchange_ms"],
         "mesh_bound_ms": vp["loops"]["meshes"][4]["bound_ms"],
+        # launches in the bench's mesh leg (3w): the bundle hour on a (1, 1)
+        # mesh, one a bundle
+        "launches_bench_mesh_leg": wp["mesh"]["launches"],
         "variant": JB.tiled_variant(*inputs),
         "tile": TI,
         "sweeps_on_chip": S,
@@ -3167,7 +3136,7 @@ def main() -> int:
           f"wall_s={wall} host_syncs={syncs}; CG line stats={list(stats_cg)} "
           f"mbr={mbr_cg} wall_s={wall_cg} host_syncs={syncs_cg}; f64 "
           f"stats={list(stats64)} mbr={mbr64} wall_s={wall64} "
-          f"host_syncs={syncs64}; coupled ({box}) counts={cp['counts']} "
+          f"host_syncs={syncs64}; coupled (768 box) counts={cp['counts']} "
           f"mbr={cp['mbr']} heat_mbr={cp['heat_mbr']} wall_s={cp['wall_s']} "
           f"host_syncs={cp['syncs']}; model cycle ({mp['box']}) walls={mp['walls']} "
           f"host_syncs={mp['syncs']} peak_gib={mp['peak_gib']:.2f}; coupled model hour "
@@ -3207,7 +3176,9 @@ def main() -> int:
               for form, h in vp["hours"].items()) + "; scaling legs " + "; ".join(
               f"{k} {v['step_s']} s/step efficiency {v['efficiency']}"
               for k, v in vp["scaling"]["devices"].items()) + "; phase 3v "
-          f"{vp['seconds']:.1f} s; script "
+          f"{vp['seconds']:.1f} s; bench day leg {wp['day']['wall_s']} s mbr="
+          f"{wp['day']['mbr']}; bench mesh leg stats={list(wp['mesh']['stats'])} "
+          f"wall_s={wp['mesh']['wall_s']}; phase 3w {wp['seconds']:.1f} s; script "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

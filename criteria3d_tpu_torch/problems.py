@@ -39,9 +39,9 @@ from criteria3d_tpu_torch.solver import heat as H
 from criteria3d_tpu_torch.solver.step import (compute_period_stats,
                                               initialize_balance)
 
-__all__ = ["synthetic_catchment", "build_problem", "small_hour",
+__all__ = ["synthetic_catchment", "build_problem", "storm_state", "small_hour",
            "SMALL_CONFIGS", "build_coupled_problem", "heat_column",
-           "small_coupled_hour", "SMALL_COUPLED_CONFIGS",
+           "coupled_storm", "small_coupled_hour", "SMALL_COUPLED_CONFIGS",
            "catchment_grid", "build_model_problem", "model_day_forcing",
            "MODEL_CONFIG", "small_model", "write_project", "HYDRALL_CONFIG",
            "forest_mask", "build_hydrall_problem", "small_hydrall_model",
@@ -100,8 +100,16 @@ def build_problem(dem, cell, params, device, *, psi0=-2.0, rain=0.020, **grid_kw
     benchmark builds its storm hour (``grid_kw``: :func:`catchment_grid`'s
     layers and soil)."""
     grid = catchment_grid(dem, cell, device, **grid_kw)
+    return grid, storm_state(grid, params, psi0=psi0, rain=rain)
+
+
+def storm_state(grid: Grid, params: SolverParameters, psi0: float = -2.0,
+                rain: float = 0.020) -> WaterState:
+    """The initial state of the benchmark's storm on ``grid``: uniform
+    matric potential ``psi0`` [m], the balance set to its storage, and
+    ``rain`` [m/h] on the surface."""
     state = WaterState.initialize(grid, params, matric_potential=psi0,
-                                  device=device)
+                                  device=grid.device)
     state = initialize_balance(grid, params, state)
     sink = torch.zeros_like(state.sink_source)
     # a fill of the state's dtype: torch.where of two Python numbers is
@@ -109,7 +117,7 @@ def build_problem(dem, cell, params, device, *, psi0=-2.0, rain=0.020, **grid_kw
     sink[0] = torch.where(grid.mask[0],
                           torch.full_like(sink[0], rain * float(grid.area) / 3600.0),
                           0.0)
-    return grid, dataclasses.replace(state, sink_source=sink)
+    return dataclasses.replace(state, sink_source=sink)
 
 
 def small_hour(params: SolverParameters, device, n: int = 16):
@@ -160,6 +168,13 @@ def build_coupled_problem(dem, cell, params, device, **kw):
     humidity, 3 m/s wind and 80 W/m2 net irradiance. Returns ``(grid,
     water, heat, boundary)``."""
     grid, water = build_problem(dem, cell, params, device, **kw)
+    return coupled_storm(grid, params, water)
+
+
+def coupled_storm(grid: Grid, params: SolverParameters, water: WaterState):
+    """:func:`build_coupled_problem`'s hour on ``grid`` from the storm
+    state ``water``: ``(grid with HeatSurface nodes, water, heat,
+    boundary)``."""
     grid = with_heat_surface(grid)
     heat, boundary = initial_heat(grid, params, water, 288.15,
                                   air_temperature=291.15, rel_humidity=85.0,

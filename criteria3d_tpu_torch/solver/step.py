@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -63,7 +64,8 @@ ASSEMBLE_RANGE = "c3d.assemble"
 SOLVE_RANGE = "c3d.inner_solve"
 
 __all__ = ["compute_step", "compute_period", "compute_period_stats",
-           "initialize_balance", "check_supported", "restore_best_step"]
+           "initialize_balance", "check_supported", "restore_best_step",
+           "CGOperators", "cg_operators", "cg_start", "cg_iteration"]
 
 # step outcome codes (balanceResult_t, types.h:174)
 RUNNING = 0
@@ -211,6 +213,100 @@ def _jacobi_solve(system: W.LinearSystem, x0: torch.Tensor, grid: Grid,
     return x, diverged, it
 
 
+class CGOperators(NamedTuple):
+    """One CG solve's operators on an assembled system (:func:`cg_operators`):
+    the preconditioner ``precond(s)``, the D-weighted dot product
+    ``mdot(a, b)`` and the psi-weighted mean norm ``weight_norm(z, x)``, each
+    over the blocks on a mesh, with the system, grid, ring width, the
+    working dtype and the heads' elevation field in that dtype."""
+    system: W.LinearSystem
+    grid: Grid
+    ring: int
+    dtype: torch.dtype
+    z_field: torch.Tensor
+    precond: Callable
+    mdot: Callable
+    weight_norm: Callable
+
+
+def cg_operators(system: W.LinearSystem, grid: Grid, params: SolverParameters,
+                 psi_form: bool, dt: torch.dtype) -> CGOperators:
+    """The operators of :func:`_cg_solve` in the working dtype ``dt``."""
+    home = _home(grid)
+    ring = _ring(grid)
+    diag = bmap(lambda sy: sy.diag.to(dt), system)
+    z_field = bmap(lambda g: g.z.to(dt), grid)
+    line = params.cg_precond == "line"
+    n_nodes = scalar(float(first_block(grid).n_nodes), dt, home)
+
+    def precond_block(sy, g, s):
+        if line:
+            return torch.where(g.mask, W.tridiag_vertical_solve(
+                sy.c_up, sy.c_down, s), 0.0)
+        return s
+
+    def precond(s):
+        return bmap(precond_block, system, grid, s)
+
+    def weight_sum(g, zf, z, x):
+        apsi = torch.abs(x) if psi_form else torch.abs(x - zf)
+        w = torch.where(apsi > 1.0, 1.0 / apsi, 1.0)
+        return owned(torch.where(g.mask, torch.abs(z) * w, 0.0), ring).sum()
+
+    def weight_norm(z, x):
+        return block_sum(bmap(weight_sum, grid, z_field, z, x)) / n_nodes
+
+    def dot_sum(g, d, a, b):
+        return owned(torch.where(g.mask, d * a * b, 0.0), ring).sum(
+            dtype=torch.float64)
+
+    def mdot(a, b):
+        # <a, b>_D: products in the working dtype, summed in float64 (the
+        # balance gate's precision), cast back
+        return block_sum(bmap(dot_sum, grid, diag, a, b)).to(dt)
+
+    return CGOperators(system, grid, ring, dt, z_field, precond, mdot, weight_norm)
+
+
+def cg_start(ops: CGOperators, x_init):
+    """The solve's start from ``x_init``: ``(s, p, rho, norm0)``, the scaled
+    residual, the first direction, r . M^-1 r and the residual's norm."""
+    s = bmap(lambda sy, g, x: torch.where(
+        g.mask, sy.b + W.stencil_apply(sy, x) - x, 0.0), ops.system, ops.grid, x_init)
+    p = ops.precond(s)
+    return s, p, ops.mdot(s, p), ops.weight_norm(s, x_init)
+
+
+def cg_iteration(ops: CGOperators, x, s, p, rho, best, tol_t):
+    """One iteration of :func:`_cg_solve`'s loop, on the device: p's rings
+    exchanged on a mesh, the scaled matvec, the updates, the norm and the
+    best norm so far. Returns ``(x, s, p, rho, best, converged,
+    diverged)``, the flags 0-d tensors (the solve reads them together,
+    once an iteration)."""
+    system, grid = ops.system, ops.grid
+    if ops.ring:
+        p = exchange(p)
+    w = bmap(lambda sy, g, p: torch.where(
+        g.mask, p - W.stencil_apply(sy, p), 0.0), system, grid, p)  # D^-1 A p
+    pAp = ops.mdot(p, w)
+    breakdown = pAp <= 0.0
+    # guarded divisions, as in JAX (step.py:205, :210)
+    alpha = torch.where(breakdown, 0.0,
+                        rho / torch.where(pAp != 0.0, pAp, 1.0))
+    x = bmap(lambda g, x, p: torch.where(
+        g.mask, x + alpha.to(x.device) * p, 0.0), grid, x, p)
+    s = bmap(lambda g, s, w: torch.where(
+        g.mask, s - alpha.to(s.device) * w, 0.0), grid, s, w)
+    z = ops.precond(s)
+    rho_new = ops.mdot(s, z)
+    beta = rho_new / torch.where(rho != 0.0, rho, 1.0)
+    p = bmap(lambda z, p: z + beta.to(z.device) * p, z, p)
+    norm = ops.weight_norm(s, x)
+    converged = norm < tol_t
+    div = breakdown | (~converged & (norm > best * 10.0))
+    return x, s, p, rho_new, torch.minimum(best, norm), converged, div
+
+
 def _cg_solve(system: W.LinearSystem, x_init: torch.Tensor, grid: Grid,
               params: SolverParameters, max_iter: int, tol: float,
               psi_form: bool):
@@ -239,71 +335,15 @@ def _cg_solve(system: W.LinearSystem, x_init: torch.Tensor, grid: Grid,
     matvec; x then stays exact on the rings (every update adds a fresh p),
     so the solution leaves with fresh rings.
     """
-    first = first_block(x_init)
-    dt = first.dtype
-    home = _home(grid)
-    ring = _ring(grid)
-    diag = bmap(lambda sy: sy.diag.to(dt), system)
-    z_field = bmap(lambda g: g.z.to(dt), grid)
-    line = params.cg_precond == "line"
-    n_nodes = scalar(float(first_block(grid).n_nodes), dt, home)
-    tol_t = scalar(tol, dt, home)
-
-    def precond(sy, g, s):
-        if line:
-            return torch.where(g.mask, W.tridiag_vertical_solve(
-                sy.c_up, sy.c_down, s), 0.0)
-        return s
-
-    def weight_sum(g, zf, z, x):
-        apsi = torch.abs(x) if psi_form else torch.abs(x - zf)
-        w = torch.where(apsi > 1.0, 1.0 / apsi, 1.0)
-        return owned(torch.where(g.mask, torch.abs(z) * w, 0.0), ring).sum()
-
-    def weight_norm(z, x):
-        return block_sum(bmap(weight_sum, grid, z_field, z, x)) / n_nodes
-
-    def dot_sum(g, d, a, b):
-        return owned(torch.where(g.mask, d * a * b, 0.0), ring).sum(
-            dtype=torch.float64)
-
-    def mdot(a, b):
-        # <a, b>_D: products in the working dtype, summed in float64 (the
-        # balance gate's precision), cast back
-        return block_sum(bmap(dot_sum, grid, diag, a, b)).to(dt)
-
-    s = bmap(lambda sy, g, x: torch.where(
-        g.mask, sy.b + W.stencil_apply(sy, x) - x, 0.0), system, grid, x_init)
-    p = bmap(precond, system, grid, s)
-    rho = mdot(s, p)                                 # r . M^-1 r
-    norm0 = weight_norm(s, x_init)
+    ops = cg_operators(system, grid, params, psi_form, first_block(x_init).dtype)
+    tol_t = scalar(tol, ops.dtype, _home(grid))
+    s, p, rho, norm0 = cg_start(ops, x_init)
     best = torch.maximum(norm0, tol_t)
     # a solve may take no iteration at all
     done = bool(host_read(norm0 < tol_t))
     x, it, diverged = x_init, 0, False
     while not done and it < max_iter:
-        if ring:
-            p = exchange(p)
-        w = bmap(lambda sy, g, p: torch.where(
-            g.mask, p - W.stencil_apply(sy, p), 0.0), system, grid, p)  # D^-1 A p
-        pAp = mdot(p, w)
-        breakdown = pAp <= 0.0
-        # guarded divisions, as in JAX (step.py:205, :210)
-        alpha = torch.where(breakdown, 0.0,
-                            rho / torch.where(pAp != 0.0, pAp, 1.0))
-        x = bmap(lambda g, x, p: torch.where(
-            g.mask, x + alpha.to(x.device) * p, 0.0), grid, x, p)
-        s = bmap(lambda g, s, w: torch.where(
-            g.mask, s - alpha.to(s.device) * w, 0.0), grid, s, w)
-        z = bmap(precond, system, grid, s)
-        rho_new = mdot(s, z)
-        beta = rho_new / torch.where(rho != 0.0, rho, 1.0)
-        p = bmap(lambda z, p: z + beta.to(z.device) * p, z, p)
-        rho = rho_new
-        norm = weight_norm(s, x)
-        converged = norm < tol_t
-        div = breakdown | (~converged & (norm > best * 10.0))
-        best = torch.minimum(best, norm)
+        x, s, p, rho, best, converged, div = cg_iteration(ops, x, s, p, rho, best, tol_t)
         it += 1
         flags = int(host_read((converged | div).to(torch.int32)
                               + 2 * div.to(torch.int32)))
@@ -317,7 +357,7 @@ def _cg_solve(system: W.LinearSystem, x_init: torch.Tensor, grid: Grid,
         x = x.clone()
         x[0] = torch.maximum(x[0], floor0)
         return torch.where(g.mask, x, 0.0)
-    return bmap(clamp, grid, z_field, x), diverged, it
+    return bmap(clamp, grid, ops.z_field, x), diverged, it
 
 
 def _decimal_floor_dt(dt: float) -> float:

@@ -252,8 +252,8 @@ def test_port_imports_no_jax():
     writer pool, its report, and the command shell; the interpolation and
     side library: a local-detrending map on a 12 x 12 box, ordinary
     kriging, a watershed extraction, a NetCDF round trip and a balance
-    report; a 2 x 2 CPU mesh's bundle loop) without loading JAX or the JAX
-    package."""
+    report; a 2 x 2 CPU mesh's bundle loop; the bench's storm, day, coupled
+    and mesh legs on a 16 box) without loading JAX or the JAX package."""
     code = textwrap.dedent("""
         import dataclasses, sys, tempfile
         import numpy as np, torch
@@ -385,6 +385,18 @@ def test_port_imports_no_jax():
         xs, ds, ns = jacobi_bundle.jacobi_solve_loop(*inp, 40, 1e-7, 1200)
         assert mesh.shape == {"row": 2, "col": 2} and torch.equal(xm, xs) and nm == ns
         assert scaling_bench.sloped_dem(8, 8).shape == (8, 8)
+        from criteria3d_tpu_torch import bench, profile_breakdown, trace_coupled
+        from criteria3d_tpu_torch.utils import profiling
+        d16 = bench.Dem(problems.synthetic_catchment(0, n=16, radius=7.625), -9999.0,
+                        4.0, "synthetic_catchment(seed=0)")
+        g16, p16 = bench.build_grid(1, "cpu", d16), bench.storm_params({})
+        assert bench.storm_leg(g16, p16)["stats"][0] > 0
+        day = bench.day_leg(bench.build_grid(2, "cpu", d16), p16, hours=2, storm_hours=1)
+        assert len(day["hour_walls_s"]) == 2 and abs(day["mbr"]) < 2e-3
+        assert bench.coupled_leg(g16, p16, {})["counts"]["heat_sweeps"] > 0
+        assert bench.mesh_leg(g16)["stats"][3] > 0
+        assert profiling.roll_up([], {}, []).busy_s == 0.0
+        assert callable(profile_breakdown.profile) and callable(trace_coupled.trace)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "criteria3d_tpu"
                or m.startswith("criteria3d_tpu.")]
