@@ -21,27 +21,36 @@ Phases (any failed check exits non-zero before the last line):
    catchment at the scale of the Ravone benchmark (768 x 768 box of 4 m
    cells, a disc of 420,836 valid cells, 7 layers, 2,945,852 nodes) under
    ``SolverParameters.fast_f32(use_pallas=True)``, through the port bench's
-   storm leg (``bench.storm_leg``: ``compute_period_stats`` under bench.py's
-   sampling rule, at most 2 runs), with the kernel's launch count read from
-   the last run (at ``--seed 0`` the stats must be (91, 92, 193, 1640), the
-   per-sweep design's); then once more under torch.profiler for the
-   device-time breakdown; then a small locked-dt hour on the card against
-   the same hour on the CPU (the plain twin);
+   storm leg (``bench.storm_leg``: ``compute_period_stats``, one run),
+   graph-driven (the period's state machine
+   as CUDA graphs, ``solver/device_loop.py``, captured before the runs),
+   with the kernel's launch count read from the last run (at ``--seed 0``
+   the stats must be (91, 92, 193, 1640), the per-sweep design's); then
+   (3x) once more eager-driven under torch.profiler, for the device-time
+   breakdown (a replayed graph shows the profiler its launches, not the
+   units' ranges) and as the graph driver's reference: the same stats,
+   MBR, launches, heads bit-equal, the graph hour's host reads at most 5 %
+   of the eager hour's, its peak memory at most 2 x; then a small
+   locked-dt hour on the card against the same hour on the CPU (the plain
+   twin);
 3b. the production preset ``SolverParameters.fast_f32()`` (CG with the
    vertical-line preconditioner) on the same storm hour through the port
-   bench's storm leg (at most 2 runs under bench.py's sampling rule):
-   stats ((45, 52, 164, 528) at ``--seed 0``), MBR (|MBR| < 2e-3), the
-   walls and their median, host syncs, the profiled breakdown and peak
-   memory; no ``jacobi_bundle`` launch, every output on the card;
+   bench's storm leg (one run, graph-driven): stats ((45, 52, 164, 528) at
+   ``--seed 0``), MBR (|MBR| < 2e-3), the wall, host syncs, peak memory;
+   no ``jacobi_bundle`` launch, every output on the card; then 3x's eager
+   profiled hour and checks;
 3c. the float64 parity path ``SolverParameters()`` (per-sweep float64
    Jacobi, tolerance 1e-10) on the same storm hour at full size, once
-   through the bench's storm leg (then once more, profiled): stats, MBR
-   (|MBR| < 2e-3), wall, host syncs, the breakdown; no ``jacobi_bundle`` launch, float64 heads on
-   the card;
-3d. small locked-dt hours on the card against the port's CPU path: the
-   float64 path, ``fast_f32()`` CG line, and ``fast_f32()`` CG diag with
-   ``track_link_flow``: the same steps, attempts and approximations; heads
-   within 1e-6 m (f64) or 1e-4 m, link flows within 1e-3 of their max;
+   through the bench's storm leg (graph-driven), then 3x's eager profiled
+   hour and checks: stats, MBR (|MBR| < 2e-3), wall, host syncs, the
+   breakdown; no ``jacobi_bundle`` launch, float64 heads on the card;
+3d. small locked-dt hours on the card (graph-driven) against the port's
+   CPU path (eager): the float64 path, ``fast_f32()`` CG line, and
+   ``fast_f32()`` CG diag with ``track_link_flow``: the same steps,
+   attempts and approximations; heads within 1e-6 m (f64) or 1e-4 m, link
+   flows within 1e-3 of their max. ``graph_phases(seed, card)`` runs 3x
+   and 3d on their own (``dev="cpu", n=32`` rehearses them on the CPU,
+   where both hours are eager);
 3e. the coupled water + heat storm hour through the port bench's coupled
    leg (``bench.coupled_leg``, bench.py's: ``fast_f32(heat_vapor=True,
    heat_frozen_props=True)``, every layer-1 node a HeatSurface, one run)
@@ -227,7 +236,10 @@ Phases (any failed check exits non-zero before the last line):
    design's time in the same run, its halo mode's error, its launches
    in the 3i model hour (and 0 in the 3o vineyard, 3q shell and 3r
    meteo-grid hours), in 3v's mesh hour and in 3w's mesh leg, and 3v's ms,
-   exchange ms and bound of a 2 x 2 mesh bundle;
+   exchange ms and bound of a 2 x 2 mesh bundle; and the graph machine
+   (``csrc/graph_machine.cu``, the loop nest's control): its launches in
+   phase 3's timed hour (counted from 0 just before it), its control time per unit against the eager driver's
+   host read, the capture seconds;
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -240,8 +252,9 @@ and ``c3d.outputs`` ranges, HYDRALL's ``c3d.hydrall``, the vineyard's
 ``c3d.detrending``, and the rest (``utils/profiling.py``). It imports
 nothing of JAX and nothing of the JAX package. ``side_phases(seed, card)``
 runs 3m-3p alone, ``shell_phases(seed, card)`` 3q-3s,
-``library_phases(seed, card)`` 3t-3u, ``mesh_phases(seed, card)`` 3v and
-``bench_phases(seed, card)`` 3w; with ``dev="cpu"`` and a small
+``library_phases(seed, card)`` 3t-3u, ``mesh_phases(seed, card)`` 3v,
+``bench_phases(seed, card)`` 3w and ``graph_phases(seed, card)`` 3x with
+3d; with ``dev="cpu"`` and a small
 ``n`` they rehearse them on the CPU. ``mesh_cards(seed, card)`` runs 3v's
 loop, the partitioned bundle and coupled hours (each card's peak memory
 against the one-card hour's; ``mesh_cards_coupled`` the coupled one alone)
@@ -259,6 +272,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 try:
     from criteria3d_tpu_torch.utils.profiling import (F32_FLOPS, FLOPS_PER_NODE_NORM,
@@ -331,12 +345,6 @@ JACOBI_KERNELS = ("tile_live_kernel", "tiled_resident_kernel", "tiled_sweeps_ker
                   "plane_sum_kernel", "::sum_kernel(")
 
 
-def water_hour(grid, params, state):
-    """The water hour as a zero-argument call, for :func:`breakdown`."""
-    from criteria3d_tpu_torch.solver.step import compute_period_stats
-    return lambda: compute_period_stats(grid, params, state, 3600.0)
-
-
 def storm_hour(label, grid, params, max_runs: int) -> dict:
     """A storm hour through the port bench's storm leg (``bench.storm_leg``:
     bench.py's sampling, at most ``max_runs`` runs, every count set to 0
@@ -348,7 +356,8 @@ def storm_hour(label, grid, params, max_runs: int) -> dict:
     print(f"# {label} (the bench's storm leg): stats (steps, attempts, approximations, "
           f"inner iterations) = {sl['stats']} whole-period MBR={sl['mbr']} walls "
           f"{sl['runs_s']} s, median {sl['wall_s']}; bundle launches={sl['launches']} "
-          f"host syncs={sl['host_reads']}; peak memory {sl['peak_gib']} GiB",
+          f"graph machine launches={sl['graph_launches']} host syncs={sl['host_reads']}; "
+          f"peak memory {sl['peak_gib']} GiB",
           flush=True)
     check_hour(label, sl["out"], params, sl["mbr"])
     return sl
@@ -365,12 +374,101 @@ def check_hour(label, out, params, mbr) -> None:
     check(abs(mbr) < 2e-3, f"{label}: |whole-period MBR| {mbr} >= 2e-3")
 
 
+def eager_hour(label, grid, params, wall_s) -> dict:
+    """The storm hour (the bench's storm leg's: ``problems.storm_state``)
+    under the eager driver (``device_loop.forced_eager``),
+    the graph driver's reference, profiled on the card for the layer
+    breakdown (a graph's replay shows the profiler its launches, not the
+    ranges of the units): the kept graph machine dropped first, then the
+    hour's stats, MBR, heads, bundle launches, host reads, (profiled) wall,
+    peak memory and the breakdown (busy seconds, per kernel, per layer)."""
+    import torch
+    from criteria3d_tpu_torch.bench import sync
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.problems import storm_state
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    dev = grid.device
+    device_loop.clear()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    state0 = storm_state(grid, params)
+    box = {}
+
+    def run():
+        host_read.count = 0
+        JB.jacobi_bundle.launches = 0
+        t0 = time.time()
+        out, stats = compute_period_stats(grid, params, state0, 3600.0)
+        sync(dev)
+        box.update(wall_s=time.time() - t0, out=out, stats=tuple(stats),
+                   host_reads=host_read.count, launches=JB.jacobi_bundle.launches,
+                   mbr=float(out.balance_whole.mbr))
+    with device_loop.forced_eager():
+        if dev.type == "cuda":
+            busy, per_name, layers = breakdown(f"{label} (eager-driven, profiled)", run, wall_s)
+        else:
+            run()
+            busy, per_name, layers = 1.0, {}, {}
+    box.update(busy_s=busy, per_name=per_name, layers=layers,
+               peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else None))
+    return box
+
+
+def graph_vs_eager(label, graph: dict, eager: dict, on_card: bool) -> dict:
+    """Phase 3x: a storm hour driven as CUDA graphs (``bench.storm_leg``)
+    against the same hour under the eager driver (:func:`eager_hour`): the
+    same stats, the same MBR, heads bit-equal, the same bundle launches;
+    on the card the graph driver ran, its host reads at most 5 % of the
+    eager hour's and its peak memory at most 2 x. Prints both drivers'
+    walls, reads, peaks, the units per launch and the capture seconds."""
+    import torch
+    gh, eh = graph["out"].h, eager["out"].h
+    same_h = torch.equal(gh, eh)
+    dh = float((gh - eh).abs().max())
+    ratio = graph["host_reads"] / max(eager["host_reads"], 1)
+    print(f"# 3x {label}: graph driver ({graph['driver']}{': ' + graph['why'] if graph['why'] else ''}; "
+          f"{graph['units_per_launch']} units per launch, capture {graph['capture_s']} s) "
+          f"stats {graph['stats']} MBR {graph['mbr']} walls {graph['runs_s']} s host reads "
+          f"{graph['host_reads']} bundle launches {graph['launches']} peak "
+          f"{graph['peak_gib']} GiB; eager driver stats {eager['stats']} MBR {eager['mbr']} "
+          f"wall {eager['wall_s']} s{' (profiled)' if on_card else ''} host reads {eager['host_reads']} bundle "
+          f"launches {eager['launches']} peak {eager['peak_gib']} GiB; reads graph / eager "
+          f"{ratio}; heads bit-equal {same_h} (max |dh| {dh} m)", flush=True)
+    check(tuple(graph["stats"]) == tuple(eager["stats"]),
+          f"3x {label}: graph stats {graph['stats']}, eager {eager['stats']}")
+    check(graph["mbr"] == eager["mbr"], f"3x {label}: MBR {graph['mbr']} vs {eager['mbr']}")
+    check(same_h, f"3x {label}: the graph-driven heads are {dh} m from the eager ones")
+    check(graph["launches"] == eager["launches"],
+          f"3x {label}: {graph['launches']} bundle launches, eager {eager['launches']}")
+    if on_card:
+        check(graph["driver"] == "graph", f"3x {label}: the card ran the {graph['driver']} driver")
+        check(ratio <= 0.05, f"3x {label}: graph reads {graph['host_reads']} > 5 % of "
+                             f"eager {eager['host_reads']}")
+        check(graph["peak_gib"] <= 2.0 * eager["peak_gib"],
+              f"3x {label}: graph peak {graph['peak_gib']} GiB > 2 x eager {eager['peak_gib']}")
+    return dict(stats=graph["stats"], mbr=graph["mbr"], graph_reads=graph["host_reads"],
+                eager_reads=eager["host_reads"], graph_wall_s=graph["wall_s"],
+                eager_wall_s=eager["wall_s"], capture_s=graph["capture_s"],
+                graph_peak_gib=graph["peak_gib"], eager_peak_gib=eager["peak_gib"],
+                launches=graph["launches"], dh_max=dh)
+
+
 def small_card_vs_cpu(name: str):
     """phase 3d: a small locked-dt hour on the card and on the CPU."""
     from criteria3d_tpu_torch.problems import SMALL_CONFIGS, small_hour
+    from criteria3d_tpu_torch.solver import device_loop
     make, h_tol = SMALL_CONFIGS[name]
     params = make()
+    device_loop.reset_counts()
     res = {dev: small_hour(params, dev) for dev in ("cuda", "cpu")}
+    # the card's hour graph-driven, the CPU's eager
+    check(device_loop.counts()["graph_periods"] == 1,
+          f"small hour {name}: the card's hour did not run graph-driven "
+          f"({device_loop.counts()})")
     (oc, sc), (op, sp) = res["cuda"], res["cpu"]
     dh = float((oc.h.cpu() - op.h).abs().max())
     line = (f"# small locked hour {name}: card {sc} MBR {float(oc.balance_whole.mbr)}; "
@@ -2477,17 +2575,20 @@ def mesh_form_params(form: str, mesh=None):
 
 
 def one_device_hour(form: str, seed: int, dev, n: int) -> dict:
-    """The storm hour of ``form`` on one device: the reference of a
-    partitioned hour (phases 3-3c give it in ``main``). The grid and
-    initial state stay on the host."""
+    """The storm hour of ``form`` on one device under the eager driver: the
+    reference of a partitioned hour (phases 3-3c give it in ``main``, with
+    the eager hour's reads). The grid and initial state stay on the host."""
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
     from criteria3d_tpu_torch.solver.step import compute_period_stats
+    from criteria3d_tpu_torch.solver import device_loop
     params = mesh_form_params(form)
     grid, state0 = build_problem(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768),
                                  4.0, params, dev)
     host_read.count = 0
-    out, stats = compute_period_stats(grid, params, state0, 3600.0)
+    # eager-driven, as a mesh runs: the host reads compare
+    with device_loop.forced_eager():
+        out, stats = compute_period_stats(grid, params, state0, 3600.0)
     return dict(grid=grid.to("cpu"), state0=state0.to("cpu"), h=out.h.to("cpu"),
                 stats=tuple(stats), reads=host_read.count)
 
@@ -2646,7 +2747,7 @@ def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
     """3v on a host with several cards (``main`` needs one and does not run
     it): the mesh of one block per card (``make_mesh()``): the mesh loop on
     phase 2's inputs against one card; the bundle storm hour on one card
-    and partitioned over the cards, each card's peak memory of the
+    (eager-driven, as a mesh runs) and partitioned over the cards, each card's peak memory of the
     partitioned hour at most 0.35 of the one-card hour's (nothing whole
     lives on a card: the grid and state are cut from the host); and the
     scaling bench's line, whose mesh leg takes one block per card."""
@@ -2655,6 +2756,7 @@ def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import make_mesh
     from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver.step import compute_period_stats
     check(torch.cuda.device_count() > 1, "mesh_cards needs more than one card")
     mesh = make_mesh()
@@ -2666,7 +2768,9 @@ def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
     torch.cuda.synchronize(0)
     torch.cuda.reset_peak_memory_stats(0)
     host_read.count = 0
-    out, stats = compute_period_stats(g0, params, s0, 3600.0)
+    # eager-driven, as the partitioned hour runs: reads and peaks compare
+    with device_loop.forced_eager():
+        out, stats = compute_period_stats(g0, params, s0, 3600.0)
     torch.cuda.synchronize(0)
     one_peak = torch.cuda.max_memory_allocated(0)
     ref = dict(grid=grid, state0=state0, h=out.h.to("cpu"), stats=tuple(stats),
@@ -2739,11 +2843,11 @@ def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
 def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> dict:
     """Phase 3v (the device mesh: the halo exchange, the mesh loop against
     the single-device loop, the three storm hours partitioned over 2 x 2
-    blocks, the scaling bench's line, phase 3e's coupled hour partitioned
-    over 2 x 2 blocks); returns what it measured. ``refs`` maps each of
-    MESH_FORMS and "coupled" to its one-device hour (phases 3-3c's and
-    3e's; run here when None). ``dev="cpu"`` with a small ``n`` rehearses
-    it on the CPU (no times, no launches)."""
+    blocks, the scaling bench's line, and phase 3e's coupled hour
+    partitioned over 2 x 2 blocks); returns what it measured.
+    ``refs`` maps each of MESH_FORMS and "coupled" to its one-device hour
+    (phases 3-3c's and 3e's; run here when None). ``dev="cpu"`` with a
+    small ``n`` rehearses it on the CPU (no times, no launches)."""
     from criteria3d_tpu_torch import scaling_bench
     t0 = time.time()
     parts = {}
@@ -2779,6 +2883,71 @@ def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> di
             f"{k} {v} s" for k, v in h["parts"].items()) for form, h in hours.items()),
         flush=True)
     return dict(loops=loops, hours=hours, scaling=scaling, seconds=seconds, parts=parts)
+
+
+# ----------------------------------------------------------------------
+# the water period as CUDA graphs against the eager driver (3x)
+# ----------------------------------------------------------------------
+
+GRAPH_FORMS = (("bundle", "bundle hour"), ("cg_line", "CG line hour"), ("f64", "f64 hour"))
+
+
+def graph_control_ms() -> tuple:
+    """The graph machine's control cost per unit against the eager
+    driver's, on the card: a small hour graph-driven keeps its machine; with
+    the phase set to a code that names no unit, one launch runs
+    ``UNITS_PER_LAUNCH`` empty units (CUDA events, per unit); the eager
+    driver's per-unit cost is one host read of the machine's status (CUDA
+    events around back-to-back reads)."""
+    import torch
+    from criteria3d_tpu_torch.bench_jacobi import cuda_ms
+    from criteria3d_tpu_torch.device import host_array
+    from criteria3d_tpu_torch.problems import SMALL_CONFIGS, small_hour
+    from criteria3d_tpu_torch.solver import device_loop
+    small_hour(SMALL_CONFIGS["cg_line"][0](), "cuda")
+    gm = device_loop._cache[0][1]
+    m = gm.machine
+    stream = torch.cuda.current_stream().cuda_stream
+    m.status[0].fill_(max(m.units()) + 1)
+    ms = cuda_ms(lambda: gm.lib.c3d_machine_launch(gm.exec, stream), reps=5,
+                 batches=3) / device_loop.UNITS_PER_LAUNCH
+    plain_ms = cuda_ms(lambda: host_array(m.status), reps=200, batches=3)
+    device_loop.clear()
+    return ms, plain_ms
+
+
+def graph_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
+    """Phase 3x on its own (``main`` runs it inside phases 3-3c and 3d):
+    the storm hour of the n x n synthetic catchment in the three forms of
+    the main path (the bundle, CG line, float64), graph-driven through the
+    bench's storm leg (one run, after the capture) and eager-driven
+    (:func:`eager_hour`), held to each other by :func:`graph_vs_eager`;
+    then on the card 3d's locked-dt hours, graph-driven, against the CPU.
+    Returns each form's numbers. ``dev="cpu"`` with a small ``n``
+    rehearses it on the CPU, where both hours run the eager driver."""
+    import torch
+    from criteria3d_tpu_torch import bench
+    from criteria3d_tpu_torch.problems import (SMALL_CONFIGS, catchment_grid,
+                                               synthetic_catchment)
+    from criteria3d_tpu_torch.solver import device_loop
+    start = time.time()
+    on_card = torch_device_type(dev) == "cuda"
+    dem = synthetic_catchment(seed, n=n, radius=n * 366.0 / 768)
+    grid = catchment_grid(dem, 4.0, dev)
+    out = {}
+    for form, label in GRAPH_FORMS:
+        params = mesh_form_params(form)
+        sl = bench.storm_leg(grid, params, 1)
+        ev = eager_hour(label, grid, params, sl["wall_s"])
+        out[form] = graph_vs_eager(label, sl, ev, on_card)
+        del sl, ev
+        device_loop.clear()
+    if on_card:
+        for name in SMALL_CONFIGS:
+            small_card_vs_cpu(name)
+    out["seconds"] = time.time() - start
+    print(f"# phase 3x took {out['seconds']} s ({card})", flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -2891,6 +3060,7 @@ def main() -> int:
         from criteria3d_tpu_torch import SolverParameters
         from criteria3d_tpu_torch.bench_jacobi import cuda_ms
         from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+        from criteria3d_tpu_torch.solver import device_loop
         from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     except ImportError as e:
         print(f"chip_smoke: the criteria3d_tpu_torch package is missing ({e}); "
@@ -2905,9 +3075,12 @@ def main() -> int:
     t_start = time.time()
 
     # ---- 1. build ---------------------------------------------------------
+    # one nvcc for each source, started together
     t0 = time.time()
-    lib = JB.build_library(verbose=True)
-    print(f"# built {lib} in {time.time() - t0:.1f} s", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda build: build(verbose=True),
+                             (JB.build_library, device_loop.build_library)))
+    print(f"# built {libs} in {time.time() - t0:.1f} s", flush=True)
 
     # ---- 2. kernel against plain version, on the card --------------------
     main_shape = (7, 768, 768)
@@ -2943,29 +3116,37 @@ def main() -> int:
     for name, t in list(tensors_of(grid)) + list(tensors_of(state0)):
         check(t.device.type == "cuda", f"{name} is on {t.device}, not on the card")
 
-    # at most two runs: the script stays near 600 s
-    sl = storm_hour("bundle hour", grid, params, 2)
+    # one run, graph-driven (the capture before it): the script stays near
+    # 600 s. The storm leg sets the counts of the bundle kernel and the
+    # graph machine to 0 just before the hour it times
+    sl = storm_hour("bundle hour", grid, params, 1)
+    graph_main = dict(launches=sl["graph_launches"], capture_s=sl["capture_s"])
+    check(graph_main["launches"] > 0, "the main path launched no graph machine")
     out, stats, wall, launches, syncs, mbr = (sl["out"], sl["stats"], sl["wall_s"],
                                               sl["launches"], sl["host_reads"], sl["mbr"])
-    # the hour's grid and states on the host for 3u (telemetry and the dump)
-    storm = (grid.to("cpu"), params, state0.to("cpu"), out.to("cpu"))
-    # the one-device hours that 3v partitions (phases 3-3c), on the host
-    refs = {"bundle": dict(grid=storm[0], state0=storm[2], h=storm[3].h,
-                           stats=tuple(stats), reads=syncs)}
     check(launches > 0, "the main path launched no jacobi_bundle kernel")
     check(launches * K == stats[3], f"launches {launches} x K != sweeps {stats[3]}")
     if args.seed == 0:   # the per-sweep design's trajectory: x and norm are bit-equal
         check(tuple(stats) == (91, 92, 193, 1640),
               f"seed 0 hour gave stats {stats}, not (91, 92, 193, 1640)")
+    # 3x: the same hour eager-driven and profiled (the layer breakdown)
+    ev = eager_hour("bundle hour", grid, params, wall)
+    gx = {"bundle": graph_vs_eager("bundle hour", sl, ev, True)}
+    # the hour's grid and states on the host for 3u (telemetry and the dump)
+    storm = (grid.to("cpu"), params, state0.to("cpu"), out.to("cpu"))
+    # the one-device hours that 3v partitions (phases 3-3c), on the host,
+    # with the eager driver's host reads (3v's and 3w's are eager too)
+    refs = {"bundle": dict(grid=storm[0], state0=storm[2], h=storm[3].h,
+                           stats=tuple(stats), reads=ev["host_reads"])}
     del sl
-    busy_s, per_name, _ = breakdown("bundle hour", water_hour(grid, params, state0), wall)
+    busy_s, per_name = ev["busy_s"], ev["per_name"]
     jacobi_s = sum(v for k, v in per_name.items()
                    if any(name in k for name in JACOBI_KERNELS))
-    print(f"# bundle hour: jacobi_bundle kernels {jacobi_s} s "
+    print(f"# bundle hour (eager-driven, profiled): jacobi_bundle kernels {jacobi_s} s "
           f"({jacobi_s / max(busy_s, 1e-30)} of device busy)", flush=True)
     check(jacobi_s > 0.0, f"{launches} bundles per hour, but the profiled "
                           "jacobi_bundle kernel time reads 0")
-    del out
+    del out, ev
 
     # small locked-dt hour: the card against the port's CPU path
     small_card_vs_cpu("bundle")
@@ -2978,19 +3159,19 @@ def main() -> int:
     check(p_cg.inner_solver == "cg" and p_cg.cg_precond == "line" and not p_cg.use_pallas,
           f"fast_f32() is not CG line: {p_cg}")
     check(bench.storm_params({}) == p_cg, "the bench's storm leg is not fast_f32()")
-    sl = storm_hour("CG line hour", grid, p_cg, 2)
+    sl = storm_hour("CG line hour", grid, p_cg, 1)
     out, stats_cg, syncs_cg, mbr_cg = sl["out"], sl["stats"], sl["host_reads"], sl["mbr"]
     wall_cg, launches_cg = sl["wall_s"], sl["launches"]
     check(launches_cg == 0, f"the CG hour launched {launches_cg} jacobi_bundle kernels")
     if args.seed == 0:
         check(tuple(stats_cg) == (45, 52, 164, 528),
               f"seed 0 CG line hour gave stats {stats_cg}, not (45, 52, 164, 528)")
+    ev = eager_hour("CG line hour", grid, p_cg, wall_cg)
+    gx["cg_line"] = graph_vs_eager("CG line hour", sl, ev, True)
     refs["cg_line"] = dict(grid=storm[0], state0=storm[2], h=out.h.to("cpu"),
-                           stats=tuple(stats_cg), reads=syncs_cg)
-    del out, sl
-    busy_cg, _, _ = breakdown("CG line hour", water_hour(grid, p_cg, state0), wall_cg)
-    check(busy_cg > 0.0, "the profiler saw no device activity in the CG hour")
-    del grid, state0
+                           stats=tuple(stats_cg), reads=ev["host_reads"])
+    check(ev["busy_s"] > 0.0, "the profiler saw no device activity in the CG hour")
+    del out, sl, ev, grid, state0
     torch.cuda.empty_cache()
 
     # ---- 3c. the float64 parity path --------------------------------------
@@ -3000,12 +3181,14 @@ def main() -> int:
     out, stats64, wall64, syncs64, mbr64 = (sl["out"], sl["stats"], sl["wall_s"],
                                             sl["host_reads"], sl["mbr"])
     check(sl["launches"] == 0, f"the f64 hour launched {sl['launches']} jacobi_bundle kernels")
+    ev = eager_hour("f64 hour", grid64, p64, wall64)
+    gx["f64"] = graph_vs_eager("f64 hour", sl, ev, True)
     # the f64 hour's grid is phase 3's (catchment_grid does not read params)
     refs["f64"] = dict(grid=storm[0], state0=state64.to("cpu"), h=out.h.to("cpu"),
-                       stats=tuple(stats64), reads=syncs64)
-    busy64, _, _ = breakdown("f64 hour", water_hour(grid64, p64, state64), wall64)
-    check(busy64 > 0.0, "the profiler saw no device activity in the f64 hour")
-    del out, sl, grid64, state64
+                       stats=tuple(stats64), reads=ev["host_reads"])
+    check(ev["busy_s"] > 0.0, "the profiler saw no device activity in the f64 hour")
+    del out, sl, ev, grid64, state64
+    device_loop.clear()
     torch.cuda.empty_cache()
 
     print(f"# phases 3b-3c done at {time.time() - t_start:.1f} s", flush=True)
@@ -3132,6 +3315,31 @@ def main() -> int:
         "modelled_bytes": modelled_bytes,
         "achieved_tb_s": modelled_bytes / (ms * 1e-3) * 1e-12,
     }]
+    gm_ms, gm_plain_ms = graph_control_ms()
+    print(f"# graph machine control per unit ({card}): {gm_ms} ms graph-driven (a switch "
+          f"on the phase and two one-thread kernels), {gm_plain_ms} ms eager-driven (one "
+          f"host read of the status); the main path's hour: {graph_main['launches']} "
+          f"launches, {graph_main['capture_s']} s of capture", flush=True)
+    kernels.append({
+        "name": "graph_machine",
+        "route": "cuda",
+        "source": "criteria3d_tpu_torch/csrc/graph_machine.cu",
+        # the loop nest's control: the lax.while_loops of the period and
+        # the step retries (the inner loops' are units of the same machine)
+        "replaces": "criteria3d_tpu/solver/step.py:677",
+        "launches": graph_main["launches"],
+        # heads of the graph-driven bundle hour against the eager driver's
+        "max_abs_err": gx["bundle"]["dh_max"],
+        "ms": gm_ms,
+        "plain_ms": gm_plain_ms,
+        # each unit reads the 8-byte phase twice and writes two 4-byte
+        # handles and a 4-byte count
+        "bound_ms": 28 / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "units_per_launch": device_loop.UNITS_PER_LAUNCH,
+        "capture_s": graph_main["capture_s"],
+    })
     print(f"# per simulated hour ({card}): bundle stats={list(stats)} mbr={mbr} "
           f"wall_s={wall} host_syncs={syncs}; CG line stats={list(stats_cg)} "
           f"mbr={mbr_cg} wall_s={wall_cg} host_syncs={syncs_cg}; f64 "
@@ -3165,7 +3373,11 @@ def main() -> int:
           f"{shp['grid']['interpolation_s'] / shp['grid']['busy_s']} (3k, 20 stations: "
           f"{pp['full']['interpolation_s'] / pp['full']['busy_s']}); shell and grid "
           f"32 box card/CPU walls={shp['small']['walls']} {shp['small']['walls_grid']}; "
-          f"phases 3q-3s {shp['seconds']:.1f} s; library 768 local map "
+          f"phases 3q-3s {shp['seconds']:.1f} s; graph vs eager (3x) " + "; ".join(
+              f"{form} reads {g['graph_reads']} / {g['eager_reads']} peak GiB "
+              f"{g['graph_peak_gib']:.3f} / {g['eager_peak_gib']:.3f} capture "
+              f"{g['capture_s']:.3f} s" for form, g in gx.items()) + "; "
+          f"library 768 local map "
           f"{lp['full']['records']['local_detrending_map'][0]} s (c3d.detrending "
           f"{lp['full']['detrending_s']} s of device time), window card/CPU "
           f"walls={lp['small']['walls']} differing cells={lp['small']['differ']}; host library "

@@ -25,15 +25,22 @@ JSON line with every key of ``bench.py``'s:
   runs the bundle): the bundle hour on a (1, 1) mesh, the grid and state
   cut by ``shard_pytree`` and joined by ``gather_pytree``; up to 3 runs.
 
-Each run ends in ``torch.cuda.synchronize()`` and the read of its MBR. The
+Each leg's water periods run under the graph driver on the card (the
+period's state machine as CUDA graphs, solver/device_loop.py), the coupled
+and mesh legs under the eager driver (heat hooks, a mesh); before a leg's
+timed runs a zero-length period captures the graphs, and the line gives
+each leg's driver, the units per launch and the capture seconds. Each run
+ends in
+``torch.cuda.synchronize()`` and the read of its MBR. The
 DEM is Ravone's where the C++ reference's data is at ``RAVONE``, else
 ``problems.synthetic_catchment(0)`` at Ravone's scale; ``vs_baseline`` and
 ``reference_cpu_wall_s`` divide by the C++ reference's time on Ravone
 (``BASELINE_REF.json``), so they are ``null`` on the synthetic catchment.
-``compile_s`` is the seconds the CUDA library took to build at first use
+``compile_s`` is the seconds the CUDA libraries took to build at first use
 (near 0 once built): nothing else is compiled. The line adds the card's
 name and power limit, the DEM, host reads and bundle launches per hour,
-the legs' counts and each leg's peak device memory.
+the legs' counts, the day's stats per period and each leg's peak device
+memory.
 """
 
 from __future__ import annotations
@@ -55,9 +62,10 @@ from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.core.state import SolverParameters
 from criteria3d_tpu_torch.device import host_read, resolve_device
 from criteria3d_tpu_torch.io.esri import read_flt
-from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh,
-                                                    shard_pytree)
+from criteria3d_tpu_torch.parallel.sharding import (Blocked, gather_pytree,
+                                                    make_mesh, shard_pytree)
 from criteria3d_tpu_torch.solver import coupled as C
+from criteria3d_tpu_torch.solver import device_loop
 from criteria3d_tpu_torch.solver import heat as H
 from criteria3d_tpu_torch.solver import jacobi_bundle as JB
 from criteria3d_tpu_torch.solver.step import compute_period_stats
@@ -65,7 +73,7 @@ from criteria3d_tpu_torch.solver.step import compute_period_stats
 __all__ = ["RAVONE", "Dem", "reference_wall_s", "load_dem", "coarsen_dem",
            "build_grid", "storm_params", "sync", "sample", "storm_leg", "day_leg",
            "coupled_heat_mbr", "coupled_setup", "coupled_leg", "mesh_leg",
-           "card_info", "bench", "main"]
+           "card_info", "prepare_driver", "bench", "main"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # bench.py's DEM: Ravone in the C++ reference's data
@@ -144,6 +152,9 @@ def sync(dev: torch.device) -> None:
 
 
 def _reset_peak(dev: torch.device) -> None:
+    """A leg's start: the graph machine an earlier leg kept is dropped, so
+    the leg's peak memory is its own."""
+    device_loop.clear()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -173,30 +184,48 @@ def sample(run, dev: torch.device, max_runs: int, long_s: float | None = None):
     return runs, statistics.median(runs), out
 
 
+def prepare_driver(grid, params: SolverParameters, state) -> dict:
+    """Ahead of a leg's timed runs: a zero-length period, in which the graph
+    driver builds and captures the machine (the eager driver runs no unit).
+    Returns the leg's driver, why it is eager (or ""), the units per launch
+    and the capture seconds."""
+    home = grid.mesh.home if isinstance(grid, Blocked) else grid.device
+    driver, why = device_loop.driver_for(home, params.mesh, False)
+    before = device_loop.counts()["capture_s"]
+    compute_period_stats(grid, params, state, 0.0)
+    sync(home)
+    return dict(driver=driver, why=why, units_per_launch=device_loop.UNITS_PER_LAUNCH,
+                capture_s=device_loop.counts()["capture_s"] - before)
+
+
 def _hour(grid, params, state):
-    """One hour with the host-read and launch counts set to 0 before it:
-    ``(state, stats, host reads, launches, whole-period MBR)``; the MBR's
-    read is the fence."""
+    """One hour with the host-read and launch counts and the drivers'
+    counts set to 0 before it: ``(state, stats, host reads, launches,
+    whole-period MBR, the graph driver's launches)``; the MBR's read is
+    the fence."""
     host_read.count = 0
     JB.jacobi_bundle.launches = 0
+    device_loop.reset_counts()
     out, stats = compute_period_stats(grid, params, state, 3600.0)
     mbr = float(out.balance_whole.mbr)
-    return out, tuple(stats), host_read.count, JB.jacobi_bundle.launches, mbr
+    return (out, tuple(stats), host_read.count, JB.jacobi_bundle.launches, mbr,
+            device_loop.counts()["launches"])
 
 
 def storm_leg(grid: Grid, params: SolverParameters, max_runs: int = 5) -> dict:
     """The storm hour from the storm's initial state, sampled as ``bench.py``
     samples it (up to ``max_runs`` runs): walls, median, and the last run's
-    stats, MBR, host reads, bundle launches and final state (``out``), the
-    leg's peak memory."""
+    stats, MBR, host reads, bundle launches, graph launches and final state
+    (``out``), the leg's peak memory and driver (:func:`prepare_driver`)."""
     dev = grid.device
     _reset_peak(dev)
     state0 = problems.storm_state(grid, params)
-    sync(dev)
-    runs, wall, (out, stats, reads, launches, mbr) = sample(
+    driver = prepare_driver(grid, params, state0)
+    runs, wall, (out, stats, reads, launches, mbr, graph_launches) = sample(
         lambda: _hour(grid, params, state0), dev, max_runs, 60.0)
     return dict(runs_s=runs, wall_s=wall, stats=stats, mbr=mbr, host_reads=reads,
-                launches=launches, peak_gib=_peak_gib(dev), out=out)
+                launches=launches, graph_launches=graph_launches,
+                peak_gib=_peak_gib(dev), out=out, **driver)
 
 
 def day_leg(grid: Grid, params: SolverParameters, hours: int = 24,
@@ -207,11 +236,12 @@ def day_leg(grid: Grid, params: SolverParameters, hours: int = 24,
     stats and host reads go to stderr as ``# day hour h``. Returns the
     day's wall, each hour's wall and host reads, every period's stats, the
     closing MBR (the last period's, read after the day) and the final
-    state, the leg's peak memory."""
+    state, the leg's peak memory and its driver (:func:`prepare_driver`,
+    before the day's clock starts)."""
     dev = grid.device
     _reset_peak(dev)
     state = problems.storm_state(grid, params)
-    sync(dev)
+    driver = prepare_driver(grid, params, state)
     walls, stats, reads = [], [], []
     t0 = time.perf_counter()
     for h in range(hours):
@@ -232,7 +262,7 @@ def day_leg(grid: Grid, params: SolverParameters, hours: int = 24,
               file=sys.stderr, flush=True)
     mbr = float(state.balance_whole.mbr)
     return dict(wall_s=time.perf_counter() - t0, hour_walls_s=walls, stats=stats,
-                host_reads=reads, mbr=mbr, peak_gib=_peak_gib(dev), out=state)
+                host_reads=reads, mbr=mbr, peak_gib=_peak_gib(dev), out=state, **driver)
 
 
 def coupled_heat_mbr(grid: Grid, params: SolverParameters, water, heat) -> float:
@@ -268,6 +298,8 @@ def coupled_leg(grid: Grid, params: SolverParameters, env=os.environ,
     inputs = coupled_setup(grid, params, env)
     hparams, hgrid, water0, heat0, boundary = inputs
     sync(dev)
+    # the heat hooks keep the coupled step under the eager driver
+    driver, why = device_loop.driver_for(dev, hparams.mesh, True)
 
     def run():
         C.reset_counts()
@@ -281,7 +313,8 @@ def coupled_leg(grid: Grid, params: SolverParameters, env=os.environ,
     runs, wall, (w, h, counts, reads, launches, mbr, heat_mbr) = sample(run, dev, max_runs)
     return dict(runs_s=runs, wall_s=wall, counts=counts, host_reads=reads,
                 launches=launches, mbr=mbr, heat_mbr=heat_mbr, out=(w, h),
-                inputs=inputs, peak_gib=_peak_gib(dev))
+                inputs=inputs, peak_gib=_peak_gib(dev), driver=driver, why=why,
+                units_per_launch=device_loop.UNITS_PER_LAUNCH, capture_s=0.0)
 
 
 def mesh_leg(grid: Grid) -> dict:
@@ -297,12 +330,12 @@ def mesh_leg(grid: Grid) -> dict:
     grid_m = shard_pytree(grid, mesh)
     state_m = shard_pytree(problems.storm_state(grid, params), mesh)
     pparams = dataclasses.replace(params, mesh=mesh)
-    sync(dev)
-    runs, wall, (out, stats, reads, launches, mbr) = sample(
+    driver = prepare_driver(grid_m, pparams, state_m)
+    runs, wall, (out, stats, reads, launches, mbr, _) = sample(
         lambda: _hour(grid_m, pparams, state_m), dev, 3)
     return dict(runs_s=runs, wall_s=wall, stats=stats, mbr=mbr, host_reads=reads,
                 launches=launches, peak_gib=_peak_gib(dev),
-                out=gather_pytree(out, dev), mesh=mesh.shape)
+                out=gather_pytree(out, dev), mesh=mesh.shape, **driver)
 
 
 def card_info() -> tuple[str, float]:
@@ -315,13 +348,22 @@ def card_info() -> tuple[str, float]:
 
 
 def _build_s(dev: torch.device) -> float | None:
-    """Seconds of ``JB.build_library()`` (near 0 once built); None off the
-    card, where nothing is built."""
+    """Seconds of building the CUDA libraries, the bundle kernel and the
+    graph machine (near 0 once built); None off the card, where nothing is
+    built."""
     if dev.type != "cuda":
         return None
     t0 = time.perf_counter()
     JB.build_library()
+    device_loop.build_library()
     return time.perf_counter() - t0
+
+
+def _driver_keys(result: dict, leg: str, out: dict) -> None:
+    """A leg's driver and capture seconds into the line."""
+    result.setdefault("driver", {})[leg] = out["driver"]
+    result.setdefault("capture_s", {})[leg] = out["capture_s"]
+    result["units_per_launch"] = out["units_per_launch"]
 
 
 def bench(env=os.environ, device=None, dem: Dem | None = None) -> dict:
@@ -366,6 +408,7 @@ def bench(env=os.environ, device=None, dem: Dem | None = None) -> dict:
         "bundle_launches_per_hour": storm["launches"],
         "peak_memory_gib": {"storm": storm["peak_gib"]},
     }
+    _driver_keys(result, "storm", storm)
     if dev.type == "cuda":
         result["card"], result["power_limit_w"] = card_info()
     else:
@@ -381,8 +424,11 @@ def bench(env=os.environ, device=None, dem: Dem | None = None) -> dict:
             result.update(sim_day_wall_s=day["wall_s"], sim_day_mbr=day["mbr"],
                           sim_day_coarsen=day_coarsen,
                           sim_day_hour_walls_s=day["hour_walls_s"],
-                          sim_day_host_reads=sum(day["host_reads"]))
+                          sim_day_host_reads=sum(day["host_reads"]),
+                          sim_day_host_reads_per_hour=day["host_reads"],
+                          sim_day_period_stats=[list(st) for st in day["stats"]])
             result["peak_memory_gib"]["day"] = day["peak_gib"]
+            _driver_keys(result, "day", day)
         except Exception as e:                            # noqa: BLE001
             print(f"# sim-day leg failed: {e!r}", file=sys.stderr)
 
@@ -401,6 +447,7 @@ def bench(env=os.environ, device=None, dem: Dem | None = None) -> dict:
             coupled_counts=cp["counts"],
             coupled_host_reads=cp["host_reads"])
         result["peak_memory_gib"]["coupled"] = cp["peak_gib"]
+        _driver_keys(result, "coupled", cp)
 
     if env.get("BENCH_PALLAS_LEG", "1") == "1" and not params.use_pallas:
         pallas_compile_s = _build_s(dev)
@@ -412,6 +459,7 @@ def bench(env=os.environ, device=None, dem: Dem | None = None) -> dict:
             pallas_stats=list(ml["stats"]), pallas_launches_per_hour=ml["launches"],
             pallas_mesh=[ml["mesh"]["row"], ml["mesh"]["col"]])
         result["peak_memory_gib"]["pallas"] = ml["peak_gib"]
+        _driver_keys(result, "pallas", ml)
     return result
 
 

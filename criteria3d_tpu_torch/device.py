@@ -1,4 +1,5 @@
-"""Device placement, dataclass-of-tensor helpers and the host-read counter.
+"""Device placement, dataclass-of-tensor helpers, the host-read counter
+and the counts a CUDA graph keeps on the card.
 
 The port's entry points build on the CUDA card unless the caller names
 another device; they never fall back to the CPU on their own.
@@ -6,13 +7,14 @@ another device; they never fall back to the CPU on their own.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
 __all__ = ["resolve_device", "input_device", "map_tensors", "scalar",
-           "host_read", "host_array"]
+           "host_read", "host_array", "tally", "tallies_on_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -82,3 +84,38 @@ def host_array(t: torch.Tensor) -> np.ndarray:
     copy waits for the work that makes ``t``."""
     host_read.count += 1
     return t.detach().cpu().numpy()
+
+
+# (function, attribute) -> the 0-d int64 tensor on the card that counts for
+# it while a CUDA graph captures (tallies_on_device)
+_DEVICE_TALLIES: dict = {}
+
+
+def tally(fn, attr: str, device: torch.device) -> None:
+    """Add one to the host count ``fn.<attr>`` (a kernel's launches, a
+    rare branch's calls). While a CUDA graph captures on ``device`` the
+    addition is captured instead, onto the count on the card that
+    :func:`tallies_on_device` installed for it, so that every replay adds
+    one; capturing with none installed raises."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        slot = _DEVICE_TALLIES.get((fn, attr))
+        if slot is None:
+            raise RuntimeError(f"{fn.__name__} was captured into a CUDA graph with "
+                               f"no count on the card for its {attr!r}")
+        slot.add_(1)
+    else:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+@contextlib.contextmanager
+def tallies_on_device(slots: dict):
+    """Within the block, :func:`tally` of ``(fn, attr)`` under a capture adds
+    to ``slots[(fn, attr)]``, a 0-d int64 tensor on the card (a view of a
+    CUDA graph's own buffer, which the graph's driver reads and folds into
+    ``fn.<attr>`` after its replays)."""
+    _DEVICE_TALLIES.update(slots)
+    try:
+        yield
+    finally:
+        for key in slots:
+            _DEVICE_TALLIES.pop(key, None)

@@ -11,7 +11,9 @@ evaluation and one ``jacobi_bundle`` (K sweeps in one memory pass), each
 the median of batches of back-to-back calls on the storm's initial state.
 The counters that weigh them are the port's own CG-line hour's, run here:
 its approximations (assemblies), attempts (balance evaluations) and CG
-iterations. The rates: a sweep reads b, the 10 coefficient arrays and x
+iterations; that hour runs as the bench's storm leg runs it (the graph
+driver on the card) and the line gives its driver, units per launch,
+capture seconds, wall and host reads. The rates: a sweep reads b, the 10 coefficient arrays and x
 and writes x (13 float32 arrays of the box); a bundle reads its 13 inputs
 once and writes x once (the single pass of its bound). Each rate is also
 given as a share of the card's 3.35 TB/s. Prints one JSON line with the
@@ -29,7 +31,7 @@ import torch
 
 from criteria3d_tpu_torch import bench, problems
 from criteria3d_tpu_torch.core.state import SolverParameters
-from criteria3d_tpu_torch.device import resolve_device
+from criteria3d_tpu_torch.device import host_read, resolve_device
 from criteria3d_tpu_torch.solver import jacobi_bundle as JB
 from criteria3d_tpu_torch.solver import water as W
 from criteria3d_tpu_torch.solver.step import (cg_iteration, cg_operators, cg_start,
@@ -61,7 +63,14 @@ def profile(coarsen: int = 1, device=None, dem=None) -> dict:
     grid = bench.build_grid(coarsen, dev, dem)
     params = SolverParameters.fast_f32()
     state = problems.storm_state(grid, params)
+    # the hour itself, as the bench's storm leg runs it: its driver (graph
+    # on the card), capture seconds, wall and host reads
+    driver = bench.prepare_driver(grid, params, state)
+    host_read.count = 0
+    t0 = time.perf_counter()
     _, stats = compute_period_stats(grid, params, state, 3600.0)
+    bench.sync(dev)
+    hour_wall_s, hour_reads = time.perf_counter() - t0, host_read.count
     _, attempts, approximations, cg_iters = stats
     sd = params.sweep_dtype
     psi0 = torch.where(grid.mask, state.h - grid.z, 0.0).to(sd)
@@ -114,6 +123,11 @@ def profile(coarsen: int = 1, device=None, dem=None) -> dict:
         "pallas_sweep_equiv_s": t_bundle / K,
         "pallas_vs_xla_sweep": t_sweep * K / t_bundle,
         "hour_stats": list(stats),
+        "hour_wall_s": hour_wall_s,
+        "hour_host_reads": hour_reads,
+        "driver": driver["driver"],
+        "units_per_launch": driver["units_per_launch"],
+        "capture_s": driver["capture_s"],
         "assemblies": approximations,
         "balances": attempts,
         "cg_iters": cg_iters,

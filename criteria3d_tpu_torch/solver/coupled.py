@@ -10,9 +10,12 @@ heat sub-steps halved while the heat balance fails (|heatMBR| > 1).
 The JAX package's three nested ``lax.while_loop``s (water steps, chunks
 capped at ``max_substeps``, sub-steps capped at 4096) are host loops here;
 their bookkeeping (t_sum, chunk, dt_try, the halving) runs on the host in
-float64, the arithmetic JAX does. The host reads one Courant maximum per
-chunk, one MBR per sub-step and one norm per heat sweep, besides the water
-solver's reads. The counts of a run are in :func:`counts` (reset them with
+float64, the arithmetic JAX does. The water step runs its state machine
+under the eager driver (solver/device_loop.py: the heat hooks stay
+host-driven until their own slice), which hands the hooks ``dt`` as a 0-d
+float64 tensor; the host reads the step's dt and counts once after it,
+one Courant maximum per chunk, one MBR per sub-step and one norm per heat
+sweep, besides the water machine's reads. The counts of a run are in :func:`counts` (reset them with
 :func:`reset_counts`).
 
 With ``params.mesh`` grid, water, heat and boundary are cut by
@@ -32,7 +35,6 @@ import torch
 from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
                                              WaterState)
-from criteria3d_tpu_torch.device import host_read
 from criteria3d_tpu_torch.parallel.sharding import blocks_of, bmap
 from criteria3d_tpu_torch.solver import heat as H
 from criteria3d_tpu_torch.solver.step import _check_blocks, _compute_step, _is_fast
@@ -70,11 +72,10 @@ def _with_t(heat: H.HeatState, t, storage_prev, sink_whole, mbr):
 def _compute_step_coupled(grid: Grid, params: SolverParameters,
                           water: WaterState, heat_state: H.HeatState,
                           boundary: H.HeatBoundary, max_time_step: float,
-                          dt_curr: float, max_substeps: int):
+                          max_substeps: int):
     """One adaptive water step with the heat hooks, then its heat
-    sub-steps; ``dt_curr`` is the water step size on the host. Returns
-    ``(water, heat, dt_water, dt_curr)``. On a mesh every hook is a
-    Blocked of per-block closures, each over its block's tiles."""
+    sub-steps. Returns ``(water, heat, dt_water)``. On a mesh every hook is
+    a Blocked of per-block closures, each over its block's tiles."""
     cnt = compute_step_coupled.counts
     frozen = params.heat_frozen_props and _is_fast(params)
     heat_b, boundary_b = blocks_of(heat_state), blocks_of(boundary)
@@ -110,8 +111,8 @@ def _compute_step_coupled(grid: Grid, params: SolverParameters,
                 g, params, hs, bd, psi, dt, conductances=cd)
         evap_flux = bmap(evap_hook, grid, heat_b, boundary_b, conduct)
 
-    water_new, dt_water, (n_att, n_app, n_it), boundary_rate, dt_curr = \
-        _compute_step(grid, params, water, max_time_step, dt_curr,
+    water_new, dt_water, (n_att, n_app, n_it), boundary_rate, _ = \
+        _compute_step(grid, params, water, max_time_step,
                       extra_flux_fn=thermal_flux, boundary_flux_fn=evap_flux)
     cnt["steps"] += 1
     cnt["attempts"] += n_att
@@ -180,7 +181,7 @@ def _compute_step_coupled(grid: Grid, params: SolverParameters,
             it_in += 1
         t_sum, dt_pref, it = t_sum + chunk, chunk, it + 1
 
-    return water_new, _with_t(heat_state, t_f, sp, sw, mbr), dt_water, dt_curr
+    return water_new, _with_t(heat_state, t_f, sp, sw, mbr), dt_water
 
 
 def compute_step_coupled(grid: Grid, params: SolverParameters,
@@ -198,10 +199,8 @@ def compute_step_coupled(grid: Grid, params: SolverParameters,
     ``gather_pytree``); a mesh with whole inputs, blocked inputs without
     one, or a mix raise ``ValueError``."""
     _check_blocks(grid, params, water, heat_state, boundary)
-    w, h, dt, _ = _compute_step_coupled(
-        grid, params, water, heat_state, boundary, float(max_time_step),
-        host_read(water.dt_curr), max_substeps)
-    return w, h, dt
+    return _compute_step_coupled(grid, params, water, heat_state, boundary,
+                                 float(max_time_step), max_substeps)
 
 
 compute_step_coupled.counts = dict.fromkeys(_COUNT_NAMES, 0)
@@ -225,12 +224,10 @@ def compute_period_coupled(grid: Grid, params: SolverParameters,
     water = dataclasses.replace(water, balance_period=BalanceData(
         bp.storage, torch.zeros_like(bp.sink_source), bp.mbe, bp.mbr))
 
-    dt_curr = host_read(water.dt_curr)
     t = 0.0
     while t < period:
-        water, heat_state, dt, dt_curr = _compute_step_coupled(
-            grid, params, water, heat_state, boundary, period - t, dt_curr,
-            max_substeps)
+        water, heat_state, dt = _compute_step_coupled(
+            grid, params, water, heat_state, boundary, period - t, max_substeps)
         t = t + dt
 
     cur, per, whole = (water.balance_current, water.balance_period,

@@ -23,14 +23,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
-import subprocess
-import tempfile
 
-import numpy as np
 import torch
 
-from criteria3d_tpu_torch.device import host_read
+from criteria3d_tpu_torch.device import host_read, scalar, tally
 from criteria3d_tpu_torch.parallel.sharding import (RING, Blocked, Mesh,
                                                     block_sum, bmap, exchange,
                                                     unzip)
@@ -38,7 +34,7 @@ from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
 from criteria3d_tpu_torch.utils import buildcache
 
 __all__ = ["jacobi_bundle", "jacobi_bundle_tiled", "jacobi_bundle_per_sweep",
-           "jacobi_bundle_reference", "jacobi_solve_loop", "mesh_bundle",
+           "jacobi_bundle_reference", "jacobi_solve_loop", "mesh_bundle", "sweep_test",
            "plan_tiles",
            "tiled_variant", "tile_smem", "modelled_passes", "build_library",
            "SWEEPS_PER_BUNDLE"]
@@ -112,46 +108,12 @@ def plan_tiles(L: int, K: int) -> tuple[int, int]:
     return best[1], best[2]
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the jacobi_bundle kernel")
-
-
 def build_library(verbose: bool = False) -> str:
     """Compile ``csrc/jacobi_bundle.cu`` into ``build/`` (once per source,
     flags, nvcc version and the card's compute capability: the file name
     carries their hash, ``utils/buildcache.py``) and return its path."""
-    nvcc = _nvcc()
-    major, minor = torch.cuda.get_device_capability()
-    path = buildcache.library_path(BUILD_DIR, "jacobi_bundle", SOURCE, " ".join(NVCC_FLAGS),
-                                   buildcache.compiler_version(nvcc),
-                                   f"sm_{major}{minor}")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+    return buildcache.build_cuda_library(BUILD_DIR, "jacobi_bundle", SOURCE, NVCC_FLAGS,
+                                         verbose)
 
 
 @functools.cache
@@ -246,14 +208,15 @@ def jacobi_bundle(b, c_up, c_down, c_lat, mask_f, x,
     that width out of the norm (the sharded loop's owner cells). On CUDA
     tensors this launches the tiled kernels of ``csrc/jacobi_bundle.cu`` on
     the current stream, with the tile of :func:`plan_tiles`, and adds one to
-    ``jacobi_bundle.launches``; a refused launch or shared-memory request
-    raises. On CPU tensors it runs the plain version.
+    ``jacobi_bundle.launches`` (under a CUDA graph's capture, to the
+    graph's count on the card: ``device.tally``); a refused launch or
+    shared-memory request raises. On CPU tensors it runs the plain version.
     """
     if x.device.type == "cpu":
         return jacobi_bundle_reference(b, c_up, c_down, c_lat, mask_f, x, K, halo)
     out = jacobi_bundle_tiled(b, c_up, c_down, c_lat, mask_f, x, K, halo,
                               *plan_tiles(x.shape[0], K))
-    jacobi_bundle.launches += 1
+    tally(jacobi_bundle, "launches", x.device)
     return out
 
 
@@ -327,6 +290,17 @@ def mesh_bundle(system: tuple, x: Blocked, K: int = SWEEPS_PER_BUNDLE):
     return exchange(out), block_sum(sums)
 
 
+def sweep_test(norm: torch.Tensor, tol: torch.Tensor, best: torch.Tensor):
+    """The Jacobi loops' test after a sweep or a bundle, on the device in
+    the norm's dtype (pallas_jacobi.py:236-239, step.py:124-127):
+    ``(converged, diverged, best)``, converged when the norm is below
+    ``tol``, diverged when it is not and exceeds 10x the best norm seen,
+    and the new best."""
+    converged = norm < tol
+    diverged = ~converged & (norm > best * 10.0)
+    return converged, diverged, torch.minimum(best, norm)
+
+
 def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
                       tol: float, n_nodes: int, K: int = SWEEPS_PER_BUNDLE,
                       mesh: Mesh | None = None):
@@ -336,9 +310,10 @@ def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
     The contract of pallas_jacobi.jacobi_solve_loop: the check
     ``it < max_iter`` comes before each bundle; stop when the psi-weighted
     mean |dx| of the bundle's last sweep drops below ``tol``; diverged when
-    it exceeds 10x the best seen (best starts at 1). Every comparison is
-    made in float32, as in JAX: the host reads the norm sum (one
-    synchronisation per bundle) and divides in float32.
+    it exceeds 10x the best seen (best starts at 1). The test runs on the
+    device in float32, as in JAX (:func:`sweep_test`, the water step's
+    bundle unit runs the same); the host reads its two flags together,
+    one synchronisation per bundle.
 
     With ``mesh`` the loop runs on the mesh's blocks, as JAX's runs under
     ``shard_map`` (pallas_jacobi.py:258-282): every array is a
@@ -350,12 +325,10 @@ def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
     single-device loop's when the stops agree; only the norm's summation
     order differs.
     """
-    tol32 = np.float32(tol)
-    n32 = np.float32(n_nodes)
-    ten = np.float32(10.0)
-    best = np.float32(1.0)
     arrays = (b, c_up, c_down, c_lat, mask_f)
     if mesh is None:
+        home = x0.device
+
         def bundle(x):
             return jacobi_bundle(*arrays, x, K=K)
     else:
@@ -364,17 +337,20 @@ def jacobi_solve_loop(b, c_up, c_down, c_lat, mask_f, x0, max_iter: int,
             raise ValueError(f"jacobi_solve_loop: with a mesh every array must be "
                              f"blocked over it (shard_pytree) and K at most the "
                              f"ring, {RING}")
+        home = mesh.home
 
         def bundle(x):
             return mesh_bundle(arrays, x, K)
+    f32 = torch.float32
+    tol_t, n_t = scalar(tol, f32, home), scalar(float(n_nodes), f32, home)
+    best = scalar(1.0, f32, home)
     x = x0
     it, done, diverged = 0, False, False
     while not done and it < max_iter:
         x, norm_sum = bundle(x)
-        norm = np.float32(host_read(norm_sum)) / n32
-        converged = bool(norm < tol32)
-        diverged = (not converged) and bool(norm > best * ten)
-        best = np.minimum(best, norm)
+        converged, div, best = sweep_test(norm_sum / n_t, tol_t, best)
+        flags = int(host_read((converged | div).to(torch.int32)
+                              + 2 * div.to(torch.int32)))
         it += K
-        done = converged or diverged
+        done, diverged = flags != 0, flags >= 2
     return x, diverged, it

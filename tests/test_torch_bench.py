@@ -1,6 +1,7 @@
 """The port's measurement entry points against the repository's bench.py
 and the JAX package: ``criteria3d_tpu_torch.bench`` (coarsening, the result
-line's keys, the storm, day, coupled and mesh legs), the pure roll-up of
+line's keys, the storm, day, coupled and mesh legs), ``ab_legs`` (the eager
+legs of two checkouts in turns), the pure roll-up of
 ``utils/profiling.py``, and the rule that no entry point falls back to the
 CPU.
 
@@ -319,6 +320,29 @@ def test_mesh_leg_matches_one_device_bundle_hour():
 # ----------------------------------------------------------------------
 # (g) the profiling arithmetic
 # ----------------------------------------------------------------------
+
+def test_ab_legs_alternates_two_checkouts(tmp_path, capsys):
+    """``ab_legs`` on the CPU at a 16 box, one pair, against a copy of the
+    port's package: the processes alternate (other, this), each line holds
+    both legs with the mesh leg's stats and equal host reads in the two
+    checkouts, and the summary holds each checkout's walls."""
+    import shutil
+    from criteria3d_tpu_torch import ab_legs
+    other = tmp_path / "other"
+    shutil.copytree(os.path.join(REPO, "criteria3d_tpu_torch"),
+                    other / "criteria3d_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    assert ab_legs.main([str(other), "--pairs", "1", "--n", "16", "--device", "cpu"]) == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert [x["root"] for x in lines[:2]] == [str(other), ab_legs.THIS_ROOT]
+    assert lines[0]["mesh"]["stats"] == lines[1]["mesh"]["stats"]
+    assert lines[0]["mesh"]["stats"][0] > 0
+    assert lines[0]["coupled"]["reads"] == lines[1]["coupled"]["reads"] > 0
+    summary = lines[2]
+    for leg in ("coupled", "mesh"):
+        assert len(summary[leg]["other_walls"]) == len(summary[leg]["this_walls"]) == 1
+        assert summary[leg]["this_over_other"] > 0
+
 
 def test_roll_up_by_hand():
     """roll_up on a hand-made run: busy is the union of the spans (an

@@ -41,7 +41,7 @@ def no_jacobi(monkeypatch):
     """CG must not run Jacobi: every Jacobi entry of the step raises."""
     def refuse(*args, **kw):
         raise AssertionError("a CG configuration ran a Jacobi solve")
-    monkeypatch.setattr(TSt, "jacobi_solve_loop", refuse)
+    monkeypatch.setattr(TSt, "jacobi_bundle", refuse)
     monkeypatch.setattr(TW, "jacobi_sweep", refuse)
     monkeypatch.setattr(TW, "jacobi_sweep_psi", refuse)
 

@@ -385,7 +385,7 @@ def test_port_imports_no_jax():
         xs, ds, ns = jacobi_bundle.jacobi_solve_loop(*inp, 40, 1e-7, 1200)
         assert mesh.shape == {"row": 2, "col": 2} and torch.equal(xm, xs) and nm == ns
         assert scaling_bench.sloped_dem(8, 8).shape == (8, 8)
-        from criteria3d_tpu_torch import bench, profile_breakdown, trace_coupled
+        from criteria3d_tpu_torch import ab_legs, bench, profile_breakdown, trace_coupled
         from criteria3d_tpu_torch.utils import profiling
         d16 = bench.Dem(problems.synthetic_catchment(0, n=16, radius=7.625), -9999.0,
                         4.0, "synthetic_catchment(seed=0)")
@@ -397,6 +397,7 @@ def test_port_imports_no_jax():
         assert bench.mesh_leg(g16)["stats"][3] > 0
         assert profiling.roll_up([], {}, []).busy_s == 0.0
         assert callable(profile_breakdown.profile) and callable(trace_coupled.trace)
+        assert callable(ab_legs.run_one)
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.") or m == "criteria3d_tpu"
                or m.startswith("criteria3d_tpu.")]

@@ -1,7 +1,7 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
 tiled bundled-Jacobi design against the per-sweep one, the mesh loop and
 the partitioned water and coupled hours on blocks of the card against one
-device,
+device, the water period's CUDA graphs against its eager driver,
 small hours of
 the float64, CG and coupled water + heat paths, the model cycle's physics
 maps and hours, and a project's hours from files, on the card against the
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from criteria3d_tpu_torch.core.state import SolverParameters
 from criteria3d_tpu_torch.solver import jacobi_bundle as TB
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS
 
@@ -429,3 +430,192 @@ def test_small_project_hours_on_card_match_cpu(tmp_path):
     for a, b in zip(*rows):
         assert a[0] == b[0]
         np.testing.assert_allclose(a[1:], b[1:], rtol=1e-9)
+
+
+# ----------------------------------------------------------------------
+# the water period's state machine as CUDA graphs (solver/device_loop.py)
+# ----------------------------------------------------------------------
+
+GRAPH_FORMS = {
+    "bundle": lambda: SolverParameters.fast_f32(use_pallas=True),
+    "cg_line": SolverParameters.fast_f32,
+    "f64": SolverParameters,
+}
+
+
+def _graph_hour(params, grid, state, eager: bool):
+    from criteria3d_tpu_torch import compute_period_stats
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import device_loop
+    host_read.count = 0
+    before = TB.jacobi_bundle.launches
+    if eager:
+        with device_loop.forced_eager():
+            out, stats = compute_period_stats(grid, params, state, 3600.0)
+    else:
+        out, stats = compute_period_stats(grid, params, state, 3600.0)
+    torch.cuda.synchronize()
+    return out, tuple(stats), host_read.count, TB.jacobi_bundle.launches - before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(GRAPH_FORMS))
+def test_graph_driver_matches_eager_driver(form):
+    """A 48-box storm hour of each form on the card, graph-driven and
+    eager-driven: the same stats, MBR and bundle launches, heads bit-equal
+    (the same kernels in the same order); the graph hour reads the host
+    once a launch, at most a twentieth of the eager hour's reads; a second
+    graph hour reuses the capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import device_loop
+    params = GRAPH_FORMS[form]()
+    grid, state = build_problem(synthetic_catchment(0, n=48, radius=22.0), 4.0, params,
+                                "cuda")
+    device_loop.reset_counts()
+    g_out, g_stats, g_reads, g_launches = _graph_hour(params, grid, state, False)
+    e_out, e_stats, e_reads, e_launches = _graph_hour(params, grid, state, True)
+    again = _graph_hour(params, grid, state, False)
+    counts = device_loop.counts()
+    assert g_stats == e_stats == again[1]
+    assert float(g_out.balance_whole.mbr) == float(e_out.balance_whole.mbr)
+    assert torch.equal(g_out.h, e_out.h) and torch.equal(again[0].h, g_out.h)
+    assert g_launches == e_launches == again[3]
+    assert (g_launches > 0) == (form == "bundle")
+    assert counts["graph_periods"] == 2 and counts["eager_periods"] == 1
+    assert counts["captures"] == 1
+    assert counts["launches"] == 2 * g_reads and g_reads * 20 <= e_reads
+
+
+# tests/test_torch_device_loop.py's forced branches (its BRANCHES' settings;
+# that file imports JAX): the parameters of each float64 step
+GRAPH_BRANCHES = {
+    "courant_cut": dict(),
+    "diverged": dict(delta_t_min=60.0),
+    "restore": dict(delta_t_min=60.0, delta_t_max=60.0, mbr_threshold=1e-8,
+                    max_approximations=3),
+    "fatal_nan": dict(delta_t_min=60.0, delta_t_max=60.0),
+}
+
+
+def _branch_step(branch, device, eager: bool):
+    """One float64 step (per-sweep Jacobi, at most 600 s) on that test's
+    grid (tests/test_catchment3d.py's 12 valley of 10 m cells,
+    tests/test_torch_core.py's soil, 0.6 m deep) forced down ``branch``:
+    0.3 m ponded over psi -0.5 m (a
+    surface Courant number far past 1), else 20 mm/h of rain over psi
+    -1 m, with a NaN on one surface cell for the fatal NaN (the caller
+    scales the sweep norms for a divergence). Returns the new state, dt,
+    (attempts, approximations, sweeps), dt_curr, the restores and the
+    drivers' counts."""
+    import contextlib
+    from criteria3d_tpu_torch import Grid, SoilFields, WaterState, initialize_balance
+    from criteria3d_tpu_torch.problems import storm_state
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import step as TSt
+    params = SolverParameters(**GRAPH_BRANCHES[branch])
+    n = 12
+    rows, cols = np.mgrid[0:n, 0:n]
+    dem = 100.0 + (n - 1 - rows) * 0.5 + np.abs(cols - n // 2) * 0.8
+    soil = SoilFields.uniform(dem.shape, device=device, vg_alpha=1.2, vg_n=1.5,
+                              vg_he=0.02, theta_s=0.41, theta_r=0.04, k_sat=5e-6)
+    grid = Grid.build(dem, 10.0, soil, total_depth=0.6, device=device)
+    if branch == "courant_cut":
+        state = initialize_balance(grid, params, WaterState.initialize(
+            grid, params, matric_potential=-0.5, surface_water=0.3, device=device))
+    else:
+        state = storm_state(grid, params, psi0=-1.0, rain=0.020)
+    if branch == "fatal_nan":
+        r, c = (int(v) for v in torch.nonzero(grid.mask[0])[0])
+        state.sink_source[0, r, c] = float("nan")
+    TSt.restore_best_step.count = 0
+    device_loop.reset_counts()
+    with device_loop.forced_eager() if eager else contextlib.nullcontext():
+        st, dt, stats, _, dt_curr = TSt._compute_step(grid, params, state, 600.0)
+    return (st, dt, stats, dt_curr, TSt.restore_best_step.count, device_loop.counts(),
+            params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", list(GRAPH_BRANCHES))
+def test_graph_driver_replays_rare_branches(branch, monkeypatch):
+    """Each rare branch of the step (the Courant cut, a halving on
+    divergence, the restore of the best iterate, the fatal NaN) through the
+    graph driver's replay against the eager driver on the card: the same
+    dt, (attempts, approximations, sweeps), dt_curr and restores (the
+    graph's counted on the card), heads and balance bit-equal, and the
+    branch taken (the eager step calls the Courant cut's decimal floor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import step as TSt
+    from criteria3d_tpu_torch.solver import water as TW
+    calls = []
+    floor = TSt._decimal_floor_dt
+    monkeypatch.setattr(TSt, "_decimal_floor_dt", lambda dt: calls.append(1) or floor(dt))
+    if branch == "diverged":
+        # every sweep's norm scaled by 1e12: the first sweep of every solve
+        # diverges, halving dt down to delta_t_min
+        sweep = TW.jacobi_sweep_sum
+        monkeypatch.setattr(TW, "jacobi_sweep_sum",
+                            lambda *a: (lambda x, n: (x, n * 1e12))(*sweep(*a)))
+    device_loop.clear()
+    g = _branch_step(branch, "cuda", False)
+    calls.clear()
+    e = _branch_step(branch, "cuda", True)
+    device_loop.clear()
+    assert g[5]["graph_periods"] == 1 and e[5]["eager_periods"] == 1
+    assert g[1:5] == e[1:5], (g[1:5], e[1:5])
+    (gs, es), params = (g[0], e[0]), g[6]
+    assert torch.equal(gs.h, es.h) and torch.equal(gs.best_h, es.best_h)
+    for f in ("storage", "sink_source", "mbe", "mbr"):
+        a, b = getattr(gs.balance_current, f), getattr(es.balance_current, f)
+        assert torch.equal(a, b) or (bool(a.isnan()) and bool(b.isnan())), f
+    dt, stats, dt_curr, restores = g[1:5]
+    assert bool(calls) == (branch == "courant_cut")
+    if branch == "courant_cut":
+        assert dt_curr < 600.0 and stats[0] > 1
+    elif branch == "diverged":
+        assert stats[0] > 1 and dt == 60.0
+    elif branch == "restore":
+        assert restores > 0
+    else:
+        assert stats == (1, 1, params.max_iterations_for(0))
+        assert bool(gs.balance_current.mbr.isnan())
+
+
+@pytest.mark.cuda
+def test_graph_driver_step_and_units_make_no_host_sync():
+    """compute_step graph-driven equals the eager step; and every unit of
+    the machine, run eagerly under torch.cuda.set_sync_debug_mode("error"),
+    makes no host synchronisation (the driver's status reads outside)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch import compute_step
+    from criteria3d_tpu_torch.device import host_array
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import step as TSt
+    params = SolverParameters.fast_f32(use_pallas=True)
+    grid, state = build_problem(synthetic_catchment(0, n=32, radius=14.0), 4.0, params,
+                                "cuda")
+    g_state, g_dt = compute_step(grid, params, state, 3600.0)
+    with device_loop.forced_eager():
+        e_state, e_dt = compute_step(grid, params, state, 3600.0)
+    assert g_dt == e_dt and torch.equal(g_state.h, e_state.h)
+    m = TSt._Machine(grid, params, state, False)
+    m.load(state, 600.0, 0.0)
+    units, seen = m.units(), set()
+    status = host_array(m.status)
+    while status[0] != TSt.DONE:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            units[int(status[0])][1]()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        seen.add(int(status[0]))
+        status = host_array(m.status)
+    assert {TSt.START, TSt.ASSEMBLE, TSt.SOLVE_INIT, TSt.SOLVE, TSt.SOLVE_END,
+            TSt.EVALUATE, TSt.ATTEMPT_END, TSt.ACCEPT} <= seen

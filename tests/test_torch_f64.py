@@ -325,7 +325,7 @@ def test_use_pallas_runs_f64_per_sweep(monkeypatch):
     is never entered, and the stats equal JAX's for the same parameters."""
     def no_bundle(*args, **kw):
         raise AssertionError("the float64 path entered the bundled kernel loop")
-    monkeypatch.setattr(TSt, "jacobi_solve_loop", no_bundle)
+    monkeypatch.setattr(TSt, "jacobi_bundle", no_bundle)
     jp, tp = J.SolverParameters(use_pallas=True), T.SolverParameters(use_pallas=True)
     jg, tg = build_grids(valley_dem(8))
     js, ts = rain_states(jg, jp, tg, tp, psi0=-1.0, rain_mm_h=20.0)

@@ -379,11 +379,11 @@ def test_f64_hour_with_hooks_matches_jax():
     import jax
     jstep = jax.jit(lambda st, m: j_cs(jg, jp, st, m, extra_flux_fn=ej,
                                        boundary_flux_fn=bj))
-    t, dt_curr = 0.0, float(ts.dt_curr)
+    t = 0.0
     while t < 3600.0:
         js, jdt, jstats, jrate = jstep(js, jnp.asarray(3600.0 - t))
-        ts, tdt, tstats, trate, dt_curr = t_cs(tg, tp, ts, 3600.0 - t, dt_curr,
-                                               extra_flux_fn=et, boundary_flux_fn=bt)
+        ts, tdt, tstats, trate, _ = t_cs(tg, tp, ts, 3600.0 - t,
+                                         extra_flux_fn=et, boundary_flux_fn=bt)
         assert tdt == float(jdt)
         assert tstats == tuple(int(s) for s in jstats)
         t += tdt

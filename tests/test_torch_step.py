@@ -141,11 +141,11 @@ def test_unported_configurations_raise(config):
         with_hooks, plain = TW.assemble_fast(*args, **hooks), TW.assemble_fast(*args)
         assert all(torch.equal(a, b) for a, b in zip(with_hooks[0], plain[0]))
     else:
-        with_hooks = TSt._compute_step(tg, p, state, 600.0, 600.0, **hooks)
-        plain = TSt._compute_step(tg, p, state, 600.0, 600.0)
+        with_hooks = TSt._compute_step(tg, p, state, 600.0, **hooks)
+        plain = TSt._compute_step(tg, p, state, 600.0)
         assert with_hooks[1:3] == plain[1:3]
         assert torch.equal(with_hooks[0].h, plain[0].h)
     for bad in (dict(inner_solver="gmres"), dict(sweep_dtype=torch.float16),
                 dict(inner_solver="cg", cg_precond="ilu")):
         with pytest.raises(ValueError):
-            TSt._compute_step(tg, dataclasses.replace(p, **bad), state, 600.0, 600.0)
+            TSt._compute_step(tg, dataclasses.replace(p, **bad), state, 600.0)
