@@ -54,16 +54,24 @@ Phases (any failed check exits non-zero before the last line):
 3e. the coupled water + heat storm hour through the port bench's coupled
    leg (``bench.coupled_leg``, bench.py's: ``fast_f32(heat_vapor=True,
    heat_frozen_props=True)``, every layer-1 node a HeatSurface, one run)
-   on the same catchment, every count read (water steps, attempts,
-   approximations, CG iterations; heat chunks, accepted and rejected
-   sub-steps, heat sweeps; host syncs, wall, peak memory, water and heat
-   MBR), then once profiled through trace_coupled's
-   roll-up; checks every output on the card, |water MBR| < 2e-3, a finite
-   heat MBR and heat-node temperatures finite within [200, 330] K;
+   on the same catchment, graph-driven (the coupled period's state machine
+   as CUDA graphs, captured before the run), every count read (water
+   steps, attempts, approximations, CG iterations; heat chunks, accepted
+   and rejected sub-steps, heat sweeps; host syncs, wall, peak memory,
+   water and heat MBR, the graph machine's launches and capture seconds),
+   then once more eager-driven and profiled through trace_coupled's
+   roll-up, which (3x (iv)) is the graph hour's reference: every count and
+   both MBRs equal, h and T bit-equal, the graph hour's host reads at most
+   5 % of the eager hour's, its peak at most 2 x; checks every output on
+   the card, |water MBR| < 2e-3, a finite heat MBR and heat-node
+   temperatures finite within [200, 330] K;
 3f. small coupled hours of a 6 x 6 heat column on the card against the
    port's CPU path, float64 with vapor and ``fast_f32`` frozen with vapor:
    the same water steps and heat sub-steps, T within 1e-6 K / 1e-3 K,
-   heads within 1e-6 m / 1e-4 m;
+   heads within 1e-6 m / 1e-4 m; then (3x (v)) a 48-box coupled storm hour
+   through the CUDA bundle (``fast_f32(use_pallas=True, heat_vapor=True,
+   heat_frozen_props=True)``) graph-driven against eager-driven, held as
+   3x (iv) holds 3e's, launches x K = inner iterations;
 3g. the hourly model cycle (``Criteria3DModel.run_hour``) at full size on
    the same catchment under ``fast_f32()`` with snow, crop, evaporation,
    interception and cracking, slope and aspect from the DEM: six hours of a
@@ -76,8 +84,10 @@ Phases (any failed check exits non-zero before the last line):
    take more than 50 s, hours 9-11 run on a 384 box;
 3h. one coupled model hour (``compute_heat`` under
    ``fast_f32(heat_vapor=True, heat_frozen_props=True)``, every layer-1
-   node a HeatSurface) at full size, hour 10 from a fresh model: water and
-   heat counts and MBRs, wall, host syncs, heat-node T; 3e's checks, the
+   node a HeatSurface) at full size, hour 10 from a fresh model,
+   graph-driven through ``run_hour`` (no change to model.py): water and
+   heat counts and MBRs, wall, host syncs, the graph machine's launches,
+   heat-node T; 3e's checks, the
    water MBR in its |sink| form (a dry hour's net sink is negative, and the
    coupled period's own signed-sink MBR then divides by 0.001 m3);
 3i. one model hour (hour 8) under ``fast_f32(use_pallas=True)``: the model
@@ -207,7 +217,7 @@ Phases (any failed check exits non-zero before the last line):
    within the float32 envelopes of tests/test_fast_f32.py;
    ``scaling_bench``'s line for the 768 box (the float64 step and the
    bundle step, each on one device and on 4 blocks); (iv) phase 3e's
-   coupled storm hour partitioned over 2 x 2 blocks (grid, water, heat and boundary cut by
+   coupled storm hour (its eager-driven reads) partitioned over 2 x 2 blocks (grid, water, heat and boundary cut by
    ``shard_pytree``, the whole coupled step on the blocks, the result
    joined by ``gather_pytree``) under ``fast_f32(heat_vapor=True,
    heat_frozen_props=True, mesh=)``: water stats, chunks, sub-steps,
@@ -237,9 +247,11 @@ Phases (any failed check exits non-zero before the last line):
    in the 3i model hour (and 0 in the 3o vineyard, 3q shell and 3r
    meteo-grid hours), in 3v's mesh hour and in 3w's mesh leg, and 3v's ms,
    exchange ms and bound of a 2 x 2 mesh bundle; and the graph machine
-   (``csrc/graph_machine.cu``, the loop nest's control): its launches in
-   phase 3's timed hour (counted from 0 just before it), its control time per unit against the eager driver's
-   host read, the capture seconds;
+   (``csrc/graph_machine.cu``, the loop nests' control: the water and the
+   coupled period's): its launches in phase 3's timed hour (counted from 0
+   just before it), in 3e's coupled hour, 3h's coupled model hour and 3x
+   (v)'s bundle-form coupled hour, its control time per unit against the
+   eager driver's host read, the capture seconds;
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -503,7 +515,9 @@ def coupled_hour(label, grid, params):
     hparams, hgrid = cp["inputs"][:2]
     heat_mbr, t_min, t_max, cold = heat_outcome(label, hgrid, hparams, w, h)
     counts, syncs, mbr = cp["counts"], cp["host_reads"], cp["mbr"]
-    print(f"# {label}: water steps, attempts, approximations, CG iterations = "
+    print(f"# {label} ({cp['driver']} driver{': ' + cp['why'] if cp['why'] else ''}; "
+          f"capture {cp['capture_s']} s, graph machine launches {cp['graph_launches']}): "
+          f"water steps, attempts, approximations, CG iterations = "
           f"({counts['steps']}, {counts['attempts']}, {counts['approximations']}, "
           f"{counts['inner_iterations']}); heat chunks {counts['chunks']}, sub-steps "
           f"accepted {counts['substeps_accepted']} rejected {counts['substeps_rejected']}, "
@@ -516,7 +530,131 @@ def coupled_hour(label, grid, params):
     return dict(counts=counts, syncs=syncs, wall_s=cp["wall_s"], runs_s=cp["runs_s"],
                 peak_gib=cp["peak_gib"], mbr=mbr, heat_mbr=heat_mbr, t_min=t_min,
                 t_max=t_max, cold_share=cold, h=w.h.to("cpu"), t=h.t.to("cpu"),
-                inputs=cp["inputs"])
+                inputs=cp["inputs"], launches=cp["launches"], driver=cp["driver"],
+                why=cp["why"], capture_s=cp["capture_s"],
+                graph_launches=cp["graph_launches"])
+
+
+def eager_coupled(trace: dict, grid, params) -> dict:
+    """The eager-driven profiled coupled hour of ``trace_coupled.traced_hour``
+    in :func:`coupled_hour`'s terms (its output taken off the trace)."""
+    from criteria3d_tpu_torch.bench import coupled_heat_mbr
+    w, h = trace.pop("out")
+    return dict(counts=trace["counts"], syncs=trace["host_reads"],
+                wall_s=trace["profiled_wall_s"], profiled=True, peak_gib=trace["peak_gib"],
+                mbr=float(w.balance_whole.mbr),
+                heat_mbr=coupled_heat_mbr(grid, params, w, h), h=w.h.to("cpu"),
+                t=h.t.to("cpu"))
+
+
+def coupled_graph_vs_eager(label, graph: dict, eager: dict, on_card: bool) -> dict:
+    """Phase 3x (iv): a coupled hour driven as CUDA graphs against the same
+    hour under the eager driver (each a :func:`coupled_hour`-like dict):
+    every count, the water and heat MBRs equal, h and T bit-equal, the same
+    bundle launches where both count them; on the card the graph driver
+    ran, its host reads at most 5 % of the eager hour's and its peak memory
+    at most 2 x."""
+    import torch
+    same_h, same_t = torch.equal(graph["h"], eager["h"]), torch.equal(graph["t"], eager["t"])
+    dh = float((graph["h"] - eager["h"]).abs().max())
+    dT = float((graph["t"] - eager["t"]).abs().max())
+    ratio = graph["syncs"] / max(eager["syncs"], 1)
+    print(f"# 3x {label}: graph driver ({graph.get('driver')}; capture "
+          f"{graph.get('capture_s')} s, {graph.get('graph_launches')} launches) counts "
+          f"{graph['counts']} water MBR {graph['mbr']} heat MBR {graph['heat_mbr']} wall "
+          f"{graph['wall_s']} s host reads {graph['syncs']} peak {graph['peak_gib']} GiB; "
+          f"eager driver counts {eager['counts']} water MBR {eager['mbr']} heat MBR "
+          f"{eager['heat_mbr']} wall {eager['wall_s']} s"
+          f"{' (profiled)' if on_card and eager.get('profiled') else ''} "
+          f"host reads {eager['syncs']} peak {eager['peak_gib']} GiB; reads graph / eager "
+          f"{ratio}; h bit-equal {same_h} (max |dh| {dh} m), T bit-equal {same_t} "
+          f"(max |dT| {dT} K)", flush=True)
+    check(graph["counts"] == eager["counts"],
+          f"3x {label}: graph counts {graph['counts']}, eager {eager['counts']}")
+    check(graph["mbr"] == eager["mbr"] and graph["heat_mbr"] == eager["heat_mbr"],
+          f"3x {label}: MBRs {graph['mbr']} / {graph['heat_mbr']} vs {eager['mbr']} / "
+          f"{eager['heat_mbr']}")
+    check(same_h and same_t, f"3x {label}: graph-driven h {dh} m and T {dT} K from eager")
+    if "launches" in graph and "launches" in eager:
+        check(graph["launches"] == eager["launches"],
+              f"3x {label}: {graph['launches']} bundle launches, eager {eager['launches']}")
+    if on_card:
+        check(graph.get("driver", "graph") == "graph",
+              f"3x {label}: the card ran the {graph.get('driver')} driver")
+        check(ratio <= 0.05, f"3x {label}: graph reads {graph['syncs']} > 5 % of "
+                             f"eager {eager['syncs']}")
+        check(graph["peak_gib"] <= 2.0 * eager["peak_gib"],
+              f"3x {label}: graph peak {graph['peak_gib']} GiB > 2 x eager "
+              f"{eager['peak_gib']}")
+    return dict(counts=graph["counts"], mbr=graph["mbr"], heat_mbr=graph["heat_mbr"],
+                graph_reads=graph["syncs"], eager_reads=eager["syncs"],
+                graph_wall_s=graph["wall_s"], eager_wall_s=eager["wall_s"],
+                capture_s=graph.get("capture_s"), graph_peak_gib=graph["peak_gib"],
+                eager_peak_gib=eager["peak_gib"], launches=graph.get("launches"),
+                dh_max=dh, dt_max=dT)
+
+
+def bundle_coupled_graph_vs_eager(card: str, dev="cuda", n: int = 48) -> dict:
+    """Phase 3x (v): a coupled storm hour through the CUDA bundle
+    (``fast_f32(use_pallas=True, heat_vapor=True, heat_frozen_props=True)``)
+    on an n x n box of the synthetic catchment, graph-driven and
+    eager-driven (:func:`coupled_graph_vs_eager`); the bundle launched
+    (launches x K = inner iterations), the hour's checks."""
+    import torch
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.bench import sync
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.problems import build_coupled_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    on_card = torch_device_type(dev) == "cuda"
+    params = SolverParameters.fast_f32(use_pallas=True, heat_vapor=True,
+                                       heat_frozen_props=True)
+    inputs = build_coupled_problem(synthetic_catchment(0, n=n, radius=n * 366.0 / 768),
+                                   4.0, params, dev)
+    runs = {}
+    for driver in ("graph", "eager"):
+        device_loop.clear()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        CP.reset_counts()
+        device_loop.reset_counts()
+        host_read.count = 0
+        JB.jacobi_bundle.launches = 0
+        t0 = time.time()
+        if driver == "eager":
+            with device_loop.forced_eager():
+                w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], 3600.0)
+        else:
+            w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], 3600.0)
+        sync(inputs[0].device)
+        wall = time.time() - t0
+        heat_mbr, t_min, t_max, _ = heat_outcome(f"bundle coupled hour ({driver})",
+                                                 inputs[0], params, w, h)
+        runs[driver] = dict(
+            counts=CP.counts(), syncs=host_read.count, wall_s=wall,
+            launches=JB.jacobi_bundle.launches, mbr=float(w.balance_whole.mbr),
+            heat_mbr=heat_mbr, h=w.h.to("cpu"), t=h.t.to("cpu"),
+            peak_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0,
+            driver="graph" if device_loop.counts()["graph_periods"] else "eager",
+            capture_s=device_loop.counts()["capture_s"],
+            graph_launches=device_loop.counts()["launches"])
+        check(200.0 <= t_min and t_max <= 330.0 and math.isfinite(heat_mbr),
+              f"bundle coupled hour ({driver}): T {t_min}..{t_max} K, heat MBR {heat_mbr}")
+        check(abs(runs[driver]["mbr"]) < 2e-3,
+              f"bundle coupled hour ({driver}): |water MBR| {runs[driver]['mbr']}")
+    device_loop.clear()
+    g = runs["graph"]
+    K = JB.SWEEPS_PER_BUNDLE
+    if on_card:
+        check(g["launches"] > 0 and g["launches"] * K == g["counts"]["inner_iterations"],
+              f"bundle coupled hour: {g['launches']} launches for "
+              f"{g['counts']['inner_iterations']} sweeps")
+    out = coupled_graph_vs_eager(f"bundle coupled hour, {n} box", g, runs["eager"], on_card)
+    out["graph_launches"] = g["graph_launches"]
+    return out
 
 
 def heat_outcome(label, grid, params, water, heat):
@@ -655,12 +793,14 @@ def model_coupled_hour(label, model, hour, card):
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.problems import model_day_forcing
     from criteria3d_tpu_torch.solver import coupled as C
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     forcing = model_day_forcing(model.grid, None, hour)
     grid, params = model.grid, model.params
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     C.reset_counts()
+    device_loop.reset_counts()
     JB.jacobi_bundle.launches = 0
     host_read.count = 0
     t0 = time.time()
@@ -668,6 +808,10 @@ def model_coupled_hour(label, model, hour, card):
     torch.cuda.synchronize()
     wall_s = time.time() - t0
     counts, syncs, launches = C.counts(), host_read.count, JB.jacobi_bundle.launches
+    drivers = device_loop.counts()
+    # the model's coupled hour runs graph-driven with no change to model.py
+    check(drivers["graph_periods"] == 1 and drivers["eager_periods"] == 0,
+          f"{label} hour {hour}: the coupled period did not run graph-driven ({drivers})")
     peak = torch.cuda.max_memory_allocated() / 2**30
     w, h = model.water, model.heat
     # the coupled period's own MBR divides by max(0.001, sink) without abs
@@ -686,12 +830,14 @@ def model_coupled_hour(label, model, hour, card):
           f"host syncs {syncs}; wall {wall_s} s; peak memory {peak:.2f} GiB; water "
           f"whole-period MBR {mbr} (|sink| form; the coupled period's signed-sink "
           f"MBR {mbr_signed}, sink {float(bw.sink_source)} m3); heat MBR {heat_mbr}; "
-          f"heat-node T {t_min}..{t_max} K; bundle launches {launches}", flush=True)
+          f"heat-node T {t_min}..{t_max} K; bundle launches {launches}; graph driver: "
+          f"{drivers['launches']} launches, capture {drivers['capture_s']} s", flush=True)
     check_coupled(label, list(model_tensors(model)) + [
         (k, v) for k, v in out.items() if isinstance(v, torch.Tensor)],
         counts, launches, mbr, heat_mbr, t_min, t_max)
     return dict(counts=counts, syncs=syncs, wall_s=wall_s, peak_gib=peak, mbr=mbr,
-                mbr_signed=mbr_signed, heat_mbr=heat_mbr, t_min=t_min, t_max=t_max)
+                mbr_signed=mbr_signed, heat_mbr=heat_mbr, t_min=t_min, t_max=t_max,
+                graph_launches=drivers["launches"], capture_s=drivers["capture_s"])
 
 
 # 3j: preset -> tolerances card vs CPU of the daily MBR [-], heads [m] and
@@ -2653,18 +2799,22 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
 
 
 def one_device_coupled_hour(seed: int, dev, n: int) -> dict:
-    """Phase 3e's coupled storm hour on one device: the reference of 3v
-    (iv) (phase 3e gives it in ``main``): its inputs, h and T on the host,
-    its counts and host reads."""
+    """Phase 3e's coupled storm hour on one device under the eager driver:
+    the reference of 3v (iv) (phase 3e gives it in ``main``, with the eager
+    hour's reads): its inputs, h and T on the host, its counts and host
+    reads."""
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.problems import build_coupled_problem, synthetic_catchment
     from criteria3d_tpu_torch.solver import coupled as CP
     params = mesh_form_params("coupled")
     inputs = build_coupled_problem(
         synthetic_catchment(seed, n=n, radius=n * 366.0 / 768), 4.0, params, dev)
+    from criteria3d_tpu_torch.solver import device_loop
     CP.reset_counts()
     host_read.count = 0
-    w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], 3600.0)
+    # eager-driven, as a mesh runs: the host reads compare
+    with device_loop.forced_eager():
+        w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], 3600.0)
     return dict(inputs=[x.to("cpu") for x in inputs], h=w.h.to("cpu"),
                 t=h.t.to("cpu"), counts=CP.counts(), reads=host_read.count)
 
@@ -2813,10 +2963,13 @@ def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
     on0 = [x.to("cuda:0") for x in inputs]
     torch.cuda.synchronize(0)
     torch.cuda.reset_peak_memory_stats(0)
+    from criteria3d_tpu_torch.solver import device_loop
     CP.reset_counts()
     host_read.count = 0
     t0 = time.time()
-    w, h = CP.compute_period_coupled(on0[0], params, *on0[1:], 3600.0)
+    # eager-driven, as the partitioned hour runs: the host reads compare
+    with device_loop.forced_eager():
+        w, h = CP.compute_period_coupled(on0[0], params, *on0[1:], 3600.0)
     torch.cuda.synchronize(0)
     one_wall = time.time() - t0
     one_peak = torch.cuda.max_memory_allocated(0)
@@ -2916,12 +3069,39 @@ def graph_control_ms() -> tuple:
     return ms, plain_ms
 
 
+def coupled_graph_phase(label, grid, params, on_card: bool) -> dict:
+    """Phase 3x (iv) on its own: the bench's coupled leg on ``grid``
+    (graph-driven on the card, one run after the capture) against the same
+    hour eager-driven and profiled (``trace_coupled.traced_hour``), held to
+    each other by :func:`coupled_graph_vs_eager`."""
+    from criteria3d_tpu_torch import bench, trace_coupled
+    from criteria3d_tpu_torch.solver import device_loop
+    cp = bench.coupled_leg(grid, params, {}, max_runs=1)
+    w, h = cp.pop("out")
+    hparams, hgrid = cp["inputs"][:2]
+    graph = dict(counts=cp["counts"], syncs=cp["host_reads"], wall_s=cp["wall_s"],
+                 peak_gib=cp["peak_gib"], mbr=cp["mbr"], heat_mbr=cp["heat_mbr"],
+                 h=w.h.to("cpu"), t=h.t.to("cpu"), launches=cp["launches"],
+                 driver=cp["driver"], capture_s=cp["capture_s"],
+                 graph_launches=cp["graph_launches"])
+    del w, h
+    device_loop.clear()
+    trace = trace_coupled.traced_hour(cp.pop("inputs"), cp["wall_s"])
+    out = coupled_graph_vs_eager(label, graph, eager_coupled(trace, hgrid, hparams),
+                                 on_card)
+    out["graph_launches"] = graph["graph_launches"]
+    return out
+
+
 def graph_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
-    """Phase 3x on its own (``main`` runs it inside phases 3-3c and 3d):
-    the storm hour of the n x n synthetic catchment in the three forms of
-    the main path (the bundle, CG line, float64), graph-driven through the
-    bench's storm leg (one run, after the capture) and eager-driven
+    """Phase 3x on its own (``main`` runs it inside phases 3-3c, 3d, 3e and
+    3f): the storm hour of the n x n synthetic catchment in the three forms
+    of the main path (the bundle, CG line, float64), graph-driven through
+    the bench's storm leg (one run, after the capture) and eager-driven
     (:func:`eager_hour`), held to each other by :func:`graph_vs_eager`;
+    (iv) the coupled storm hour of phase 3e the same way
+    (:func:`coupled_graph_phase`); (v) the bundle-form coupled hour
+    (:func:`bundle_coupled_graph_vs_eager`, on a box of n / 16 at most 48);
     then on the card 3d's locked-dt hours, graph-driven, against the CPU.
     Returns each form's numbers. ``dev="cpu"`` with a small ``n``
     rehearses it on the CPU, where both hours run the eager driver."""
@@ -2942,6 +3122,9 @@ def graph_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
         out[form] = graph_vs_eager(label, sl, ev, on_card)
         del sl, ev
         device_loop.clear()
+    out["coupled"] = coupled_graph_phase("coupled hour", grid,
+                                         mesh_form_params("cg_line"), on_card)
+    out["bundle_coupled"] = bundle_coupled_graph_vs_eager(card, dev, min(48, max(n // 16, 16)))
     if on_card:
         for name in SMALL_CONFIGS:
             small_card_vs_cpu(name)
@@ -3203,14 +3386,22 @@ def main() -> int:
     from criteria3d_tpu_torch import trace_coupled
     from criteria3d_tpu_torch.problems import catchment_grid
     cp = coupled_hour("coupled hour", catchment_grid(dem, 4.0, "cuda"), p_cg)
-    # the one-device hour that 3v (iv) partitions, on the host
-    refs["coupled"] = dict(inputs=[x.to("cpu") for x in cp["inputs"][1:]],
-                           h=cp.pop("h"), t=cp.pop("t"), counts=cp["counts"],
-                           reads=cp["syncs"])
-    # one more hour, profiled: trace_coupled's roll-up (3w holds its layers
-    # to its busy time)
+    check(cp["graph_launches"] > 0, "the coupled hour launched no graph machine")
+    hparams, hgrid = cp["inputs"][:2]
+    coupled_inputs = [x.to("cpu") for x in cp["inputs"][1:]]
+    # one more hour, eager-driven and profiled: trace_coupled's roll-up (3w
+    # holds its layers to its busy time) and (3x) the graph hour's reference
+    device_loop.clear()
+    torch.cuda.empty_cache()
     trace = trace_coupled.traced_hour(cp.pop("inputs"), cp["wall_s"])
     check(trace["busy_s"] > 0.0, "the profiler saw no device activity in the coupled hour")
+    eager_cp = eager_coupled(trace, hgrid, hparams)
+    gx["coupled"] = coupled_graph_vs_eager("coupled hour", cp, eager_cp, True)
+    # the one-device hour that 3v (iv) partitions, on the host, with the
+    # eager hour's reads (3v's is eager too)
+    refs["coupled"] = dict(inputs=coupled_inputs, h=cp.pop("h"), t=cp.pop("t"),
+                           counts=cp["counts"], reads=eager_cp["syncs"])
+    del eager_cp, hgrid
     layers_cp, sweeps = trace["layers"], cp["counts"]["heat_sweeps"]
     # a heat sweep's least bytes: b, c_up, c_down, 8 c_lat and x read as
     # float32, the bool mask, x written
@@ -3228,6 +3419,8 @@ def main() -> int:
     # ---- 3f. small coupled hours on the card against the CPU path --------
     for name in ("f64_vapor", "frozen_vapor"):
         small_coupled_card_vs_cpu(name)
+    # 3x (v): a coupled hour through the CUDA bundle, graph vs eager
+    gx["bundle_coupled"] = bundle_coupled_graph_vs_eager(card)
 
     print(f"# phase 3f done at {time.time() - t_start:.1f} s", flush=True)
 
@@ -3324,10 +3517,20 @@ def main() -> int:
         "name": "graph_machine",
         "route": "cuda",
         "source": "criteria3d_tpu_torch/csrc/graph_machine.cu",
-        # the loop nest's control: the lax.while_loops of the period and
-        # the step retries (the inner loops' are units of the same machine)
-        "replaces": "criteria3d_tpu/solver/step.py:677",
+        # the loop nests' control: the lax.while_loops of the water period
+        # and step retries, and of the coupled period, its chunks,
+        # sub-steps (frozen, exact) and heat sweeps (the inner loops' are
+        # units of the same machines)
+        "replaces": "criteria3d_tpu/solver/step.py:677; criteria3d_tpu/solver/"
+                    "coupled.py:259, :215, :180, :209; criteria3d_tpu/solver/"
+                    "heat.py:1094, :1298",
         "launches": graph_main["launches"],
+        # launches in phase 3e's coupled storm hour (the bench's coupled
+        # leg, its counts set to 0 just before it), 3h's coupled model hour
+        # and 3x (v)'s bundle-form coupled hour
+        "launches_coupled_hour": cp["graph_launches"],
+        "launches_coupled_model_hour": mp["coupled"]["graph_launches"],
+        "launches_bundle_coupled_hour": gx["bundle_coupled"]["graph_launches"],
         # heads of the graph-driven bundle hour against the eager driver's
         "max_abs_err": gx["bundle"]["dh_max"],
         "ms": gm_ms,
@@ -3339,6 +3542,7 @@ def main() -> int:
         "library_ms": None,
         "units_per_launch": device_loop.UNITS_PER_LAUNCH,
         "capture_s": graph_main["capture_s"],
+        "capture_s_coupled": cp["capture_s"],
     })
     print(f"# per simulated hour ({card}): bundle stats={list(stats)} mbr={mbr} "
           f"wall_s={wall} host_syncs={syncs}; CG line stats={list(stats_cg)} "

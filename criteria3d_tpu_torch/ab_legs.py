@@ -1,4 +1,4 @@
-"""Alternated timing of the bench's eager legs in two checkouts, on the card.
+"""Alternated timing of the bench's coupled and mesh legs in two checkouts, on the card.
 
     python -m criteria3d_tpu_torch.ab_legs OTHER_ROOT [--pairs 10] [--seed 0]
         [--n 768] [--device cuda]
@@ -12,9 +12,10 @@ bundle hour on a (1, 1) mesh, bench.py's sampling) on
 (its walls, host reads and stats). The processes alternate in the order
 other, this, this, other, ... until each checkout has run ``pairs`` times;
 the last line gives each leg's per-process medians per checkout, the median
-of those and this checkout's median over the other's. Both legs run under
-the eager driver (heat hooks, a mesh), so the line compares the host loops
-that drive them.
+of those and this checkout's median over the other's. The mesh leg runs
+under the eager driver (a mesh), so its line compares the host loops that
+drive it; the coupled leg runs under whichever driver each checkout gives
+it on the card.
 """
 
 from __future__ import annotations

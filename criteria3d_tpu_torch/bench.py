@@ -25,12 +25,11 @@ JSON line with every key of ``bench.py``'s:
   runs the bundle): the bundle hour on a (1, 1) mesh, the grid and state
   cut by ``shard_pytree`` and joined by ``gather_pytree``; up to 3 runs.
 
-Each leg's water periods run under the graph driver on the card (the
-period's state machine as CUDA graphs, solver/device_loop.py), the coupled
-and mesh legs under the eager driver (heat hooks, a mesh); before a leg's
-timed runs a zero-length period captures the graphs, and the line gives
-each leg's driver, the units per launch and the capture seconds. Each run
-ends in
+Each leg's periods run under the graph driver on the card (the water or
+coupled period's state machine as CUDA graphs, solver/device_loop.py), the
+mesh leg under the eager driver (a mesh); before a leg's timed runs a
+zero-length period captures the graphs, and the line gives each leg's
+driver, the units per launch and the capture seconds. Each run ends in
 ``torch.cuda.synchronize()`` and the read of its MBR. The
 DEM is Ravone's where the C++ reference's data is at ``RAVONE``, else
 ``problems.synthetic_catchment(0)`` at Ravone's scale; ``vs_baseline`` and
@@ -184,15 +183,19 @@ def sample(run, dev: torch.device, max_runs: int, long_s: float | None = None):
     return runs, statistics.median(runs), out
 
 
-def prepare_driver(grid, params: SolverParameters, state) -> dict:
-    """Ahead of a leg's timed runs: a zero-length period, in which the graph
-    driver builds and captures the machine (the eager driver runs no unit).
-    Returns the leg's driver, why it is eager (or ""), the units per launch
-    and the capture seconds."""
+def prepare_driver(grid, params: SolverParameters, state, zero_period=None) -> dict:
+    """Ahead of a leg's timed runs: a zero-length period (``zero_period()``,
+    else a water period of ``state``), in which the graph driver builds and
+    captures the machine (the eager driver runs no step). Returns the leg's
+    driver, why it is eager (or ""), the units per launch and the capture
+    seconds."""
     home = grid.mesh.home if isinstance(grid, Blocked) else grid.device
-    driver, why = device_loop.driver_for(home, params.mesh, False)
+    driver, why = device_loop.driver_for(home, params.mesh)
     before = device_loop.counts()["capture_s"]
-    compute_period_stats(grid, params, state, 0.0)
+    if zero_period is None:
+        compute_period_stats(grid, params, state, 0.0)
+    else:
+        zero_period()
     sync(home)
     return dict(driver=driver, why=why, units_per_launch=device_loop.UNITS_PER_LAUNCH,
                 capture_s=device_loop.counts()["capture_s"] - before)
@@ -290,31 +293,34 @@ def coupled_leg(grid: Grid, params: SolverParameters, env=os.environ,
                 max_runs: int = 3) -> dict:
     """The coupled storm hour of :func:`coupled_setup` on ``grid``; up to
     ``max_runs`` runs. Returns walls, median, the last run's counts
-    (``coupled.counts()``), host reads, bundle launches, water and heat MBR
-    and final ``(water, heat)``, the inputs (``inputs``: hparams, hgrid,
-    water, heat, boundary), the leg's peak memory."""
+    (``coupled.counts()``), host reads, bundle launches, the graph driver's
+    launches, water and heat MBR and final ``(water, heat)``, the inputs
+    (``inputs``: hparams, hgrid, water, heat, boundary), the leg's peak
+    memory and driver (:func:`prepare_driver`)."""
     dev = grid.device
     _reset_peak(dev)
     inputs = coupled_setup(grid, params, env)
     hparams, hgrid, water0, heat0, boundary = inputs
     sync(dev)
-    # the heat hooks keep the coupled step under the eager driver
-    driver, why = device_loop.driver_for(dev, hparams.mesh, True)
+    driver = prepare_driver(hgrid, hparams, water0, lambda: C.compute_period_coupled(
+        hgrid, hparams, water0, heat0, boundary, 0.0))
 
     def run():
         C.reset_counts()
         host_read.count = 0
         JB.jacobi_bundle.launches = 0
+        device_loop.reset_counts()
         w, h = C.compute_period_coupled(hgrid, hparams, water0, heat0, boundary, 3600.0)
         heat_mbr = coupled_heat_mbr(hgrid, hparams, w, h)
         return (w, h, C.counts(), host_read.count, JB.jacobi_bundle.launches,
-                float(w.balance_whole.mbr), heat_mbr)
+                device_loop.counts()["launches"], float(w.balance_whole.mbr), heat_mbr)
 
-    runs, wall, (w, h, counts, reads, launches, mbr, heat_mbr) = sample(run, dev, max_runs)
+    runs, wall, (w, h, counts, reads, launches, graph_launches, mbr, heat_mbr) = sample(
+        run, dev, max_runs)
     return dict(runs_s=runs, wall_s=wall, counts=counts, host_reads=reads,
-                launches=launches, mbr=mbr, heat_mbr=heat_mbr, out=(w, h),
-                inputs=inputs, peak_gib=_peak_gib(dev), driver=driver, why=why,
-                units_per_launch=device_loop.UNITS_PER_LAUNCH, capture_s=0.0)
+                launches=launches, graph_launches=graph_launches, mbr=mbr,
+                heat_mbr=heat_mbr, out=(w, h), inputs=inputs, peak_gib=_peak_gib(dev),
+                **driver)
 
 
 def mesh_leg(grid: Grid) -> dict:
@@ -440,8 +446,8 @@ def bench(env=os.environ, device=None, dem: Dem | None = None) -> dict:
             coupled_vs_water_ratio=cp["wall_s"] / wall_s,
             coupled_heat_mbr=cp["heat_mbr"],
             coupled_heat_runs_s=cp["runs_s"],
-            # the coupled leg builds nothing: eager PyTorch and the library
-            # the storm leg's compile_s already counts
+            # the coupled leg builds nothing: the libraries the storm leg's
+            # compile_s already counts
             heat_compile_s=0.0,
             coupled_water_mbr=cp["mbr"],
             coupled_counts=cp["counts"],

@@ -113,12 +113,15 @@ class Grid:
 
         The copy is made once per dtype and kept with this grid: the f32
         assembly reads these casts on every Picard iteration, and since a
-        cast is deterministic, precomputing it changes no result."""
-        if dtype not in self._casts:
-            self._casts[dtype] = map_tensors(
-                self,
-                lambda t: t.to(dtype) if t.is_floating_point() else t)
-        return self._casts[dtype]
+        cast is deterministic, precomputing it changes no result. A copy
+        made while a CUDA graph captures is not kept: its values exist only
+        once that graph replays."""
+        if dtype in self._casts:
+            return self._casts[dtype]
+        cast = map_tensors(self, lambda t: t.to(dtype) if t.is_floating_point() else t)
+        if not (self.device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
+            self._casts[dtype] = cast
+        return cast
 
     def set_culvert(self, row: int, col: int, *, roughness: float,
                     slope: float, width: float, height: float) -> "Grid":

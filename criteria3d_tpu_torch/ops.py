@@ -25,18 +25,29 @@ Other powers go through :func:`criteria3d_tpu_torch.core.soil.power`.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 __all__ = ["const", "div", "rdiv", "mul0", "sq", "ipow", "where", "as_f64",
            "fma", "linspace"]
 
 
-@functools.lru_cache(maxsize=None)
 def const(v: float, dtype, device) -> torch.Tensor:
-    """A cached 0-d tensor holding the Python number ``v``."""
-    return torch.full((), v, dtype=dtype, device=device)
+    """A 0-d tensor holding the Python number ``v``: cached, except while a
+    CUDA graph captures on ``device``. A tensor made there is filled only
+    when its graph replays, so a cached one would hold no value for code
+    that runs before that replay (another graph, or eager code); under a
+    capture the fill is captured with the graph that reads it."""
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        cached = _CONSTS.get((v, dtype, device))
+        return torch.full((), v, dtype=dtype, device=device) if cached is None else cached
+    key = (v, dtype, device)
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.full((), v, dtype=dtype, device=device)
+    return _CONSTS[key]
+
+
+_CONSTS: dict = {}
 
 
 def div(a: torch.Tensor, v: float) -> torch.Tensor:

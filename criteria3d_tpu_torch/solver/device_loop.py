@@ -1,38 +1,42 @@
 """The two drivers of the water period's state machine.
 
 Counterpart of the JAX package's execution model: ``compute_period_stats``
-(criteria3d_tpu/solver/step.py:639-700) is one ``jax.jit`` over nested
+(criteria3d_tpu/solver/step.py:639-700) and ``compute_period_coupled``
+(criteria3d_tpu/solver/coupled.py:225) are each one ``jax.jit`` over nested
 ``lax.while_loop``s whose scalar carries stay on the device. The port flattens
-that nest into one state machine (solver/step.py's ``_Machine``): its carries
-are 0-d tensors on the device and a ``phase`` among them names the unit of
-work that runs next. This module runs the units.
+each nest into one state machine (solver/step.py's ``_Machine``, and
+solver/coupled.py's ``_CoupledMachine``, which adds the heat sub-stepping's
+units to it): its carries are 0-d tensors on the device and a ``phase``
+among them names the unit of work that runs next. This module runs the
+units.
 
-- **The graph driver** (a CUDA device, no mesh, no heat hooks). Each unit is
+- **The graph driver** (a CUDA device, no mesh). Each unit is
   captured as a CUDA graph of its own (one memory pool shared by all, so the
   temporaries of one unit reuse another's); ``csrc/graph_machine.cu`` joins
   them into one graph, a WHILE node over a SWITCH on the phase, that runs up
   to :data:`UNITS_PER_LAUNCH` units per launch and returns when the phase
   reads DONE. The host reads the machine's status (the phase, the period's
   stats and the counts kept on the card) once per launch. The captured
-  machine is kept for the next period on the same grid, parameters and
-  shapes (one at a time: a new key drops the old machine first).
+  machine is kept for the next period of the same key (the kind of
+  machine, grid, parameters and shapes; one at a time: a new key drops the
+  old machine first); a period's inputs are copied into its buffers.
 - **The eager driver** runs the same units in Python. It reads the
   machine's int carries after each unit that decides its next phase from
   data (an assembly's Courant test, an iteration's stop, a balance, an
   attempt's end); after the others it takes the next phase from
-  ``_Machine.follows`` without a read. It serves the CPU, a mesh (``bmap``
-  over blocks) and the coupled step's heat hooks, which stay host-driven
-  until their own slices; :func:`forced_eager` asks for it on the card (to
-  compare the drivers).
+  ``_Machine.follows`` without a read. It serves the CPU and a mesh
+  (``bmap`` over blocks, which stays host-driven until its own slice);
+  :func:`forced_eager` asks for it on the card (to compare the drivers).
 
-There is no fallback between them: on the card without a mesh or hooks the
-graph driver runs or raises (a failed capture, a host synchronisation inside
-a unit, a toolkit without CUDA 12.8's SWITCH nodes).
+There is no fallback between them: on the card without a mesh the graph
+driver runs or raises (a failed capture, a host synchronisation inside a
+unit, a toolkit without CUDA 12.8's SWITCH nodes).
 
 ``UNITS_PER_LAUNCH`` is 1024: a storm hour of the main path runs 1,100-2,200
 units (CG iterations, sweeps or bundles, and the step's own units), so it
 takes 2-3 launches and as many host reads, and a launch of CG-line units
-(~2 ms each on an H100) returns to the host within ~2 s.
+(~2 ms each on an H100) returns to the host within ~2 s; the coupled storm
+hour, with its 5,513 heat sweeps, takes 8 launches.
 """
 
 from __future__ import annotations
@@ -90,17 +94,15 @@ def forced_eager():
         _force_eager[0] = False
 
 
-def driver_for(device: torch.device, mesh, hooks: bool) -> tuple[str, str]:
-    """``("graph", "")`` where the graph driver runs, else ``("eager",
-    why)``."""
+def driver_for(device: torch.device, mesh) -> tuple[str, str]:
+    """``("graph", "")`` where the graph driver runs (the water and the
+    coupled period alike), else ``("eager", why)``."""
     if _force_eager[0]:
         return "eager", "asked for (device_loop.forced_eager)"
     if device.type != "cuda":
         return "eager", f"a {device.type} device: CUDA graphs run on the card only"
     if mesh is not None:
         return "eager", "a mesh: the blocks' step stays host-driven until its own slice"
-    if hooks:
-        return "eager", "heat hooks: the coupled step stays host-driven until its own slice"
     return "graph", ""
 
 
@@ -224,13 +226,12 @@ def _run_eager(machine):
                  else int(ints[machine.i.index[nxt]]))
 
 
-def run_period(key, build, load, device: torch.device, mesh=None,
-               hooks: bool = False):
+def run_period(key, build, load, device: torch.device, mesh=None):
     """Run one period (or step) of the machine to DONE and return
     ``(machine, status)``: ``build()`` makes the machine (under the graph
     driver only when ``key`` has none kept), ``load(machine)`` copies the
     period's inputs into its buffers."""
-    driver, _ = driver_for(device, mesh, hooks)
+    driver, _ = driver_for(device, mesh)
     if driver == "eager":
         machine = build()
         load(machine)

@@ -24,8 +24,9 @@ restore, the accepted update) is a unit of its own that the phase guards.
 solver/device_loop.py drives the machine: as CUDA graphs on the card (the
 host reads once per launch of up to ``UNITS_PER_LAUNCH`` units), or unit
 by unit from Python, reading the phase after each unit that decides from
-data (the CPU, a mesh, the heat hooks): ``_Machine.follows`` names what
-follows the others.
+data (the CPU, a mesh): ``_Machine.follows`` names what follows the
+others. solver/coupled.py's machine is a larger one: its water step hands
+on to its heat units (``step_end``) and its hooks read its buffers.
 
 With ``params.mesh`` the step runs on the blocks of ``shard_pytree``'s grid
 and state, as JAX's GSPMD partitions it: the field arithmetic goes through
@@ -489,18 +490,18 @@ class _Slots:
         return self.buffer[k:k + n]
 
 
-# int64 scalars; the first _N_STATUS (the phase, the period's stats and the
-# counts kept on the card) are what a driver reads
-_INTS = ("phase", "steps", "attempts", "approximations", "sweeps", "launches",
-         "restores",
-         # the attempt (_ApproxCarry) and the inner solve
-         "approx", "result", "n_sweeps", "it", "max_iter", "done", "diverged",
-         # the phases that follow the evaluation (after the guarded units:
-         # ``then`` after the best iterate, ``after`` after the restore), the
-         # attempt's end (``end_next``, :meth:`_Machine._set_end_next`) and
-         # the step's end (``step_next``, set at the attempt's start)
-         "then", "after", "end_next", "step_next")
-_N_STATUS = 7
+# int64 scalars: the status (the phase, the period's stats and the counts
+# kept on the card), what a driver reads, then the others
+_STATUS = ("phase", "steps", "attempts", "approximations", "sweeps", "launches",
+           "restores")
+_INTS = (
+    # the attempt (_ApproxCarry) and the inner solve
+    "approx", "result", "n_sweeps", "it", "max_iter", "done", "diverged",
+    # the phases that follow the evaluation (after the guarded units:
+    # ``then`` after the best iterate, ``after`` after the restore), the
+    # attempt's end (``end_next``, :meth:`_Machine._set_end_next`) and the
+    # step's end (``step_next``, set at the attempt's start)
+    "then", "after", "end_next", "step_next")
 # scalars of the state dtype: the period (t, its length), the step's dt,
 # the attempt's dt_curr, courant, best MBR and balance, and the state's own
 _REALS = ("t", "period", "dt", "dt_curr", "courant", "best_mbr",
@@ -540,13 +541,20 @@ class _Machine:
     from data; ``status`` is what the graph driver reads after each launch,
     ``i.buffer`` what the eager driver reads after each unit that decides.
     ``one_step`` ends the machine after one step (JAX's ``compute_step``),
-    else it runs until the period is covered."""
+    else it runs until the period is covered; ``step_end``, when given, is
+    the phase every step hands on to instead (a larger machine's unit,
+    solver/coupled.py's). The slots' names are the class's ``STATUS``,
+    ``INTS``, ``REALS`` (the state dtype) and ``SOLVE`` (the working
+    dtype), which a larger machine extends."""
 
     DONE = DONE
+    STATUS, INTS, REALS, SOLVE = _STATUS, _INTS, _REALS, _SOLVE
 
     def __init__(self, grid, params: SolverParameters, state: WaterState,
-                 one_step: bool, extra_flux_fn=None, boundary_flux_fn=None):
+                 one_step: bool, extra_flux_fn=None, boundary_flux_fn=None,
+                 step_end: int | None = None):
         self.grid, self.params, self.one_step = grid, params, one_step
+        self.step_end = step_end
         self.xf, self.bf = extra_flux_fn, boundary_flux_fn
         self.fast = fast = _is_fast(params)
         self.home = home = _home(grid)
@@ -565,10 +573,10 @@ class _Machine:
             # a capture (Grid.astype keeps them with the grid)
             bmap(lambda g: g.astype(wd), grid)
 
-        self.i = _Slots(_INTS, torch.int64, home)
-        self.r = _Slots(_REALS, params.dtype, home)
-        self.w = _Slots(_SOLVE, wd, home)
-        self.status = self.i.buffer[:_N_STATUS]
+        self.i = _Slots(self.STATUS + self.INTS, torch.int64, home)
+        self.r = _Slots(self.REALS, params.dtype, home)
+        self.w = _Slots(self.SOLVE, wd, home)
+        self.status = self.i.buffer[:len(self.STATUS)]
         tol = params.residual_tolerance
         self.w.tol.fill_(max(tol, 1e-7) if fast else tol)
         self.w.n_nodes.fill_(float(first_block(grid).n_nodes))
@@ -692,8 +700,10 @@ class _Machine:
         g, p, i, r = self.grid, self.params, self.i, self.r
         r.dt.copy_(torch.minimum(r.st_dt_curr, r.period - r.t))
         # the phase after the step's end: the period goes on while t + dt
-        # < period (one step only with ``one_step``)
-        if self.one_step:
+        # < period (one step only with ``one_step``; ``step_end`` names it)
+        if self.step_end is not None:
+            i.step_next.fill_(self.step_end)
+        elif self.one_step:
             i.step_next.fill_(DONE)
         else:
             i.step_next.copy_(torch.where(r.t + r.dt < r.period, START, DONE))
@@ -981,19 +991,26 @@ def _run(grid, params: SolverParameters, state: WaterState, period: float,
     approximations, inner iterations, ...)."""
     check_supported(params)
     _check_blocks(grid, params, state)
-    hooks = extra_flux_fn is not None or boundary_flux_fn is not None
-    # what a kept graph machine was captured for: the grid (the machine
-    # holds it, so its id stays its own), the parameters, the mode and the
-    # state's shapes (a blocked state runs eager and keeps nothing)
-    key = (id(grid), params, one_step, tuple(
-        (tuple(t.shape), t.dtype, t.device) for t in
-        (state.h, state.sink_source, state.pond, state.link_flow_sum,
-         state.boundary_flow_sum, state.dt_curr))
-        if not isinstance(state.h, Blocked) else None)
+    # what a kept graph machine was captured for: the grid and the hooks
+    # (the machine holds them, so their ids stay their own), the
+    # parameters, the mode and the state's shapes
+    key = ("water", id(grid), id(extra_flux_fn), id(boundary_flux_fn), params,
+           one_step, shapes_of(state))
     return device_loop.run_period(
         key, lambda: _Machine(grid, params, state, one_step, extra_flux_fn,
                               boundary_flux_fn),
-        lambda m: m.load(state, period, start), _home(grid), params.mesh, hooks)
+        lambda m: m.load(state, period, start), _home(grid), params.mesh)
+
+
+def shapes_of(state) -> tuple | None:
+    """The shapes, dtypes and devices of a state's fields (a dataclass of
+    tensors and 0-d values; None for a blocked state, which runs eager and
+    keeps no machine): a part of a kept machine's key."""
+    fields = [getattr(state, f.name) for f in dataclasses.fields(state)]
+    if any(isinstance(v, Blocked) for v in fields):
+        return None
+    return tuple((tuple(t.shape), t.dtype, t.device) if isinstance(t, torch.Tensor)
+                 else shapes_of(t) if dataclasses.is_dataclass(t) else t for t in fields)
 
 
 def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,

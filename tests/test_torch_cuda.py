@@ -619,3 +619,230 @@ def test_graph_driver_step_and_units_make_no_host_sync():
         status = host_array(m.status)
     assert {TSt.START, TSt.ASSEMBLE, TSt.SOLVE_INIT, TSt.SOLVE, TSt.SOLVE_END,
             TSt.EVALUATE, TSt.ATTEMPT_END, TSt.ACCEPT} <= seen
+
+
+# ----------------------------------------------------------------------
+# the coupled period's state machine as CUDA graphs (solver/coupled.py)
+# ----------------------------------------------------------------------
+
+COUPLED_GRAPH_FORMS = {
+    "f64": lambda **kw: SolverParameters(heat_vapor=True, **kw),
+    "frozen": lambda **kw: SolverParameters.fast_f32(heat_vapor=True,
+                                                     heat_frozen_props=True, **kw),
+    "bundle": lambda **kw: SolverParameters.fast_f32(use_pallas=True, heat_vapor=True,
+                                                     heat_frozen_props=True, **kw),
+}
+
+# tests/test_torch_coupled_machine.py's forced branches (that file imports
+# JAX): (form, parameter overrides, net irradiance [W/m2], period [s],
+# max_substeps) on its 12 box
+COUPLED_GRAPH_BRANCHES = {
+    "halving": ("frozen", {}, 80.0, 1200.0, 256),
+    "accept_as_is": ("f64", dict(delta_t_min=30.0), 80.0, 1200.0, 256),
+    "courant_chunk": ("exact", {}, 600.0, 600.0, 256),
+    "cache_rebuild": ("exact", {}, 80.0, 1200.0, 256),
+    "max_substeps": ("f64", {}, 600.0, 600.0, 2),
+}
+
+
+def _coupled_inputs(params, n, irradiance=80.0, device="cuda"):
+    """The bench's coupled storm (problems.build_coupled_problem's forcing,
+    ``irradiance`` W/m2) on an n x n box of the synthetic catchment (seed 3,
+    the disc's radius 0.45 n)."""
+    from criteria3d_tpu_torch import problems as TP
+    dem = TP.synthetic_catchment(3, n=n, radius=n * 0.45)
+    grid, water = TP.build_problem(dem, 4.0, params, device)
+    grid = TP.with_heat_surface(grid)
+    heat, boundary = TP.initial_heat(grid, params, water, 288.15, air_temperature=291.15,
+                                     rel_humidity=85.0, wind_speed=3.0,
+                                     net_irradiance=irradiance)
+    return grid, water, heat, boundary
+
+
+def _coupled_period(params, inputs, period, eager: bool, max_substeps: int = 256):
+    """One coupled period on the card by the graph driver (or the eager
+    one): (water, heat, counts, host reads, bundle launches, drivers'
+    counts, peak GiB)."""
+    import contextlib
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CP.reset_counts()
+    device_loop.reset_counts()
+    host_read.count = 0
+    before = TB.jacobi_bundle.launches
+    with device_loop.forced_eager() if eager else contextlib.nullcontext():
+        w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], period,
+                                         max_substeps=max_substeps)
+    torch.cuda.synchronize()
+    return (w, h, CP.counts(), host_read.count, TB.jacobi_bundle.launches - before,
+            device_loop.counts(), torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _assert_coupled_same(g, e):
+    assert g[2] == e[2], (g[2], e[2])
+    assert torch.equal(g[0].h, e[0].h) and torch.equal(g[1].t, e[1].t)
+    for a, b in ((g[0].balance_whole.mbr, e[0].balance_whole.mbr), (g[1].mbr, e[1].mbr),
+                 (g[1].sink_whole, e[1].sink_whole)):
+        assert torch.equal(a, b)
+    assert g[4] == e[4]
+    assert g[5]["graph_periods"] == 1 and e[5]["eager_periods"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(COUPLED_GRAPH_FORMS))
+def test_graph_driver_coupled_hour_matches_eager(form):
+    """A coupled storm hour on a 32 box of the card in the float64, frozen
+    and bundle forms, graph-driven and eager-driven: every count equal, h,
+    T and both balances bit-equal (the same kernels in the same order), the
+    same bundle launches (some in the bundle form); the graph hour's host
+    reads at most 5 % of the eager hour's, its peak at most 2 x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.solver import device_loop
+    params = COUPLED_GRAPH_FORMS[form]()
+    inputs = _coupled_inputs(params, 32)
+    device_loop.clear()
+    g = _coupled_period(params, inputs, 3600.0, False)
+    device_loop.clear()
+    e = _coupled_period(params, inputs, 3600.0, True)
+    _assert_coupled_same(g, e)
+    assert (g[4] > 0) == (form == "bundle")
+    assert g[5]["captures"] == 1 and g[3] * 20 <= e[3], (g[3], e[3])
+    assert g[6] <= 2.0 * e[6], (g[6], e[6])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", list(COUPLED_GRAPH_BRANCHES))
+def test_graph_driver_replays_coupled_rare_branches(branch):
+    """The heat sub-stepping's rare branches (tests/test_torch_coupled_machine.py's
+    cases, on its 12 box) through the graph driver's replay against the
+    eager driver on the card: every count equal, h, T and balances
+    bit-equal, and the branch taken as the counts show it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.solver import device_loop
+    form, kw, irradiance, period, max_substeps = COUPLED_GRAPH_BRANCHES[branch]
+    make = COUPLED_GRAPH_FORMS.get(form) or (
+        lambda **k: SolverParameters.fast_f32(heat_vapor=True, **k))
+    params = make(**kw)
+    inputs = _coupled_inputs(params, 12, irradiance)
+    device_loop.clear()
+    g = _coupled_period(params, inputs, period, False, max_substeps)
+    e = _coupled_period(params, inputs, period, True, max_substeps)
+    device_loop.clear()
+    _assert_coupled_same(g, e)
+    counts = g[2]
+    if branch in ("halving", "cache_rebuild"):
+        assert counts["substeps_rejected"] > 0
+    elif branch == "accept_as_is":
+        assert counts["substeps_rejected"] == 0
+    elif branch == "courant_chunk":
+        assert counts["chunks"] > counts["steps"]
+    else:
+        assert counts["chunks"] == max_substeps * counts["steps"]
+
+
+@pytest.mark.cuda
+def test_coupled_units_make_no_host_sync():
+    """compute_step_coupled graph-driven equals the eager step; and every
+    unit of the coupled machine (frozen and exact mode), run eagerly under
+    torch.cuda.set_sync_debug_mode("error"), makes no host synchronisation
+    (the driver's status reads outside)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.device import host_array
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    exact = SolverParameters.fast_f32(heat_vapor=True)
+    for params in (COUPLED_GRAPH_FORMS["frozen"](), exact):
+        inputs = _coupled_inputs(params, 12, 600.0)
+        gw, gh, gdt = CP.compute_step_coupled(inputs[0], params, *inputs[1:], 1200.0)
+        with device_loop.forced_eager():
+            ew, eh, edt = CP.compute_step_coupled(inputs[0], params, *inputs[1:], 1200.0)
+        device_loop.clear()
+        assert gdt == edt and torch.equal(gw.h, ew.h) and torch.equal(gh.t, eh.t)
+        m = CP._CoupledMachine(inputs[0], params, *inputs[1:], False, 256)
+        m.load(*inputs[1:], 1200.0)
+        units, seen = m.units(), set()
+        status = host_array(m.status)
+        while status[0] != CP.DONE:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                units[int(status[0])][1]()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            seen.add(int(status[0]))
+            status = host_array(m.status)
+        want = {CP.STEP_START, CP.WATER_END, CP.CHUNK, CP.SUBSTEP, CP.SWEEP,
+                CP.SUBSTEP_END, CP.CHUNK_END, CP.STEP_END, CP.PERIOD_END}
+        if params is exact:
+            want.add(CP.REBUILD)
+        assert want <= seen, want - seen
+
+
+@pytest.mark.cuda
+def test_coupled_model_hours_capture_once():
+    """Two consecutive coupled model hours (``compute_heat``, every layer-1
+    node a HeatSurface, a fresh HeatBoundary each hour) on a 32 box of the
+    card: both graph-driven, one capture, the graph machine's launches and
+    host reads few; the second hour against the same hour eager-driven
+    from the same model state: h and T bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    import copy
+    from criteria3d_tpu_torch.model import ModelConfig
+    from criteria3d_tpu_torch.problems import (MODEL_CONFIG, build_model_problem,
+                                               model_day_forcing, synthetic_catchment)
+    from criteria3d_tpu_torch.solver import device_loop
+    params = COUPLED_GRAPH_FORMS["frozen"]()
+    model = build_model_problem(synthetic_catchment(0, n=32, radius=32 * 366.0 / 768), 4.0,
+                                params, "cuda", ModelConfig(compute_heat=True,
+                                                            **MODEL_CONFIG))
+    device_loop.clear()
+    device_loop.reset_counts()
+    model.run_hour(model_day_forcing(model.grid, None, 10), 2023, 3, 21, 10)
+    twin = copy.copy(model)
+    model.run_hour(model_day_forcing(model.grid, None, 11), 2023, 3, 21, 11)
+    counts = device_loop.counts()
+    assert counts["graph_periods"] == 2 and counts["captures"] == 1
+    assert counts["eager_periods"] == 0
+    with device_loop.forced_eager():
+        twin.run_hour(model_day_forcing(twin.grid, None, 11), 2023, 3, 21, 11)
+    device_loop.clear()
+    assert torch.equal(model.water.h, twin.water.h) and torch.equal(model.heat.t, twin.heat.t)
+
+
+@pytest.mark.cuda
+def test_constants_made_under_a_capture_are_not_kept():
+    """ops.const and Grid.astype keep nothing made while a CUDA graph
+    captures: such a tensor holds its value only once the graph replays, so
+    a kept one would give another graph, or eager code, an unfilled
+    constant (a coupled machine's first unit read conductances from one).
+    Made outside a capture they are kept and serve captures too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch import ops
+    from criteria3d_tpu_torch.problems import catchment_grid, synthetic_catchment
+    grid = catchment_grid(synthetic_catchment(0, n=16, radius=7.0), 4.0, "cuda")
+    value = 1234.5678
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        graph.capture_begin()
+        inside = ops.const(value, torch.float64, grid.device)
+        cast = grid.astype(torch.float16)
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(stream)
+    outside = ops.const(value, torch.float64, grid.device)
+    assert outside is not inside and float(outside) == value
+    assert ops.const(value, torch.float64, grid.device) is outside
+    assert grid.astype(torch.float16) is not cast
+    assert grid.astype(torch.float16) is grid.astype(torch.float16)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(inside) == value

@@ -202,15 +202,15 @@ def test_decimal_floor_dt_matches_jax():
 
 def test_drivers_and_no_graph_off_the_card():
     """Which driver runs where: the graph only on a CUDA device without a
-    mesh or hooks; every other case names its reason; forced_eager on the
+    mesh (the water and the coupled period alike: the heat hooks no longer
+    decide it); every other case names its reason; forced_eager on the
     card too."""
     cuda = torch.device("cuda")
-    assert device_loop.driver_for(cuda, None, False) == ("graph", "")
-    for dev, mesh, hooks, word in ((torch.device("cpu"), None, False, "cpu"),
-                                   (cuda, object(), False, "mesh"),
-                                   (cuda, None, True, "hooks")):
-        driver, why = device_loop.driver_for(dev, mesh, hooks)
+    assert device_loop.driver_for(cuda, None) == ("graph", "")
+    for dev, mesh, word in ((torch.device("cpu"), None, "cpu"),
+                            (cuda, object(), "mesh")):
+        driver, why = device_loop.driver_for(dev, mesh)
         assert driver == "eager" and word in why
     with device_loop.forced_eager():
-        assert device_loop.driver_for(cuda, None, False)[0] == "eager"
-    assert device_loop.driver_for(cuda, None, False)[0] == "graph"
+        assert device_loop.driver_for(cuda, None)[0] == "eager"
+    assert device_loop.driver_for(cuda, None)[0] == "graph"
