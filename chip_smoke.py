@@ -71,7 +71,13 @@ Phases (any failed check exits non-zero before the last line):
    heads within 1e-6 m / 1e-4 m; then (3x (v)) a 48-box coupled storm hour
    through the CUDA bundle (``fast_f32(use_pallas=True, heat_vapor=True,
    heat_frozen_props=True)``) graph-driven against eager-driven, held as
-   3x (iv) holds 3e's, launches x K = inner iterations;
+   3x (iv) holds 3e's, launches x K = inner iterations; (ii) the float32
+   exact-mode coupled period (``fast_f32(heat_vapor=True,
+   heat_frozen_props=False)``, the machine's cache-rebuild unit) on the
+   12 box of the forced cache-rebuild case and on a 32 box, graph-driven,
+   eager-driven and on the CPU: counts, MBRs, h and T equal between the
+   drivers, a sub-step rejected, h within 1e-4 m and T within 1.5e-2 K of
+   the CPU;
 3g. the hourly model cycle (``Criteria3DModel.run_hour``) at full size on
    the same catchment under ``fast_f32()`` with snow, crop, evaporation,
    interception and cracking, slope and aspect from the DEM: six hours of a
@@ -89,7 +95,9 @@ Phases (any failed check exits non-zero before the last line):
    heat counts and MBRs, wall, host syncs, the graph machine's launches,
    heat-node T; 3e's checks, the
    water MBR in its |sink| form (a dry hour's net sink is negative, and the
-   coupled period's own signed-sink MBR then divides by 0.001 m3);
+   coupled period's own signed-sink MBR then divides by 0.001 m3); then
+   the same hour eager-driven from the same state: h and T bit-equal, the
+   graph-driven hour's peak memory at most 2 x the eager one's;
 3i. one model hour (hour 8) under ``fast_f32(use_pallas=True)``: the model
    cycle launches the CUDA kernel (launches x K = sweeps), |MBR| < 2e-3;
 3j. ``run_period`` over the whole day on a 32 box on the card and on the
@@ -122,7 +130,10 @@ Phases (any failed check exits non-zero before the last line):
    |MBR| < 2e-3, no bundle launch, HYDRALL's outputs finite, transpiration
    0 outside the forest; the peak memory; hour 14 profiled (the
    ``c3d.hydrall`` range's device time); hour 13's ``hydrall_hour`` on its
-   own inputs on the card and on the CPU (rel 1e-12, stop flips counted);
+   own inputs on the card and on the CPU (rel 1e-12, stop flips counted),
+   and on the card graph-driven against eager-driven (the fixed point's
+   machine: outputs bit-equal, the stops equal, one launch a call); each
+   hour's fixed points graph-driven;
    the Jan-1 annual step and one monthly RothC step on the card;
 3n. a 16 box with HYDRALL and RothC under ``SolverParameters()`` on the
    card and on the CPU, ``run_period`` over a dry Dec 31 and Jan 1 (the
@@ -136,9 +147,13 @@ Phases (any failed check exits non-zero before the last line):
    per hour the wall, host reads, stats, MBR, the mass error over the
    hour's gross exchange (< 2e-3), the fixed point's iterations, irrigated
    cells (field 1's, in the booked last hours), no bundle launch; the peak
-   memory; hour 14 profiled (``c3d.vine``, ``c3d.diseases``); hour 12's
-   canopy fluxes on a 64 x 64 window of their own inputs on the card and
-   on the CPU (rel 1e-12, stop flips counted);
+   memory; hour 14 eager-driven and graph-driven from the same state (the
+   graph-driven peak at most 2 x), then profiled (``c3d.vine``,
+   ``c3d.diseases``); hour 12's canopy fluxes on a 64 x 64 window of
+   their own inputs on the card and on the CPU (rel 1e-12, stop flips
+   counted), and over the whole box graph-driven against eager-driven
+   (the fixed points' machines: outputs bit-equal, the stops equal, one
+   launch a call); each hour's 4 fixed points graph-driven;
 3p. a 16 box VINE3D project's day (float64) through ``run_day`` on the
    card and on the CPU (a 32 box until the shell phases joined the run:
    the script stays near 600 s): the same stats every hour, hourly MBRs 1e-8, heads
@@ -209,33 +224,40 @@ Phases (any failed check exits non-zero before the last line):
    exchange's share, a mesh bundle's bound and the tiled variant of each
    block; the three storm hours of phases 3-3c partitioned over 2 x 2
    blocks (grid and state cut by ``shard_pytree``, the whole water step on
-   the blocks): ``fast_f32(use_pallas=True, mesh=)`` (4 launches a
-   bundle), ``fast_f32(mesh=)`` (CG line) and ``SolverParameters(mesh=)``
-   (f64), each with its stats, MBR, wall, host reads and launches; |MBR| <
-   2e-3, host reads equal to the one-device hour's, heads within 1e-5 m
-   (f32) or 1e-9 m (f64) of phases 3-3c's when the stats are equal, else
-   within the float32 envelopes of tests/test_fast_f32.py;
-   ``scaling_bench``'s line for the 768 box (the float64 step and the
-   bundle step, each on one device and on 4 blocks); (iv) phase 3e's
-   coupled storm hour (its eager-driven reads) partitioned over 2 x 2 blocks (grid, water, heat and boundary cut by
-   ``shard_pytree``, the whole coupled step on the blocks, the result
-   joined by ``gather_pytree``) under ``fast_f32(heat_vapor=True,
-   heat_frozen_props=True, mesh=)``: water stats, chunks, sub-steps,
-   heat sweeps, host reads, wall, launches (0), water and heat MBR and the
-   gaps of h and T to 3e's hour; |water MBR| < 2e-3, the heat MBR finite,
-   host reads equal to 3e's, h and T within 1e-5 of 3e's when every count
-   is equal, else within the float32 envelopes (h: max 0.1 m, median
-   1e-2 m; T 0.2 K); the seconds of each part of 3v (the 2 x 4 loop made
-   room for 3w);
+   the blocks), graph-driven (the machine captured by a zero-length period
+   first): ``fast_f32(use_pallas=True, mesh=)`` (4 launches a bundle),
+   ``fast_f32(mesh=)`` (CG line) and ``SolverParameters(mesh=)`` (f64),
+   each with its stats, MBR, wall, host reads, launches, the graph
+   machine's launches and capture seconds and the peak memory; |MBR| <
+   2e-3, stats and MBR equal to phases 3-3c's graph-driven hours, heads
+   bit-equal (f32) or within 1e-9 m (f64), host reads at most 5 % of the
+   eager hours'; ``scaling_bench``'s line for the 768 box (the float64
+   step and the bundle step, each on one device and on 4 blocks); (iv)
+   phase 3e's coupled storm hour partitioned over 2 x 2 blocks (grid,
+   water, heat and boundary cut by ``shard_pytree``, the whole coupled
+   step on the blocks, the result joined by ``gather_pytree``) under
+   ``fast_f32(heat_vapor=True, heat_frozen_props=True, mesh=)``,
+   graph-driven: water stats, chunks, sub-steps, heat sweeps, host reads,
+   wall, launches (0), the graph machine's launches and capture seconds,
+   water and heat MBR, the gaps of h and T to 3e's hour; |water MBR| <
+   2e-3, every count and the water MBR equal to 3e's, the heat MBR within
+   rel 1e-8 (the blocks' partials add in another order), h and T
+   bit-equal; (3x (vi)) the storm hour of each water form on 2 x 2 blocks
+   of a 64 box and the frozen coupled hour on a 32 valley, graph-driven
+   against eager-driven on the same blocks (stats, counts, MBRs and
+   launches equal, heads and T bit-equal, host reads at most 5 %, peak at
+   most 2 x), and every unit of an f64 water and a coupled machine on the
+   blocks under ``set_sync_debug_mode("error")``; the seconds of each part
+   of 3v (the 2 x 4 loop made room for 3w);
 3w. the port's bench (``python -m criteria3d_tpu_torch.bench``), the legs
    phases 3b and 3e do not run: (i) the day leg at coarsen 4 (chained
    hours of 6 periods of 600 s under ``fast_f32()``), cut to its 3 storm
    hours (the whole day's 21 drainage hours take minutes: ``python -m
    criteria3d_tpu_torch.bench`` runs them): each hour's wall and host
    reads, the closing |MBR| < 2e-3; (ii) the mesh leg, the bundle hour on
-   a (1, 1) mesh (one 784 tile with an 8-cell ring) at full size, against
-   phase 3's hour: the same stats and host reads, heads bit-equal, one
-   launch a bundle; (iii) the coupled trace's roll-up of 3e's profiled
+   a (1, 1) mesh (one 784 tile with an 8-cell ring) at full size,
+   graph-driven, against phase 3's graph-driven hour: the same stats and
+   host reads, heads bit-equal, one launch a bundle; (iii) the coupled trace's roll-up of 3e's profiled
    hour: some launch matched a layer's range, each water and heat layer
    holds device time, "other" less than half the busy time, the layers sum
    to the busy time and the activities' durations less their overlaps
@@ -248,10 +270,12 @@ Phases (any failed check exits non-zero before the last line):
    meteo-grid hours), in 3v's mesh hour and in 3w's mesh leg, and 3v's ms,
    exchange ms and bound of a 2 x 2 mesh bundle; and the graph machine
    (``csrc/graph_machine.cu``, the loop nests' control: the water and the
-   coupled period's): its launches in phase 3's timed hour (counted from 0
-   just before it), in 3e's coupled hour, 3h's coupled model hour and 3x
-   (v)'s bundle-form coupled hour, its control time per unit against the
-   eager driver's host read, the capture seconds;
+   coupled period's and the fixed points'): its launches in phase 3's
+   timed hour (counted from 0 just before it), in 3e's coupled hour, 3h's
+   coupled model hour, 3x (v)'s bundle-form coupled hour, 3v's
+   partitioned hours, 3w's mesh leg and the fixed points of 3m's and 3o's
+   compared calls, its control time per unit against the eager driver's
+   host read, the capture seconds;
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -707,6 +731,83 @@ def small_coupled_card_vs_cpu(name: str):
     return dT, dh
 
 
+# 3f (ii): the float32 exact-mode coupled periods (ROADMAP C5): (box, net
+# irradiance [W/m2], period [s]): problems.coupled_box's 12 box in
+# tests/test_torch_coupled_machine.py's forced cache-rebuild case (every
+# rejected sub-step rebuilds the energy cache), and a 32 box
+EXACT_F32_CASES = ((12, 80.0, 1200.0), (32, 80.0, 900.0))
+
+
+def exact_f32_coupled(card: str, dev="cuda") -> list:
+    """Phase 3f (ii), ROADMAP C5: ``fast_f32(heat_vapor=True,
+    heat_frozen_props=False)`` (exact mode: the coupled machine's
+    cache-rebuild unit) over each of EXACT_F32_CASES, graph-driven and
+    eager-driven on ``dev`` and on the CPU: every count, both MBRs, h and T
+    equal between the drivers (bit for bit); a sub-step rejected, so the
+    cache rebuilt; on the card the graph driver ran with at most 5 % of
+    the eager run's host reads; against the CPU, h within 1e-4 m and T
+    within 1.5e-2 K (the fast exact periods' bar against JAX,
+    tests/test_torch_coupled_machine.py) and |water MBR| < 2e-3.
+    ``dev="cpu"`` rehearses it (every run eager)."""
+    import contextlib
+    import torch
+    from criteria3d_tpu_torch import SolverParameters
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.problems import coupled_box
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    on_card = torch_device_type(dev) == "cuda"
+    params = SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=False)
+    out = []
+    for n, irradiance, period in EXACT_F32_CASES:
+        runs = {}
+        for label, d, eager in (("graph", dev, False), ("eager", dev, True),
+                                ("cpu", "cpu", True)):
+            inputs = coupled_box(params, d, n, irradiance)
+            device_loop.clear()
+            device_loop.reset_counts()
+            CP.reset_counts()
+            host_read.count = 0
+            t0 = time.time()
+            with device_loop.forced_eager() if eager else contextlib.nullcontext():
+                w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], period)
+            _sync(d)
+            runs[label] = dict(counts=CP.counts(), reads=host_read.count,
+                               wall_s=time.time() - t0, h=w.h.cpu(), t=h.t.cpu(),
+                               mbrs=(float(w.balance_whole.mbr), float(h.mbr)),
+                               drivers=device_loop.counts())
+        device_loop.clear()
+        g, e, c = runs["graph"], runs["eager"], runs["cpu"]
+        same = torch.equal(g["h"], e["h"]) and torch.equal(g["t"], e["t"])
+        dh = float((g["h"] - c["h"]).abs().max())
+        dT = float((g["t"] - c["t"]).abs().max())
+        print(f"# 3f exact-mode float32 coupled period, {n} box, {period} s ({card}): graph "
+              f"counts {g['counts']} MBRs {g['mbrs']} wall {g['wall_s']} s host reads "
+              f"{g['reads']} ({g['drivers']['launches']} launches, capture "
+              f"{g['drivers']['capture_s']} s); eager wall {e['wall_s']} s host reads "
+              f"{e['reads']}; h and T bit-equal between the drivers {same}; CPU counts "
+              f"{c['counts']} MBRs {c['mbrs']}; card vs CPU max |dh| {dh} m (1e-4), max |dT| "
+              f"{dT} K (1.5e-2)", flush=True)
+        check(g["counts"] == e["counts"] and g["mbrs"] == e["mbrs"] and same,
+              f"3f exact {n} box: graph {g['counts']} {g['mbrs']}, eager {e['counts']} "
+              f"{e['mbrs']}, h and T equal {same}")
+        check(g["counts"]["substeps_rejected"] > 0,
+              f"3f exact {n} box: no sub-step rejected, so no cache rebuild")
+        check(abs(g["mbrs"][0]) < 2e-3, f"3f exact {n} box: |water MBR| {g['mbrs'][0]}")
+        check(dh <= 1e-4 and dT <= 1.5e-2,
+              f"3f exact {n} box: card vs CPU h {dh} m, T {dT} K")
+        if on_card:
+            check(g["drivers"]["graph_periods"] == 1 and e["drivers"]["eager_periods"] == 1,
+                  f"3f exact {n} box: drivers {g['drivers']} / {e['drivers']}")
+            check(g["reads"] <= 0.05 * e["reads"],
+                  f"3f exact {n} box: graph reads {g['reads']} > 5 % of {e['reads']}")
+        out.append(dict(n=n, period=period, counts=g["counts"], mbrs=g["mbrs"],
+                        graph_reads=g["reads"], eager_reads=e["reads"],
+                        graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+                        cpu_counts=c["counts"], dh=dh, dT=dT))
+    return out
+
+
 # the model cycle's day: 2023-03-21 (problems.model_day_forcing)
 MODEL_DATE = (2023, 3, 21)
 MODEL_MEANS = ("global_radiation", "et0", "swe", "snow_melt", "evaporation",
@@ -902,12 +1003,15 @@ def model_phases(dem, seed: int, card: str) -> dict:
     """Phases 3g-3j on the catchment ``dem``; returns what they measured
     (the per-hour walls and host syncs of 3g, its peak memory, 3h's dict,
     3i's solver stats and bundle launches, 3j's walls)."""
+    import copy
     import dataclasses
     import torch
     from criteria3d_tpu_torch import SolverParameters
     from criteria3d_tpu_torch.model import ModelConfig
+    from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.problems import (MODEL_CONFIG, build_model_problem,
                                                model_day_forcing, synthetic_catchment)
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     K = JB.SWEEPS_PER_BUNDLE
 
@@ -950,8 +1054,29 @@ def model_phases(dem, seed: int, card: str) -> dict:
     p_mh = SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=True)
     model = build_model_problem(dem, 4.0, p_mh, "cuda",
                                 ModelConfig(compute_heat=True, **MODEL_CONFIG))
+    twin = copy.copy(model)
     mh = model_coupled_hour("coupled model", model, 10, card)
-    del model
+    # the same hour from the same state, eager-driven: h and T bit-equal,
+    # the graph-driven hour's peak at most 2 x this one's
+    device_loop.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    host_read.count = 0
+    t0 = time.time()
+    with device_loop.forced_eager():
+        twin.run_hour(model_day_forcing(twin.grid, None, 10), *MODEL_DATE, 10)
+    torch.cuda.synchronize()
+    mh.update(eager_wall_s=time.time() - t0, eager_syncs=host_read.count,
+              eager_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    same = torch.equal(model.water.h, twin.water.h) and torch.equal(model.heat.t, twin.heat.t)
+    print(f"# coupled model hour 10 eager-driven ({card}): wall {mh['eager_wall_s']} s, host "
+          f"syncs {mh['eager_syncs']}, peak {mh['eager_peak_gib']} GiB (graph-driven "
+          f"{mh['peak_gib']} GiB); h and T bit-equal to the graph-driven hour {same}",
+          flush=True)
+    check(same, "3h: the graph-driven coupled model hour differs from the eager one")
+    check(mh["peak_gib"] <= 2.0 * mh["eager_peak_gib"],
+          f"3h: graph peak {mh['peak_gib']} GiB > 2 x eager {mh['eager_peak_gib']}")
+    del model, twin
     torch.cuda.empty_cache()
 
     # ---- 3i. one model hour through the CUDA bundle ----------------------
@@ -1299,13 +1424,18 @@ def _peak_gib(dev, reset: bool = False) -> float:
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def _profiled(label, run, wall_s, ranges, dev):
-    """:func:`breakdown` on the card; on the CPU (a rehearsal) the run only
-    (there is no device time to measure)."""
-    if torch_device_type(dev) != "cuda":
-        run()
-        return 1.0, {}, {r: 1.0 for r in ranges}
-    return breakdown(label, run, wall_s, ranges=ranges)
+def _profiled(label, run, wall_s, ranges, dev, eager: bool = False):
+    """:func:`breakdown` on the card (``eager``: the run under the eager
+    driver, whose units' ranges the profiler sees; a replayed graph shows
+    it the kernels only); on the CPU (a rehearsal) the run only (there is
+    no device time to measure)."""
+    import contextlib
+    from criteria3d_tpu_torch.solver import device_loop
+    with device_loop.forced_eager() if eager else contextlib.nullcontext():
+        if torch_device_type(dev) != "cuda":
+            run()
+            return 1.0, {}, {r: 1.0 for r in ranges}
+        return breakdown(label, run, wall_s, ranges=ranges)
 
 
 def torch_device_type(dev) -> str:
@@ -1359,6 +1489,80 @@ def stop_flips(stops_a, stops_b, tol: float = 1e-7):
     return flips, cells
 
 
+def _flat_tensors(obj, prefix: str = ""):
+    """Every tensor of a tensor, tuple, list, dict or dataclass, by path."""
+    import dataclasses
+    import torch
+    if isinstance(obj, torch.Tensor):
+        yield prefix, obj
+    elif isinstance(obj, (tuple, list)):
+        for k, v in enumerate(obj):
+            yield from _flat_tensors(v, f"{prefix}[{k}]")
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _flat_tensors(v, f"{prefix}.{k}")
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _flat_tensors(getattr(obj, f.name), f"{prefix}.{f.name}")
+
+
+def fixed_point_drivers(label: str, run, module, kernel: str, dev) -> dict:
+    """A call that reaches the fixed point ``module.kernel`` (``run()``)
+    graph-driven and eager-driven on ``dev``, each call's per-cell stops
+    recorded: every output bit-equal, every call's stop iterations and
+    |dASS| equal; on the card each call of the graph run graph-driven in
+    one launch of the machine (one host read), none eager. Prints both
+    runs' walls, host reads, calls, launches and peaks; returns them."""
+    import contextlib
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import device_loop
+    on_card = torch_device_type(dev) == "cuda"
+    runs = {}
+    for driver in ("graph", "eager"):
+        stops = []
+        orig = recording(module, kernel, stops, stops=True)
+        try:
+            _sync(dev)
+            _peak_gib(dev, reset=True)
+            device_loop.reset_counts()
+            host_read.count = 0
+            t0 = time.time()
+            with device_loop.forced_eager() if driver == "eager" else contextlib.nullcontext():
+                out = run()
+            _sync(dev)
+            runs[driver] = dict(out=out, stops=stops, wall_s=time.time() - t0,
+                                reads=host_read.count, drivers=device_loop.counts(),
+                                peak_gib=_peak_gib(dev))
+        finally:
+            setattr(module, kernel, orig)
+    g, e = runs["graph"], runs["eager"]
+    ga, ea = dict(_flat_tensors(g["out"])), dict(_flat_tensors(e["out"]))
+    differ = [k for k in ea if not torch.equal(ga[k], ea[k])]
+    same_stops = len(g["stops"]) == len(e["stops"]) and all(
+        torch.equal(a["stop"], b["stop"]) and torch.equal(a["d_ass"], b["d_ass"])
+        for a, b in zip(g["stops"], e["stops"]))
+    gd, calls = g["drivers"], len(g["stops"])
+    print(f"# {label} graph vs eager ({torch_device_type(dev)}): {calls} fixed-point calls, "
+          f"iterations {[int(st['iterations']) for st in g['stops']]}; graph {gd['graph_fixed_points']} "
+          f"calls in {gd['launches']} launches (capture {gd['capture_s']} s), wall "
+          f"{g['wall_s']} s, host reads {g['reads']}, peak {g['peak_gib']} GiB; eager wall "
+          f"{e['wall_s']} s, host reads {e['reads']}, peak {e['peak_gib']} GiB; outputs "
+          f"bit-equal {not differ} ({len(ea)} tensors), stops equal {same_stops}",
+          flush=True)
+    check(calls > 0 and not differ and ga.keys() == ea.keys(),
+          f"{label}: the graph-driven outputs differ from the eager ones: {differ[:5]}")
+    check(same_stops, f"{label}: the stop iterations differ between the drivers")
+    if on_card:
+        check(gd["graph_fixed_points"] == calls and gd["eager_fixed_points"] == 0
+              and gd["launches"] == calls,
+              f"{label}: {calls} fixed-point calls, drivers {gd}")
+    return dict(calls=calls, graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+                graph_reads=g["reads"], eager_reads=e["reads"],
+                graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
+                launches=gd["launches"], capture_s=gd["capture_s"])
+
+
 def hydrall_full_size(dem, seed: int, card: str, dev="cuda") -> dict:
     """phase 3m: HYDRALL and RothC in the model cycle at full size
     (``problems.build_hydrall_problem`` under ``fast_f32()``): hours 10-13
@@ -1373,6 +1577,7 @@ def hydrall_full_size(dem, seed: int, card: str, dev="cuda") -> dict:
     from criteria3d_tpu_torch.model import masked_mean
     from criteria3d_tpu_torch.physics import hydrall as HY
     from criteria3d_tpu_torch.problems import build_hydrall_problem, model_day_forcing
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     _peak_gib(dev, reset=True)
     t0 = time.time()
@@ -1393,19 +1598,21 @@ def hydrall_full_size(dem, seed: int, card: str, dev="cuda") -> dict:
             JB.jacobi_bundle.launches = 0
             host_read.count = 0
             HY.photosynthesis_kernel.iterations = 0
+            device_loop.reset_counts()
             t0 = time.time()
             out = model.run_hour(forcing, *MODEL_DATE, hour)
             _sync(dev)
             wall = time.time() - t0
             syncs, launches = host_read.count, JB.jacobi_bundle.launches
             iters = HY.photosynthesis_kernel.iterations
+            fixed = device_loop.counts()["graph_fixed_points"]
             mbr = float(out["mbr"])
             assim, transp = out["hydrall_assimilation"], out["hydrall_transpiration"]
             a_mean = float(masked_mean(assim, forest, device=True))
             t_mean = float(masked_mean(transp, forest, device=True))
             print(f"# hydrall model hour {hour} ({card}): wall {wall} s, host reads {syncs}, "
                   f"stats {out['solver_stats']}, MBR {mbr}, fixed-point iterations {iters} "
-                  f"(2 calls), forest means: assimilation {a_mean} mol m-2 s-1, "
+                  f"(2 calls, {fixed} graph-driven), forest means: assimilation {a_mean} mol m-2 s-1, "
                   f"transpiration {t_mean} mm; bundle launches {launches}", flush=True)
             for name, t in list(tensors_of(model.hydrall)) + list(tensors_of(model.rothc)) + [
                     (k, v) for k, v in out.items() if isinstance(v, torch.Tensor)]:
@@ -1419,16 +1626,20 @@ def hydrall_full_size(dem, seed: int, card: str, dev="cuda") -> dict:
                   f"3m hour {hour}: HYDRALL outputs out of range")
             check(float(transp[~forest].abs().max()) == 0.0,
                   f"3m hour {hour}: transpiration outside the forest")
+            if torch_device_type(dev) == "cuda":
+                check(fixed == 2, f"3m hour {hour}: {fixed} of 2 fixed points graph-driven")
             runs.append(dict(wall_s=wall, syncs=syncs, iterations=iters, mbr=mbr,
-                             stats=out["solver_stats"]))
+                             stats=out["solver_stats"], fixed_points=fixed))
     finally:
         HY.hydrall_hour = orig
     peak = _peak_gib(dev)
     walls = [r["wall_s"] for r in runs]
+    # eager-driven: the profiler sees the units' ranges (c3d.hydrall's among
+    # them) only off a graph
     busy, _, layers = _profiled(
-        "hydrall model hour 14", lambda: dataclasses.replace(model).run_hour(
+        "hydrall model hour 14 (eager-driven)", lambda: dataclasses.replace(model).run_hour(
             model_day_forcing(model.grid, None, 14), *MODEL_DATE, 14),
-        statistics.median(walls), layer_ranges() + (HY.HYDRALL_RANGE,), dev)
+        statistics.median(walls), layer_ranges() + (HY.HYDRALL_RANGE,), dev, eager=True)
     hyd_s = layers.get(HY.HYDRALL_RANGE, 0.0)
     check(busy > 0.0 and hyd_s > 0.0,
           f"3m: no device time in the hour ({busy}) or in {HY.HYDRALL_RANGE} ({hyd_s})")
@@ -1460,6 +1671,12 @@ def hydrall_full_size(dem, seed: int, card: str, dev="cuda") -> dict:
     else:   # a flip moves a cell's output by up to tol (1e-7 mol m-2 s-1)
         check(float((oc["assimilation"].cpu() - op["assimilation"]).abs().max()) <= 4e-7,
               "3m: a stop flip moved the assimilation by more than 2 tol x 2 leaves")
+    # the same call graph-driven against eager-driven on the card
+    maps = args[0].to(dev)
+    kw_d = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    drivers = fixed_point_drivers("3m hydrall_hour on hour 13's inputs",
+                                  lambda: HY.hydrall_hour(maps, **kw_d), HY,
+                                  "photosynthesis_kernel", dev)
 
     # the Jan-1 annual step and one monthly RothC step on the card
     t0 = time.time()
@@ -1481,7 +1698,8 @@ def hydrall_full_size(dem, seed: int, card: str, dev="cuda") -> dict:
     return dict(walls=walls, syncs=[r["syncs"] for r in runs],
                 iterations=[r["iterations"] for r in runs], mbrs=[r["mbr"] for r in runs],
                 stats=[r["stats"] for r in runs], peak_gib=peak, busy_s=busy,
-                hydrall_s=hyd_s, flips=flips, rel=worst, step_s=step_s)
+                hydrall_s=hyd_s, flips=flips, rel=worst, step_s=step_s,
+                drivers=drivers, fixed_points=[r["fixed_points"] for r in runs])
 
 
 def dry_day_forcing(grid, date, hour):
@@ -1550,6 +1768,7 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
     with the seeded mid-season canopy: hours 11-13 and 22-23 (irrigation
     booked for the day), the daily update, one more hour profiled; one
     hour's canopy fluxes on a window held against the CPU."""
+    import contextlib
     import dataclasses
     import datetime
     import torch
@@ -1558,6 +1777,7 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
     from criteria3d_tpu_torch.problems import (VINE_DATE, VINE_IRRIGATION_HOURS,
                                                seed_vine_canopy, write_vine_project)
     from criteria3d_tpu_torch.project import INTERPOLATION_RANGE
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     from criteria3d_tpu_torch.vine3d import DISEASES_RANGE
     from criteria3d_tpu_torch.vine3d_project import Vine3DProject
@@ -1594,12 +1814,14 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
             JB.jacobi_bundle.launches = 0
             host_read.count = 0
             VP.photosynthesis_kernel_simplified.iterations = 0
+            device_loop.reset_counts()
             t0 = time.time()
             out = model.run_hour(prj.hourly_forcing(when), *VINE_DATE, hour)
             _sync(dev)
             wall = time.time() - t0
             syncs, launches = host_read.count, JB.jacobi_bundle.launches
             iters = VP.photosynthesis_kernel_simplified.iterations
+            fixed = device_loop.counts()["graph_fixed_points"]
             irrigated = int((out["irrigation"] > 0).sum())
             demand = float(out["vine_transpiration_demand"][model.vineyard_mask].mean())
             # the mass gate against the hour's gross exchange: in an irrigated
@@ -1612,7 +1834,8 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
             print(f"# vine project 768 hour {hour} ({card}): wall {wall} s, host reads "
                   f"{syncs}, stats {out['solver_stats']}, MBR {out['mbr']} (mass error "
                   f"{float(bw.mbe)} m3 over a gross exchange of {gross} m3: {mass}), "
-                  f"fixed-point iterations {iters} (4 calls), irrigated cells {irrigated}, "
+                  f"fixed-point iterations {iters} (4 calls, {fixed} graph-driven), "
+                  f"irrigated cells {irrigated}, "
                   f"vineyard transpiration demand {demand} mm, bundle launches {launches}",
                   flush=True)
             for name, t in [(k, v) for k, v in out.items() if isinstance(v, torch.Tensor)]:
@@ -1625,9 +1848,11 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
             check(irrigated == (int((torch.as_tensor(model.field_map) == 1).sum())
                                 if hour >= 24 - VINE_IRRIGATION_HOURS else 0),
                   f"3o hour {hour}: {irrigated} irrigated cells")
+            if torch_device_type(dev) == "cuda":
+                check(fixed == 4, f"3o hour {hour}: {fixed} of 4 fixed points graph-driven")
             runs.append(dict(wall_s=wall, syncs=syncs, iterations=iters, mbr=out["mbr"],
                              mass=mass, stats=out["solver_stats"], irrigated=irrigated,
-                             launches=launches))
+                             launches=launches, fixed_points=fixed))
     finally:
         VP.vine_canopy_fluxes = orig
     t0 = time.time()
@@ -1639,11 +1864,38 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
     peak = _peak_gib(dev)
     walls = [r["wall_s"] for r in runs]
     when = datetime.datetime(*VINE_DATE, 14)
+    # hour 14 from the same state under each driver: graph-driven, then
+    # eager-driven and profiled (the profiler sees the units' ranges,
+    # c3d.vine's among them, only off a graph): each one's peak memory, wall
+    # and host reads, the graph-driven peak at most 2 x the eager one
     ranges = layer_ranges() + (VP.VINE_RANGE, DISEASES_RANGE, INTERPOLATION_RANGE)
-    busy, _, layers = _profiled(
-        "vine hour 14", lambda: dataclasses.replace(model).run_hour(
-            prj.hourly_forcing(when), *VINE_DATE, 14),
-        statistics.median(walls), ranges, dev)
+    hour14 = {}
+    for driver in ("graph", "eager"):
+        twin = dataclasses.replace(model)
+        device_loop.clear()
+        if torch_device_type(dev) == "cuda":
+            torch.cuda.empty_cache()
+        _sync(dev)
+        _peak_gib(dev, reset=True)
+        host_read.count = 0
+        t0 = time.time()
+        if driver == "graph":
+            twin.run_hour(prj.hourly_forcing(when), *VINE_DATE, 14)
+        else:
+            busy, _, layers = _profiled(
+                "vine hour 14 (eager-driven)", lambda: twin.run_hour(
+                    prj.hourly_forcing(when), *VINE_DATE, 14),
+                hour14["graph"]["wall_s"], ranges, dev, eager=True)
+        _sync(dev)
+        hour14[driver] = dict(wall_s=time.time() - t0, reads=host_read.count,
+                              peak_gib=_peak_gib(dev))
+        del twin
+    print(f"# vine project 768 hour 14 ({card}): graph-driven {hour14['graph']}, "
+          f"eager-driven and profiled {hour14['eager']}", flush=True)
+    if torch_device_type(dev) == "cuda":
+        check(hour14["graph"]["peak_gib"] <= 2.0 * hour14["eager"]["peak_gib"],
+              f"3o: the graph-driven hour's peak {hour14['graph']['peak_gib']} GiB is above "
+              f"2 x the eager hour's {hour14['eager']['peak_gib']}")
     vine_s, dis_s = layers.get(VP.VINE_RANGE, 0.0), layers.get(DISEASES_RANGE, 0.0)
     check(busy > 0.0 and vine_s > 0.0 and dis_s > 0.0,
           f"3o: no device time in {VP.VINE_RANGE} ({vine_s}) or {DISEASES_RANGE} ({dis_s})")
@@ -1689,13 +1941,19 @@ def vine_full_size(seed: int, card: str, tmp: str, dev="cuda", n: int = 768) -> 
           f"({max(rels, key=rels.get)}; tolerance 1e-12)", flush=True)
     if flips == 0:
         check(worst <= 1e-12, f"3o: canopy fluxes card vs CPU rel {worst}")
+    # hour 12's canopy fluxes over the whole box, graph- against eager-driven
+    kw_full = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    drivers = fixed_point_drivers("3o vine canopy fluxes on hour 12's inputs",
+                                  lambda: VP.vine_canopy_fluxes(**kw_full), VP,
+                                  "photosynthesis_kernel_simplified", dev)
     return dict(walls=walls, syncs=[r["syncs"] for r in runs],
                 iterations=[r["iterations"] for r in runs],
                 stats=[r["stats"] for r in runs], mbrs=[r["mbr"] for r in runs],
                 mass=[r["mass"] for r in runs], irrigated=[r["irrigated"] for r in runs],
                 launches=sum(r["launches"] for r in runs), peak_gib=peak, busy_s=busy,
                 vine_s=vine_s, diseases_s=dis_s, flips=flips, rel=worst,
-                setup_s=(write_s, load_s, init_s), n_vine=n_vine)
+                setup_s=(write_s, load_s, init_s), n_vine=n_vine, hour14=hour14,
+                drivers=drivers, fixed_points=[r["fixed_points"] for r in runs])
 
 
 def vine_day_card_vs_cpu(seed: int, card: str, tmp: str, dev="cuda") -> dict:
@@ -2721,52 +2979,82 @@ def mesh_form_params(form: str, mesh=None):
 
 
 def one_device_hour(form: str, seed: int, dev, n: int) -> dict:
-    """The storm hour of ``form`` on one device under the eager driver: the
-    reference of a partitioned hour (phases 3-3c give it in ``main``, with
-    the eager hour's reads). The grid and initial state stay on the host."""
+    """The storm hour of ``form`` on one device, graph-driven on the card
+    (eager on the CPU): the reference of a partitioned hour (phases 3-3c
+    give it in ``main``, with their eager hour's reads and peak). The grid
+    and initial state stay on the host."""
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
     from criteria3d_tpu_torch.solver.step import compute_period_stats
-    from criteria3d_tpu_torch.solver import device_loop
     params = mesh_form_params(form)
     grid, state0 = build_problem(synthetic_catchment(seed, n=n, radius=n * 366.0 / 768),
                                  4.0, params, dev)
     host_read.count = 0
-    # eager-driven, as a mesh runs: the host reads compare
-    with device_loop.forced_eager():
-        out, stats = compute_period_stats(grid, params, state0, 3600.0)
+    out, stats = compute_period_stats(grid, params, state0, 3600.0)
+    eager = _mesh_driver(None, grid.device) == "eager"
     return dict(grid=grid.to("cpu"), state0=state0.to("cpu"), h=out.h.to("cpu"),
-                stats=tuple(stats), reads=host_read.count)
+                stats=tuple(stats), mbr=float(out.balance_whole.mbr),
+                reads=host_read.count, eager_reads=host_read.count if eager else None,
+                eager_peak_gib=None)
+
+
+def _mesh_driver(mesh, device=None) -> str:
+    """The driver of a period on ``mesh`` (on ``device`` without one)."""
+    from criteria3d_tpu_torch.solver import device_loop
+    return device_loop.driver_for(mesh.home if mesh is not None else device, mesh)[0]
 
 
 def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
     """3v (iii): the storm hour of ``form`` partitioned over ``mesh``
     (grid and state cut from the host by ``shard_pytree``, the whole
     water step on the blocks, the result joined by ``gather_pytree``)
-    against the one-device hour ``ref``: stats, MBR, wall, host reads and
-    launches (one per block and bundle); |MBR| < 2e-3, host reads equal to
-    the one-device hour's; heads within 1e-5 m (f32) or 1e-9 m (f64) when
-    the stats equal the one-device hour's, else within the free-running
-    float32 envelopes of tests/test_fast_f32.py (max 0.1 m, median
-    1e-2 m)."""
+    against the one-device hour ``ref``: stats, MBR, wall, host reads,
+    bundle launches (one per block and bundle), the graph machine's
+    launches and capture seconds, the peak memory. On one card's blocks the
+    graph driver runs it (its machine captured by a zero-length period
+    first) against the graph-driven one-device hour: the same stats and
+    MBR, float32 heads bit-equal, float64 within 1e-9 m, host reads at most
+    5 % of the eager one-device hour's. On several cards the eager driver
+    runs it against the eager one-device hour: the same host reads; heads
+    within 1e-5 m (f32) or 1e-9 m (f64) when the stats are equal, else
+    within the free-running float32 envelopes of tests/test_fast_f32.py
+    (max 0.1 m, median 1e-2 m). |MBR| < 2e-3 either way."""
+    import torch
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     from criteria3d_tpu_torch.solver.step import compute_period_stats
     K = JB.SWEEPS_PER_BUNDLE
     blocks = mesh.devices.size
+    driver = _mesh_driver(mesh)
+    on_card = torch_device_type(mesh.home) == "cuda"
     params = mesh_form_params(form, mesh)
+    device_loop.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     grid_s, state_s = shard_pytree(ref["grid"], mesh), shard_pytree(ref["state0"], mesh)
     _sync_mesh(mesh)
     parts = dict(shard=time.time() - t0)
+    device_loop.reset_counts()
+    t0 = time.time()
+    compute_period_stats(grid_s, params, state_s, 0.0)
+    _sync_mesh(mesh)
+    parts["capture"] = time.time() - t0
+    capture_s = device_loop.counts()["capture_s"]
     JB.jacobi_bundle.launches = 0
     host_read.count = 0
+    device_loop.reset_counts()
     t0 = time.time()
     out, stats = compute_period_stats(grid_s, params, state_s, 3600.0)
     _sync_mesh(mesh)
     wall = time.time() - t0
-    launches, reads = JB.jacobi_bundle.launches, host_read.count
+    launches, reads, drv = JB.jacobi_bundle.launches, host_read.count, device_loop.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    del grid_s, state_s
+    device_loop.clear()
     t0 = time.time()
     out = gather_pytree(out, "cpu")
     parts["gather"] = time.time() - t0
@@ -2774,49 +3062,66 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
     err = (out.h - ref["h"]).abs()[ref["grid"].mask]
     dh_max, dh_median = float(err.max()), float(err.median())
     print(f"# 3v {form} storm hour partitioned, {mesh.shape} blocks on "
-          f"{sorted({str(d) for d in mesh.devices.flat})} ({card}): stats {stats} "
-          f"(one device {ref['stats']}) whole-period MBR={mbr} wall {wall} s "
-          f"host reads {reads} (one device {ref['reads']}) bundle launches "
-          f"{launches}; heads against the one-device hour: max {dh_max} m, median "
-          f"{dh_median} m", flush=True)
+          f"{sorted({str(d) for d in mesh.devices.flat})} ({card}), {driver} driver "
+          f"({drv['launches']} graph launches, capture {capture_s} s): stats {stats} "
+          f"(one device {ref['stats']}) whole-period MBR={mbr} (one device {ref['mbr']}) "
+          f"wall {wall} s host reads {reads} (one device {ref['reads']}, eager "
+          f"{ref['eager_reads']}) bundle launches {launches}; peak memory {peak} GiB (the "
+          f"eager one-device hour's {ref['eager_peak_gib']}); heads against the one-device "
+          f"hour: max {dh_max} m, median {dh_median} m", flush=True)
     check(abs(mbr) < 2e-3, f"3v {form}: |whole-period MBR| {mbr} >= 2e-3")
-    check(reads == ref["reads"], f"3v {form}: {reads} host reads, the one-device "
-                                 f"hour {ref['reads']}")
-    if form == "bundle" and torch_device_type(mesh.home) == "cuda":
+    if form == "bundle" and on_card:
         check(launches * K == blocks * stats[3],
               f"3v: {launches} launches for {stats[3]} sweeps on {blocks} blocks")
     if form != "bundle":
         check(launches == 0, f"3v {form}: {launches} bundle launches")
-    if tuple(stats) == tuple(ref["stats"]):
-        tol = 1e-9 if form == "f64" else 1e-5
-        check(dh_max <= tol, f"3v {form}: equal stats, heads {dh_max} m apart")
+    if driver == "graph":
+        check(drv["graph_periods"] == 1 and drv["eager_periods"] == 0,
+              f"3v {form}: the partitioned hour did not run graph-driven ({drv})")
+        check(tuple(stats) == tuple(ref["stats"]) and mbr == ref["mbr"],
+              f"3v {form}: stats {stats} MBR {mbr} against the one device's "
+              f"{ref['stats']} {ref['mbr']}")
+        check(dh_max <= 1e-9 if form == "f64" else dh_max == 0.0,
+              f"3v {form}: heads {dh_max} m from the one-device hour's")
+        if ref["eager_reads"]:
+            check(reads <= 0.05 * ref["eager_reads"], f"3v {form}: {reads} host reads, "
+                  f"more than 5 % of the eager hour's {ref['eager_reads']}")
     else:
-        check(dh_max < 0.1 and dh_median < 1e-2,
-              f"3v {form}: heads {dh_max} m (median {dh_median}) outside the f32 "
-              "envelopes")
+        check(reads == ref["eager_reads"], f"3v {form}: {reads} host reads, the "
+                                           f"one-device hour {ref['eager_reads']}")
+        if tuple(stats) == tuple(ref["stats"]):
+            tol = 1e-9 if form == "f64" else 1e-5
+            check(dh_max <= tol, f"3v {form}: equal stats, heads {dh_max} m apart")
+        else:
+            check(dh_max < 0.1 and dh_median < 1e-2,
+                  f"3v {form}: heads {dh_max} m (median {dh_median}) outside the f32 "
+                  "envelopes")
     return dict(stats=stats, mbr=mbr, wall_s=wall, host_reads=reads,
-                launches=launches, dh_max=dh_max, parts=parts)
+                launches=launches, graph_launches=drv["launches"], capture_s=capture_s,
+                peak_gib=peak, driver=driver, dh_max=dh_max, parts=parts)
 
 
 def one_device_coupled_hour(seed: int, dev, n: int) -> dict:
-    """Phase 3e's coupled storm hour on one device under the eager driver:
-    the reference of 3v (iv) (phase 3e gives it in ``main``, with the eager
-    hour's reads): its inputs, h and T on the host, its counts and host
-    reads."""
+    """Phase 3e's coupled storm hour on one device, graph-driven on the
+    card (eager on the CPU): the reference of 3v (iv) (phase 3e gives it in
+    ``main``, with its eager hour's reads): its inputs, h and T on the
+    host, its counts, MBRs and host reads."""
+    from criteria3d_tpu_torch.bench import coupled_heat_mbr
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.problems import build_coupled_problem, synthetic_catchment
     from criteria3d_tpu_torch.solver import coupled as CP
     params = mesh_form_params("coupled")
     inputs = build_coupled_problem(
         synthetic_catchment(seed, n=n, radius=n * 366.0 / 768), 4.0, params, dev)
-    from criteria3d_tpu_torch.solver import device_loop
     CP.reset_counts()
     host_read.count = 0
-    # eager-driven, as a mesh runs: the host reads compare
-    with device_loop.forced_eager():
-        w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], 3600.0)
+    w, h = CP.compute_period_coupled(inputs[0], params, *inputs[1:], 3600.0)
+    eager = _mesh_driver(None, inputs[0].device) == "eager"
     return dict(inputs=[x.to("cpu") for x in inputs], h=w.h.to("cpu"),
-                t=h.t.to("cpu"), counts=CP.counts(), reads=host_read.count)
+                t=h.t.to("cpu"), counts=CP.counts(), reads=host_read.count,
+                mbr=float(w.balance_whole.mbr),
+                heat_mbr=coupled_heat_mbr(inputs[0], params, w, h),
+                eager_reads=host_read.count if eager else None)
 
 
 def mesh_coupled_hour(card: str, dev, ref: dict, mesh) -> dict:
@@ -2824,31 +3129,56 @@ def mesh_coupled_hour(card: str, dev, ref: dict, mesh) -> dict:
     (grid, water, heat and boundary cut from the host by ``shard_pytree``,
     the whole coupled step on the blocks, the result joined by
     ``gather_pytree``) against the one-device hour ``ref``: water stats,
-    chunks, sub-steps, heat sweeps, host reads, wall, bundle launches,
-    water and heat MBR, the gaps of h and T. |water MBR| < 2e-3, the heat
-    MBR finite, no launch, host reads equal to the one-device hour's; h
-    and T within 1e-5 of it when every count is equal, else within the
-    float32 envelopes (h: max 0.1 m, median 1e-2 m, tests/test_fast_f32.py;
-    T 0.2 K, JAX's sharded-vs-single bar, tests/test_sharding.py)."""
+    chunks, sub-steps, heat sweeps, host reads, wall, bundle launches (0),
+    the graph machine's launches and capture seconds, water and heat MBR,
+    the gaps of h and T, the peak memory. |water MBR| < 2e-3, the heat MBR
+    finite. On one card's blocks (the graph driver, captured by a
+    zero-length period first) against the graph-driven one-device hour:
+    every count and the water MBR equal, the heat MBR within rel 1e-8 (its
+    balance adds the blocks' partials in another order), h and T
+    bit-equal, host reads at most 5 % of the eager one-device hour's. On
+    several cards (the eager driver) against the eager one-device hour: the
+    same host reads; h and T within 1e-5 when every count is equal, else
+    within the float32 envelopes (h: max 0.1 m, median 1e-2 m,
+    tests/test_fast_f32.py; T 0.2 K, JAX's sharded-vs-single bar,
+    tests/test_sharding.py)."""
+    import torch
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
     from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     grid = ref["inputs"][0]
+    driver = _mesh_driver(mesh)
+    on_card = torch_device_type(mesh.home) == "cuda"
+    params = mesh_form_params("coupled", mesh)
+    device_loop.clear()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     blocked = [shard_pytree(x, mesh) for x in ref["inputs"]]
     _sync_mesh(mesh)
     parts = dict(shard=time.time() - t0)
+    device_loop.reset_counts()
+    t0 = time.time()
+    CP.compute_period_coupled(blocked[0], params, *blocked[1:], 0.0)
+    _sync_mesh(mesh)
+    parts["capture"] = time.time() - t0
+    capture_s = device_loop.counts()["capture_s"]
     CP.reset_counts()
+    device_loop.reset_counts()
     JB.jacobi_bundle.launches = 0
     host_read.count = 0
     t0 = time.time()
-    w, h = CP.compute_period_coupled(blocked[0], mesh_form_params("coupled", mesh),
-                                     *blocked[1:], 3600.0)
+    w, h = CP.compute_period_coupled(blocked[0], params, *blocked[1:], 3600.0)
     _sync_mesh(mesh)
     wall = time.time() - t0
     counts, reads, launches = CP.counts(), host_read.count, JB.jacobi_bundle.launches
+    drv = device_loop.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
     del blocked
+    device_loop.clear()
     t0 = time.time()
     w, h = gather_pytree(w, "cpu"), gather_pytree(h, "cpu")
     parts["gather"] = time.time() - t0
@@ -2860,32 +3190,49 @@ def mesh_coupled_hour(card: str, dev, ref: dict, mesh) -> dict:
     dt = (h.t - ref["t"]).abs()[heat_mask]
     dh_max, dh_median = float(dh.max()), float(dh.median())
     dt_max, dt_median = float(dt.max()), float(dt.median())
+    same = torch.equal(w.h, ref["h"]) and torch.equal(h.t, ref["t"])
     stats = tuple(counts[k] for k in ("steps", "attempts", "approximations",
                                       "inner_iterations"))
     print(f"# 3v coupled storm hour partitioned, {mesh.shape} blocks on "
-          f"{sorted({str(d) for d in mesh.devices.flat})} ({card}): water stats {stats}; "
+          f"{sorted({str(d) for d in mesh.devices.flat})} ({card}), {driver} driver "
+          f"({drv['launches']} graph launches, capture {capture_s} s): water stats {stats}; "
           f"heat chunks {counts['chunks']}, sub-steps accepted "
           f"{counts['substeps_accepted']} rejected {counts['substeps_rejected']}, heat "
           f"sweeps {counts['heat_sweeps']} (one device {ref['counts']}); host reads "
-          f"{reads} (one device {ref['reads']}); wall {wall} s; bundle launches "
-          f"{launches}; water whole-period MBR {mbr}, heat MBR {heat_mbr}; against the "
-          f"one-device hour: h max {dh_max} m, median {dh_median} m; T max {dt_max} K, "
-          f"median {dt_median} K", flush=True)
+          f"{reads} (one device {ref['reads']}, eager {ref['eager_reads']}); wall {wall} s; "
+          f"peak memory {peak} GiB; bundle launches {launches}; water whole-period MBR "
+          f"{mbr} (one device {ref['mbr']}), heat MBR {heat_mbr} (one device "
+          f"{ref['heat_mbr']}); against the one-device hour: h and T bit-equal {same}, h max "
+          f"{dh_max} m, median {dh_median} m; T max {dt_max} K, median {dt_median} K",
+          flush=True)
     check(abs(mbr) < 2e-3, f"3v coupled: |water whole-period MBR| {mbr} >= 2e-3")
     check(math.isfinite(heat_mbr), f"3v coupled: heat MBR {heat_mbr} is not finite")
     check(launches == 0, f"3v coupled: {launches} bundle launches")
-    check(reads == ref["reads"], f"3v coupled: {reads} host reads, the one-device "
-                                 f"hour {ref['reads']}")
-    if counts == ref["counts"]:
-        check(dh_max <= 1e-5 and dt_max <= 1e-5,
-              f"3v coupled: equal counts, h {dh_max} m and T {dt_max} K apart")
+    if driver == "graph":
+        check(drv["graph_periods"] == 1 and drv["eager_periods"] == 0,
+              f"3v coupled: the partitioned hour did not run graph-driven ({drv})")
+        check(counts == ref["counts"] and mbr == ref["mbr"]
+              and abs(heat_mbr - ref["heat_mbr"]) <= 1e-8 * abs(ref["heat_mbr"]),
+              f"3v coupled: counts {counts}, MBRs {mbr} / {heat_mbr} against the one "
+              f"device's {ref['counts']}, {ref['mbr']} / {ref['heat_mbr']}")
+        check(same, f"3v coupled: h {dh_max} m and T {dt_max} K from the one-device hour's")
+        if ref["eager_reads"]:
+            check(reads <= 0.05 * ref["eager_reads"], f"3v coupled: {reads} host reads, "
+                  f"more than 5 % of the eager hour's {ref['eager_reads']}")
     else:
-        check(dh_max < 0.1 and dh_median < 1e-2 and dt_max <= 0.2,
-              f"3v coupled: h {dh_max} m (median {dh_median}), T {dt_max} K outside "
-              "the float32 envelopes")
+        check(reads == ref["eager_reads"], f"3v coupled: {reads} host reads, the "
+                                           f"one-device hour {ref['eager_reads']}")
+        if counts == ref["counts"]:
+            check(dh_max <= 1e-5 and dt_max <= 1e-5,
+                  f"3v coupled: equal counts, h {dh_max} m and T {dt_max} K apart")
+        else:
+            check(dh_max < 0.1 and dh_median < 1e-2 and dt_max <= 0.2,
+                  f"3v coupled: h {dh_max} m (median {dh_median}), T {dt_max} K outside "
+                  "the float32 envelopes")
     return dict(stats=stats, counts=counts, mbr=mbr, heat_mbr=heat_mbr, wall_s=wall,
-                host_reads=reads, launches=launches, dh_max=dh_max, dt_max=dt_max,
-                parts=parts)
+                host_reads=reads, launches=launches, graph_launches=drv["launches"],
+                capture_s=capture_s, peak_gib=peak, driver=driver, dh_max=dh_max,
+                dt_max=dt_max, parts=parts)
 
 
 def _sync_mesh(mesh) -> None:
@@ -2897,7 +3244,8 @@ def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
     """3v on a host with several cards (``main`` needs one and does not run
     it): the mesh of one block per card (``make_mesh()``): the mesh loop on
     phase 2's inputs against one card; the bundle storm hour on one card
-    (eager-driven, as a mesh runs) and partitioned over the cards, each card's peak memory of the
+    (eager-driven, as a mesh over several cards runs) and partitioned over
+    the cards, each card's peak memory of the
     partitioned hour at most 0.35 of the one-card hour's (nothing whole
     lives on a card: the grid and state are cut from the host); and the
     scaling bench's line, whose mesh leg takes one block per card."""
@@ -2924,7 +3272,8 @@ def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
     torch.cuda.synchronize(0)
     one_peak = torch.cuda.max_memory_allocated(0)
     ref = dict(grid=grid, state0=state0, h=out.h.to("cpu"), stats=tuple(stats),
-               reads=host_read.count)
+               mbr=float(out.balance_whole.mbr), reads=host_read.count,
+               eager_reads=host_read.count, eager_peak_gib=one_peak / 2**30)
     del g0, s0, out
     torch.cuda.empty_cache()
     for i in range(torch.cuda.device_count()):
@@ -2952,6 +3301,7 @@ def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
     the cards (``mesh_coupled_hour`` against it), each card's peak memory
     of the partitioned hour at most 0.35 of the one-card hour's."""
     import torch
+    from criteria3d_tpu_torch.bench import coupled_heat_mbr
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import make_mesh
     from criteria3d_tpu_torch.problems import build_coupled_problem, synthetic_catchment
@@ -2974,7 +3324,9 @@ def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
     one_wall = time.time() - t0
     one_peak = torch.cuda.max_memory_allocated(0)
     ref = dict(inputs=inputs, h=w.h.to("cpu"), t=h.t.to("cpu"), counts=CP.counts(),
-               reads=host_read.count)
+               reads=host_read.count, eager_reads=host_read.count,
+               mbr=float(w.balance_whole.mbr),
+               heat_mbr=coupled_heat_mbr(on0[0], params, w, h))
     del on0, w, h
     torch.cuda.empty_cache()
     for i in range(torch.cuda.device_count()):
@@ -2993,14 +3345,211 @@ def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
                 peaks=peaks, shares=shares)
 
 
+# 3x (vi): graph against eager on the same 2 x 2 blocks at a small box:
+# the water hours' box and the coupled hour's valley (test_torch_cuda.py's),
+# and the periods' length [s] (half an hour: the script stays under 600 s)
+MESH_GRAPH_BOX = 64
+MESH_GRAPH_VALLEY = 32
+MESH_GRAPH_PERIOD = 1800.0
+
+
+def valley_box(n: int):
+    """test_torch_cuda.py's coupled valley: an n x n DEM sloping down the
+    rows, a V across the columns (10 m cells)."""
+    import numpy as np
+    rows, cols = np.mgrid[0:n, 0:n]
+    return 100.0 + (n - 1 - rows) * 0.5 + np.abs(cols - n // 2) * 0.8
+
+
+def _mesh_run(run, eager: bool, on_card: bool) -> dict:
+    """``run()`` with every count set to 0 before it (the drivers' kept
+    machines dropped) and read after, under the graph or the eager driver:
+    its result, host reads, bundle launches, the drivers' counts and the
+    peak memory [GiB]."""
+    import contextlib
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    device_loop.clear()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    device_loop.reset_counts()
+    CP.reset_counts()
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    t0 = time.time()
+    with device_loop.forced_eager() if eager else contextlib.nullcontext():
+        out = run()
+    if on_card:
+        torch.cuda.synchronize()
+    res = dict(out=out, wall_s=time.time() - t0, reads=host_read.count,
+               launches=JB.jacobi_bundle.launches, drivers=device_loop.counts(),
+               counts=CP.counts(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0)
+    device_loop.clear()
+    return res
+
+
+def units_make_no_sync(label: str, machine, on_card: bool) -> set:
+    """Every unit of ``machine`` (loaded) run in turn to DONE, each under
+    ``torch.cuda.set_sync_debug_mode("error")`` on the card (a host
+    synchronisation inside a unit raises); the status read between units.
+    Returns the phases run."""
+    import torch
+    from criteria3d_tpu_torch.device import host_array
+    units, seen = machine.units(), set()
+    status = host_array(machine.status)
+    while status[0] != machine.DONE:
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            units[int(status[0])][1]()
+        except RuntimeError as e:
+            fail(f"{label}: unit {units[int(status[0])][0]!r} synchronised with the "
+                 f"host ({e})")
+        finally:
+            if on_card:
+                torch.cuda.set_sync_debug_mode("default")
+        seen.add(int(status[0]))
+        status = host_array(machine.status)
+    return seen
+
+
+def mesh_graph_vs_eager(card: str, dev="cuda") -> dict:
+    """Phase 3x (vi): the partitioned hours graph-driven against
+    eager-driven on the same 2 x 2 blocks of ``dev``: the storm hour of each
+    water form on a MESH_GRAPH_BOX box (test_torch_cuda.py's) and the
+    frozen coupled storm hour on the MESH_GRAPH_VALLEY valley: stats,
+    counts, both MBRs and bundle launches equal, heads and T bit-equal; on
+    the card the graph driver ran, its host reads at most 5 % of the eager
+    hour's, its peak at most 2 x (each period MESH_GRAPH_PERIOD long). Then
+    every unit of a 600 s f64 water machine (its ring-refresh unit among
+    them) and a 600 s coupled machine on the blocks runs under
+    ``set_sync_debug_mode("error")``: no host synchronisation inside a
+    unit."""
+    import torch
+    from criteria3d_tpu_torch.bench import coupled_heat_mbr
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
+    from criteria3d_tpu_torch.problems import (build_coupled_problem, build_problem,
+                                               synthetic_catchment)
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import step as TSt
+    on_card = torch_device_type(dev) == "cuda"
+    mesh = virtual_mesh(4, dev)
+    out = {}
+    n = MESH_GRAPH_BOX
+    for form in MESH_FORMS:
+        params = mesh_form_params(form, mesh)
+        grid, state = build_problem(synthetic_catchment(0, n=n, radius=n * 30.0 / 64), 4.0,
+                                    mesh_form_params(form), dev)
+        grid, state = shard_pytree(grid, mesh), shard_pytree(state, mesh)
+        g, e = (_mesh_run(lambda: TSt.compute_period_stats(grid, params, state,
+                                                           MESH_GRAPH_PERIOD),
+                          eager, on_card) for eager in (False, True))
+        (go, gs), (eo, es) = g["out"], e["out"]
+        gh, eh = gather_pytree(go.h, "cpu"), gather_pytree(eo.h, "cpu")
+        gm, em = float(go.balance_whole.mbr), float(eo.balance_whole.mbr)
+        ratio = g["reads"] / max(e["reads"], 1)
+        print(f"# 3x {form} {MESH_GRAPH_PERIOD} s on 2 x 2 blocks of a {n} box ({card}): "
+              f"graph stats "
+              f"{tuple(gs)} MBR {gm} wall {g['wall_s']} s host reads {g['reads']} "
+              f"launches {g['launches']} graph launches {g['drivers']['launches']} capture "
+              f"{g['drivers']['capture_s']} s peak {g['peak_gib']} GiB; eager stats "
+              f"{tuple(es)} MBR {em} wall {e['wall_s']} s host reads {e['reads']} launches "
+              f"{e['launches']} peak {e['peak_gib']} GiB; reads graph / eager {ratio}; heads "
+              f"bit-equal {torch.equal(gh, eh)}", flush=True)
+        check(tuple(gs) == tuple(es) and gm == em and g["launches"] == e["launches"],
+              f"3x {form} on blocks: graph {gs} {gm} {g['launches']}, eager {es} {em} "
+              f"{e['launches']}")
+        check(torch.equal(gh, eh), f"3x {form} on blocks: heads "
+                                   f"{float((gh - eh).abs().max())} m apart")
+        if form == "bundle" and on_card:
+            check(g["launches"] > 0, "3x bundle on blocks: no bundle launch")
+        if on_card:
+            check(g["drivers"]["graph_periods"] == 1 and e["drivers"]["eager_periods"] == 1,
+                  f"3x {form} on blocks: drivers {g['drivers']} / {e['drivers']}")
+            check(ratio <= 0.05, f"3x {form} on blocks: graph reads {g['reads']} > 5 % of "
+                                 f"eager {e['reads']}")
+            check(g["peak_gib"] <= 2.0 * e["peak_gib"],
+                  f"3x {form} on blocks: graph peak {g['peak_gib']} > 2 x {e['peak_gib']}")
+        out[form] = dict(stats=tuple(gs), graph_reads=g["reads"], eager_reads=e["reads"],
+                         graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+                         graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
+                         capture_s=g["drivers"]["capture_s"],
+                         graph_launches=g["drivers"]["launches"])
+        del grid, state, g, e
+    whole = mesh_form_params("coupled")
+    params = mesh_form_params("coupled", mesh)
+    inputs = build_coupled_problem(valley_box(MESH_GRAPH_VALLEY), 10.0, whole, dev)
+    blocked = [shard_pytree(x, mesh) for x in inputs]
+    g, e = (_mesh_run(lambda: CP.compute_period_coupled(blocked[0], params, *blocked[1:],
+                                                        MESH_GRAPH_PERIOD), eager, on_card)
+            for eager in (False, True))
+    (gw, gt), (ew, et) = ([gather_pytree(x, "cpu") for x in r["out"]] for r in (g, e))
+    gmbr = (float(gw.balance_whole.mbr), coupled_heat_mbr(inputs[0].to("cpu"), whole, gw, gt))
+    embr = (float(ew.balance_whole.mbr), coupled_heat_mbr(inputs[0].to("cpu"), whole, ew, et))
+    ratio = g["reads"] / max(e["reads"], 1)
+    same = torch.equal(gw.h, ew.h) and torch.equal(gt.t, et.t)
+    print(f"# 3x coupled {MESH_GRAPH_PERIOD} s on 2 x 2 blocks of the {MESH_GRAPH_VALLEY} "
+          f"valley ({card}): "
+          f"graph counts {g['counts']} MBRs {gmbr} wall {g['wall_s']} s host reads "
+          f"{g['reads']} graph launches {g['drivers']['launches']} capture "
+          f"{g['drivers']['capture_s']} s peak {g['peak_gib']} GiB; eager counts "
+          f"{e['counts']} MBRs {embr} wall {e['wall_s']} s host reads {e['reads']} peak "
+          f"{e['peak_gib']} GiB; reads graph / eager {ratio}; h and T bit-equal {same}",
+          flush=True)
+    check(g["counts"] == e["counts"] and gmbr == embr and g["launches"] == e["launches"] == 0,
+          f"3x coupled on blocks: graph {g['counts']} {gmbr}, eager {e['counts']} {embr}")
+    check(same, "3x coupled on blocks: h or T differ between the drivers")
+    check(g["counts"]["heat_sweeps"] > 0, "3x coupled on blocks: no heat sweep")
+    if on_card:
+        check(g["drivers"]["graph_periods"] == 1 and e["drivers"]["eager_periods"] == 1,
+              f"3x coupled on blocks: drivers {g['drivers']} / {e['drivers']}")
+        check(ratio <= 0.05, f"3x coupled on blocks: graph reads {g['reads']} > 5 % of "
+                             f"eager {e['reads']}")
+        check(g["peak_gib"] <= 2.0 * e["peak_gib"],
+              f"3x coupled on blocks: graph peak {g['peak_gib']} > 2 x {e['peak_gib']}")
+    out["coupled"] = dict(counts=g["counts"], graph_reads=g["reads"], eager_reads=e["reads"],
+                          graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+                          graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
+                          capture_s=g["drivers"]["capture_s"],
+                          graph_launches=g["drivers"]["launches"])
+    del g, e
+    # every unit on the blocks without a host synchronisation
+    p64 = mesh_form_params("f64", mesh)
+    grid, state = build_problem(synthetic_catchment(0, n=n, radius=n * 30.0 / 64), 4.0,
+                                mesh_form_params("f64"), dev)
+    grid, state = shard_pytree(grid, mesh), shard_pytree(state, mesh)
+    m = TSt._Machine(grid, p64, state, False)
+    m.load(state, 600.0, 0.0)
+    seen = units_make_no_sync("3x f64 on blocks", m, on_card)
+    check(TSt.X_EXCHANGE in seen, "3x: the f64 machine on blocks refreshed no ring")
+    mc = CP._CoupledMachine(blocked[0], params, *blocked[1:], False, 256)
+    mc.load(*blocked[1:], 600.0)
+    seen_c = units_make_no_sync("3x coupled on blocks", mc, on_card)
+    check({CP.SWEEP, CP.H_EXCHANGE, CP.SUBSTEP_END} <= seen_c,
+          "3x: the coupled machine on blocks refreshed no heat ring")
+    print(f"# 3x units on 2 x 2 blocks ({card}): {len(seen)} f64 and {len(seen_c)} coupled "
+          f"unit kinds run under set_sync_debug_mode('error'), no host synchronisation",
+          flush=True)
+    return out
+
+
 def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> dict:
     """Phase 3v (the device mesh: the halo exchange, the mesh loop against
     the single-device loop, the three storm hours partitioned over 2 x 2
-    blocks, the scaling bench's line, and phase 3e's coupled hour
-    partitioned over 2 x 2 blocks); returns what it measured.
-    ``refs`` maps each of MESH_FORMS and "coupled" to its one-device hour
-    (phases 3-3c's and 3e's; run here when None). ``dev="cpu"`` with a
-    small ``n`` rehearses it on the CPU (no times, no launches)."""
+    blocks of the card, graph-driven, the scaling bench's line, and phase
+    3e's coupled hour partitioned over 2 x 2 blocks, graph-driven) and (3x
+    (vi)) the partitioned hours graph against eager on the same blocks at
+    a small box; returns what it measured. ``refs`` maps each of
+    MESH_FORMS and "coupled" to its graph-driven one-device hour (phases
+    3-3c's and 3e's; run here when None). ``dev="cpu"`` with a small ``n``
+    rehearses it on the CPU (the eager driver; no times, no launches)."""
     from criteria3d_tpu_torch import scaling_bench
     t0 = time.time()
     parts = {}
@@ -3029,13 +3578,77 @@ def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> di
     hours["coupled"] = mesh_coupled_hour(card, dev, ref, mesh)
     del ref
     lap("coupled partitioned")
+    small = mesh_graph_vs_eager(card, dev)
+    lap("graph vs eager on blocks")
     seconds = time.time() - start
     print(f"# phase 3v took {seconds} s ({card}): " + "; ".join(
         f"{k} {v} s" for k, v in parts.items()) + "; within the partitioned hours: "
         + "; ".join(f"{form} wall {h['wall_s']} s " + " ".join(
             f"{k} {v} s" for k, v in h["parts"].items()) for form, h in hours.items()),
         flush=True)
-    return dict(loops=loops, hours=hours, scaling=scaling, seconds=seconds, parts=parts)
+    return dict(loops=loops, hours=hours, scaling=scaling, small=small, seconds=seconds,
+                parts=parts)
+
+
+def mesh_busy(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
+    """The idle share of the graph-driven storm hours (MESH_FORMS) and of
+    phase 3e's coupled storm hour on 2 x 2 blocks of the card (``main``
+    does not run it): each hour's machine captured by a zero-length
+    period, the hour run twice graph-driven (the second run of the kept
+    machine bit-equal to the first; the wall is the second's), then once
+    eager-driven under torch.profiler for its device busy time
+    (:func:`breakdown`; the profiler does not see the kernels inside the
+    machine's conditional nodes, so a graph-driven run's busy time is not
+    measured), the idle share 1 - busy / graph wall. Returns, per form, the
+    walls, busy seconds and idle share."""
+    import torch
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
+    from criteria3d_tpu_torch.problems import (build_coupled_problem, build_problem,
+                                               synthetic_catchment)
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    dem = synthetic_catchment(seed, n=n, radius=n * 366.0 / 768)
+    mesh = virtual_mesh(4, dev)
+    out = {}
+    for form in MESH_FORMS + ("coupled",):
+        if form == "coupled":
+            host = build_coupled_problem(dem, 4.0, mesh_form_params(form), "cpu")
+        else:
+            host = build_problem(dem, 4.0, mesh_form_params(form), "cpu")
+        params = mesh_form_params(form, mesh)
+        inputs = [shard_pytree(x, mesh) for x in host]
+
+        def run(period=3600.0):
+            if form == "coupled":
+                return CP.compute_period_coupled(inputs[0], params, *inputs[1:], period)
+            return compute_period_stats(inputs[0], params, inputs[1], period)
+        device_loop.clear()
+        torch.cuda.empty_cache()
+        run(0.0)
+        walls, heads = [], []
+        for _ in range(2):
+            _sync(dev)
+            t0 = time.time()
+            res = run()
+            _sync(dev)
+            walls.append(time.time() - t0)
+            heads.append(gather_pytree(res[0].h, "cpu"))
+            del res
+        device_loop.clear()
+        check(torch.equal(heads[0], heads[1]),
+              f"{form} on 2 x 2 blocks: the kept machine's second run differs from its first")
+        with device_loop.forced_eager():
+            busy, _, _ = breakdown(f"{form} storm hour on 2 x 2 blocks, eager-driven", run,
+                                   walls[1])
+        out[form] = dict(graph_walls_s=walls, busy_s=busy,
+                         idle_share=1.0 - busy / walls[1] if busy else None)
+        del inputs, heads
+    print(f"# graph-driven storm hours on 2 x 2 blocks ({card}): " + "; ".join(
+        f"{form}: walls {v['graph_walls_s']} s (the kept machine's second run bit-equal to "
+        f"its first), eager-profiled busy {v['busy_s']} s, idle share {v['idle_share']}"
+        for form, v in out.items()), flush=True)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -3057,8 +3670,9 @@ def graph_control_ms() -> tuple:
     from criteria3d_tpu_torch.device import host_array
     from criteria3d_tpu_torch.problems import SMALL_CONFIGS, small_hour
     from criteria3d_tpu_torch.solver import device_loop
+    device_loop.clear()
     small_hour(SMALL_CONFIGS["cg_line"][0](), "cuda")
-    gm = device_loop._cache[0][1]
+    gm = next(iter(device_loop._cache.values()))
     m = gm.machine
     stream = torch.cuda.current_stream().cuda_stream
     m.status[0].fill_(max(m.units()) + 1)
@@ -3102,7 +3716,8 @@ def graph_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
     (iv) the coupled storm hour of phase 3e the same way
     (:func:`coupled_graph_phase`); (v) the bundle-form coupled hour
     (:func:`bundle_coupled_graph_vs_eager`, on a box of n / 16 at most 48);
-    then on the card 3d's locked-dt hours, graph-driven, against the CPU.
+    3f (ii)'s float32 exact-mode periods (:func:`exact_f32_coupled`); then
+    on the card 3d's locked-dt hours, graph-driven, against the CPU.
     Returns each form's numbers. ``dev="cpu"`` with a small ``n``
     rehearses it on the CPU, where both hours run the eager driver."""
     import torch
@@ -3125,6 +3740,7 @@ def graph_phases(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
     out["coupled"] = coupled_graph_phase("coupled hour", grid,
                                          mesh_form_params("cg_line"), on_card)
     out["bundle_coupled"] = bundle_coupled_graph_vs_eager(card, dev, min(48, max(n // 16, 16)))
+    out["exact_f32"] = exact_f32_coupled(card, dev)
     if on_card:
         for name in SMALL_CONFIGS:
             small_card_vs_cpu(name)
@@ -3151,9 +3767,10 @@ def bench_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None,
     ``BENCH_DAY_COARSEN`` under ``fast_f32()``, its first
     ``BENCH_DAY_HOURS`` hours (the hour walls, the closing |MBR| < 2e-3,
     host reads); (ii) the mesh leg, the bundle hour on a (1,
-    1) mesh at full size, against the one-device bundle hour (phase 3's in
-    ``refs["bundle"]``, run here when None): the same stats and host reads,
-    heads bit-equal, one launch a bundle; (iii) trace_coupled's roll-up of
+    1) mesh at full size, graph-driven on the card, against the graph-driven
+    one-device bundle hour (phase 3's in ``refs["bundle"]``, run here when
+    None): the same stats and host reads, heads bit-equal, one launch a
+    bundle; (iii) trace_coupled's roll-up of
     the coupled hour (phase 3e's ``trace``; ``trace_coupled.trace`` at
     coarsen 4 when None): its layers sum to its busy time. Returns what it
     measured. ``dev="cpu"`` with a small ``n`` rehearses it on the CPU (no
@@ -3183,7 +3800,9 @@ def bench_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None,
     ml = bench.mesh_leg(ref["grid"].to(dev))
     h = ml.pop("out").h.to("cpu")
     dh = float((h - ref["h"]).abs().max())
-    print(f"# 3w mesh leg, {ml['mesh']} blocks on {dev} ({card}): stats {ml['stats']} "
+    print(f"# 3w mesh leg, {ml['mesh']} blocks on {dev} ({card}), {ml['driver']} driver"
+          f"{': ' + ml['why'] if ml['why'] else ''} (capture {ml['capture_s']} s, "
+          f"{ml['graph_launches']} graph launches): stats {ml['stats']} "
           f"(one device {ref['stats']}), whole-period MBR {ml['mbr']}, walls {ml['runs_s']} "
           f"s (median {ml['wall_s']}), host reads {ml['host_reads']} (one device "
           f"{ref['reads']}), bundle launches {ml['launches']}, peak memory "
@@ -3192,9 +3811,13 @@ def bench_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None,
     check(tuple(ml["stats"]) == tuple(ref["stats"]),
           f"3w: the mesh leg gave stats {ml['stats']}, one device {ref['stats']}")
     check(torch.equal(h, ref["h"]), f"3w: the mesh leg's heads are {dh} m from one device's")
+    # a (1, 1) mesh runs the one-device hour's units, so as many launches
+    # and host reads (graph-driven on the card, eager on the CPU)
     check(ml["host_reads"] == ref["reads"], f"3w: the mesh leg read the host "
                                             f"{ml['host_reads']} times, one device {ref['reads']}")
     if torch_device_type(dev) == "cuda":
+        check(ml["driver"] == "graph" and ml["graph_launches"] > 0,
+              f"3w: the mesh leg ran the {ml['driver']} driver ({ml['why']})")
         check(ml["launches"] * K == ml["stats"][3],
               f"3w: {ml['launches']} launches for {ml['stats'][3]} sweeps")
     parts["mesh leg"] = time.time() - t0
@@ -3317,10 +3940,11 @@ def main() -> int:
     gx = {"bundle": graph_vs_eager("bundle hour", sl, ev, True)}
     # the hour's grid and states on the host for 3u (telemetry and the dump)
     storm = (grid.to("cpu"), params, state0.to("cpu"), out.to("cpu"))
-    # the one-device hours that 3v partitions (phases 3-3c), on the host,
-    # with the eager driver's host reads (3v's and 3w's are eager too)
+    # the graph-driven one-device hours that 3v partitions (phases 3-3c), on
+    # the host, with the eager hours' host reads and peaks
     refs = {"bundle": dict(grid=storm[0], state0=storm[2], h=storm[3].h,
-                           stats=tuple(stats), reads=ev["host_reads"])}
+                           stats=tuple(stats), mbr=mbr, reads=syncs,
+                           eager_reads=ev["host_reads"], eager_peak_gib=ev["peak_gib"])}
     del sl
     busy_s, per_name = ev["busy_s"], ev["per_name"]
     jacobi_s = sum(v for k, v in per_name.items()
@@ -3352,7 +3976,8 @@ def main() -> int:
     ev = eager_hour("CG line hour", grid, p_cg, wall_cg)
     gx["cg_line"] = graph_vs_eager("CG line hour", sl, ev, True)
     refs["cg_line"] = dict(grid=storm[0], state0=storm[2], h=out.h.to("cpu"),
-                           stats=tuple(stats_cg), reads=ev["host_reads"])
+                           stats=tuple(stats_cg), mbr=mbr_cg, reads=syncs_cg,
+                           eager_reads=ev["host_reads"], eager_peak_gib=ev["peak_gib"])
     check(ev["busy_s"] > 0.0, "the profiler saw no device activity in the CG hour")
     del out, sl, ev, grid, state0
     torch.cuda.empty_cache()
@@ -3368,7 +3993,8 @@ def main() -> int:
     gx["f64"] = graph_vs_eager("f64 hour", sl, ev, True)
     # the f64 hour's grid is phase 3's (catchment_grid does not read params)
     refs["f64"] = dict(grid=storm[0], state0=state64.to("cpu"), h=out.h.to("cpu"),
-                       stats=tuple(stats64), reads=ev["host_reads"])
+                       stats=tuple(stats64), mbr=mbr64, reads=syncs64,
+                       eager_reads=ev["host_reads"], eager_peak_gib=ev["peak_gib"])
     check(ev["busy_s"] > 0.0, "the profiler saw no device activity in the f64 hour")
     del out, sl, ev, grid64, state64
     device_loop.clear()
@@ -3397,10 +4023,11 @@ def main() -> int:
     check(trace["busy_s"] > 0.0, "the profiler saw no device activity in the coupled hour")
     eager_cp = eager_coupled(trace, hgrid, hparams)
     gx["coupled"] = coupled_graph_vs_eager("coupled hour", cp, eager_cp, True)
-    # the one-device hour that 3v (iv) partitions, on the host, with the
-    # eager hour's reads (3v's is eager too)
+    # the graph-driven one-device hour that 3v (iv) partitions, on the
+    # host, with the eager hour's reads
     refs["coupled"] = dict(inputs=coupled_inputs, h=cp.pop("h"), t=cp.pop("t"),
-                           counts=cp["counts"], reads=eager_cp["syncs"])
+                           counts=cp["counts"], mbr=cp["mbr"], heat_mbr=cp["heat_mbr"],
+                           reads=cp["syncs"], eager_reads=eager_cp["syncs"])
     del eager_cp, hgrid
     layers_cp, sweeps = trace["layers"], cp["counts"]["heat_sweeps"]
     # a heat sweep's least bytes: b, c_up, c_down, 8 c_lat and x read as
@@ -3421,6 +4048,8 @@ def main() -> int:
         small_coupled_card_vs_cpu(name)
     # 3x (v): a coupled hour through the CUDA bundle, graph vs eager
     gx["bundle_coupled"] = bundle_coupled_graph_vs_eager(card)
+    # (ii) ROADMAP C5: the float32 exact-mode periods, graph, eager and CPU
+    exact = exact_f32_coupled(card)
 
     print(f"# phase 3f done at {time.time() - t_start:.1f} s", flush=True)
 
@@ -3523,7 +4152,8 @@ def main() -> int:
         # units of the same machines)
         "replaces": "criteria3d_tpu/solver/step.py:677; criteria3d_tpu/solver/"
                     "coupled.py:259, :215, :180, :209; criteria3d_tpu/solver/"
-                    "heat.py:1094, :1298",
+                    "heat.py:1094, :1298; criteria3d_tpu/physics/hydrall.py:302; "
+                    "criteria3d_tpu/physics/vine_photosynthesis.py:411",
         "launches": graph_main["launches"],
         # launches in phase 3e's coupled storm hour (the bench's coupled
         # leg, its counts set to 0 just before it), 3h's coupled model hour
@@ -3531,6 +4161,16 @@ def main() -> int:
         "launches_coupled_hour": cp["graph_launches"],
         "launches_coupled_model_hour": mp["coupled"]["graph_launches"],
         "launches_bundle_coupled_hour": gx["bundle_coupled"]["graph_launches"],
+        # launches in 3v's partitioned hours on 2 x 2 blocks of the card
+        # (each counted from 0 just before its hour, after its capture) and
+        # in 3w's mesh leg, the bundle hour on a (1, 1) mesh
+        "launches_mesh_hours": {k: h["graph_launches"] for k, h in vp["hours"].items()},
+        "capture_s_mesh_hours": {k: h["capture_s"] for k, h in vp["hours"].items()},
+        "launches_bench_mesh_leg": wp["mesh"]["graph_launches"],
+        # launches of the fixed points' machines: hour 13's hydrall_hour
+        # (2 calls, 3m) and hour 12's vine canopy fluxes (4 calls, 3o)
+        "launches_hydrall_fixed_points": sp["hydrall"]["drivers"]["launches"],
+        "launches_vine_fixed_points": sp["vine"]["drivers"]["launches"],
         # heads of the graph-driven bundle hour against the eager driver's
         "max_abs_err": gx["bundle"]["dh_max"],
         "ms": gm_ms,
@@ -3587,14 +4227,30 @@ def main() -> int:
           f"walls={lp['small']['walls']} differing cells={lp['small']['differ']}; host library "
           f"walls={lp['host']['walls']}; phases 3t-3u {lp['seconds']:.1f} s; mesh 2 x 2 "
           f"partitioned storm hours " + "; ".join(
-              f"{form} stats={list(h['stats'])} mbr={h['mbr']} wall_s={h['wall_s']} "
-              f"host_reads={h['host_reads']} launches={h['launches']}"
-              for form, h in vp["hours"].items()) + "; scaling legs " + "; ".join(
+              f"{form} ({h['driver']}) stats={list(h['stats'])} mbr={h['mbr']} "
+              f"wall_s={h['wall_s']} host_reads={h['host_reads']} launches={h['launches']} "
+              f"graph_launches={h['graph_launches']} capture_s={h['capture_s']} "
+              f"peak_gib={h['peak_gib']}"
+              for form, h in vp["hours"].items()) + "; 3x on 2 x 2 blocks " + "; ".join(
+              f"{form} reads {g['graph_reads']} / {g['eager_reads']} walls "
+              f"{g['graph_wall_s']} / {g['eager_wall_s']} s peak GiB {g['graph_peak_gib']} / "
+              f"{g['eager_peak_gib']}" for form, g in vp["small"].items())
+          + "; exact-mode f32 coupled " + "; ".join(
+              f"{e['n']} box counts={e['counts']} reads {e['graph_reads']} / "
+              f"{e['eager_reads']} card-CPU dh={e['dh']} dT={e['dT']}" for e in exact)
+          + f"; fixed points: hydrall_hour reads {sp['hydrall']['drivers']['graph_reads']} / "
+          f"{sp['hydrall']['drivers']['eager_reads']}, vine canopy fluxes reads "
+          f"{sp['vine']['drivers']['graph_reads']} / {sp['vine']['drivers']['eager_reads']} "
+          f"walls {sp['vine']['drivers']['graph_wall_s']} / "
+          f"{sp['vine']['drivers']['eager_wall_s']} s; vine hour 14 {sp['vine']['hour14']}; "
+          f"coupled model hour peak GiB {mp['coupled']['peak_gib']} / "
+          f"{mp['coupled']['eager_peak_gib']}" + "; scaling legs " + "; ".join(
               f"{k} {v['step_s']} s/step efficiency {v['efficiency']}"
               for k, v in vp["scaling"]["devices"].items()) + "; phase 3v "
           f"{vp['seconds']:.1f} s; bench day leg {wp['day']['wall_s']} s mbr="
-          f"{wp['day']['mbr']}; bench mesh leg stats={list(wp['mesh']['stats'])} "
-          f"wall_s={wp['mesh']['wall_s']}; phase 3w {wp['seconds']:.1f} s; script "
+          f"{wp['day']['mbr']}; bench mesh leg ({wp['mesh']['driver']}) "
+          f"stats={list(wp['mesh']['stats'])} wall_s={wp['mesh']['wall_s']} "
+          f"host_reads={wp['mesh']['host_reads']}; phase 3w {wp['seconds']:.1f} s; script "
           f"{time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

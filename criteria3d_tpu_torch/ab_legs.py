@@ -12,10 +12,9 @@ bundle hour on a (1, 1) mesh, bench.py's sampling) on
 (its walls, host reads and stats). The processes alternate in the order
 other, this, this, other, ... until each checkout has run ``pairs`` times;
 the last line gives each leg's per-process medians per checkout, the median
-of those and this checkout's median over the other's. The mesh leg runs
-under the eager driver (a mesh), so its line compares the host loops that
-drive it; the coupled leg runs under whichever driver each checkout gives
-it on the card.
+of those and this checkout's median over the other's. Each leg runs under
+whichever driver each checkout gives it on the card (its ``driver`` is in
+the line).
 """
 
 from __future__ import annotations
@@ -45,9 +44,11 @@ ml = bench.mesh_leg(grid)
 print(json.dumps({
     "root": sys.argv[1],
     "coupled": {"walls": cp["runs_s"], "wall": statistics.median(cp["runs_s"]),
-                "reads": cp["host_reads"], "counts": cp["counts"], "mbr": cp["mbr"]},
+                "reads": cp["host_reads"], "counts": cp["counts"], "mbr": cp["mbr"],
+                "driver": cp.get("driver")},
     "mesh": {"walls": ml["runs_s"], "wall": statistics.median(ml["runs_s"]),
-             "reads": ml["host_reads"], "stats": list(ml["stats"]), "mbr": ml["mbr"]},
+             "reads": ml["host_reads"], "stats": list(ml["stats"]), "mbr": ml["mbr"],
+             "driver": ml.get("driver")},
 }))
 """
 

@@ -26,8 +26,8 @@ JSON line with every key of ``bench.py``'s:
   cut by ``shard_pytree`` and joined by ``gather_pytree``; up to 3 runs.
 
 Each leg's periods run under the graph driver on the card (the water or
-coupled period's state machine as CUDA graphs, solver/device_loop.py), the
-mesh leg under the eager driver (a mesh); before a leg's timed runs a
+coupled period's state machine as CUDA graphs, solver/device_loop.py; the
+mesh leg's on the blocks of its one card); before a leg's timed runs a
 zero-length period captures the graphs, and the line gives each leg's
 driver, the units per launch and the capture seconds. Each run ends in
 ``torch.cuda.synchronize()`` and the read of its MBR. The
@@ -327,8 +327,9 @@ def mesh_leg(grid: Grid) -> dict:
     """The bundle hour on a (1, 1) mesh of the grid's device: grid and
     storm state cut by ``shard_pytree``, ``fast_f32(use_pallas=True,
     mesh=)``, the result joined by ``gather_pytree``; up to 3 runs. Returns
-    walls, median, the last run's stats, MBR, host reads, bundle launches
-    and joined final state, the leg's peak memory."""
+    walls, median, the last run's stats, MBR, host reads, bundle launches,
+    graph launches and joined final state, the leg's peak memory and driver
+    (:func:`prepare_driver`)."""
     dev = grid.device
     _reset_peak(dev)
     mesh = make_mesh(1, devices=[dev])
@@ -337,10 +338,10 @@ def mesh_leg(grid: Grid) -> dict:
     state_m = shard_pytree(problems.storm_state(grid, params), mesh)
     pparams = dataclasses.replace(params, mesh=mesh)
     driver = prepare_driver(grid_m, pparams, state_m)
-    runs, wall, (out, stats, reads, launches, mbr, _) = sample(
+    runs, wall, (out, stats, reads, launches, mbr, graph_launches) = sample(
         lambda: _hour(grid_m, pparams, state_m), dev, 3)
     return dict(runs_s=runs, wall_s=wall, stats=stats, mbr=mbr, host_reads=reads,
-                launches=launches, peak_gib=_peak_gib(dev),
+                launches=launches, graph_launches=graph_launches, peak_gib=_peak_gib(dev),
                 out=gather_pytree(out, dev), mesh=mesh.shape, **driver)
 
 

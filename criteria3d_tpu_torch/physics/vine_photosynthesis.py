@@ -12,9 +12,10 @@ conductance at GSCD; the stressed solve is batched over the root layers
 unstressed solve for the stress coefficient. Plant height is a parameter
 (1.8 m; the reference reads an unset member, DEVIATIONS #24).
 
-The fixed point runs eagerly with a per-cell stop, as JAX's
-``lax.while_loop``; the host reads ``done.all()`` every ``CHECK_EVERY``
-iterations (further iterations of done cells change nothing).
+The fixed point has a per-cell stop, as JAX's ``lax.while_loop``, and is
+a state machine on the device (physics/fixed_point.py): CUDA graphs on the
+card, one host read a call; ``CHECK_EVERY`` iterations a unit and a host
+read after each on the CPU (iterations of done cells change nothing).
 ``photosynthesis_kernel_simplified.iterations`` counts the loop iterations
 JAX would run (reset it to 0 before a run). Every map is float64.
 """
@@ -28,8 +29,9 @@ import torch
 
 from criteria3d_tpu_torch.constants import ZEROCELSIUS
 from criteria3d_tpu_torch.core.soil import power
-from criteria3d_tpu_torch.device import host_read
 from criteria3d_tpu_torch.ops import as_f64, div, ipow, rdiv, sq, where
+from criteria3d_tpu_torch.physics import fixed_point
+from criteria3d_tpu_torch.physics.fixed_point import CHECK_EVERY
 
 __all__ = [
     "WangLeuningParameters", "atmospheric_co2_pa", "weather_variables",
@@ -41,9 +43,6 @@ __all__ = [
 
 # torch.profiler range of the vine canopy fluxes (chip_smoke.py reads it)
 VINE_RANGE = "c3d.vine"
-
-# iterations of the fixed point between two host reads of all(done)
-CHECK_EVERY = 4
 
 # ---- constants (agrolib/crop/biomass.h:7-51, shared Magnani set) ----------
 R_GAS = 8.31447215           # [J mol-1 K-1] commonConstants.h:190
@@ -354,6 +353,42 @@ def upscale(rad, leaf_t_sun_k, leaf_t_shade_k, mean_month_t_c, pressure_pa,
     return sunlit, shaded
 
 
+def _step(c, cc):
+    """One evaluation of photosynthesisKernelSimplified's equations
+    (grapevine.cpp:886-915) on the loop's inputs ``c`` (the leaf-surface CO2
+    pinned at atmospheric): the new stromal CO2, the assimilation and the
+    stomatal conductance."""
+    j = torch.broadcast_to(c["j"], torch.broadcast_shapes(c["j"].shape, c["stomwl"].shape))
+    cs = torch.broadcast_to(c["co2_pa"], j.shape)
+    comp, rd, gscd = c["comp"], c["rd"], c["gscd"]
+    wc = c["vcmax"] * cc / (cc + c["kc"] * c["ko_term"])
+    wj = j * cc / (4.5 * cc + 10.5 * comp)
+    vc = torch.minimum(wc, wj)
+    ass = torch.clamp_min(vc * (1.0 - comp / cc), 0.0)
+    gsc = gscd + c["stomwl"] * (ass - rd) / (cs - comp) * c["vpd_term"]
+    gsc = torch.maximum(gsc, gscd)
+    cc_new = torch.clamp_min(cs - c["pressure_pa"] * (ass - rd) / gsc, 1.0e-2)
+    return cc_new, ass, gsc
+
+
+def _iteration(c, s, it):
+    """One iteration of the fixed point (JAX's ``body``,
+    vine_photosynthesis.py:399-406) on the carries ``s``, in place: a done
+    cell keeps its values; a newly done cell records ``it`` and its
+    |dASS|."""
+    cc2, ass, gsc = _step(c, s["cc"])
+    delta = torch.abs(ass - s["ass_old"])
+    newly_done = delta <= c["tol"]
+    done = s["done"]
+    first = newly_done & ~done
+    torch.where(done, s["cc"], cc2, out=s["cc"])
+    torch.where(done, s["ass_old"], ass, out=s["ass_old"])
+    torch.where(done, s["gsc_old"], gsc, out=s["gsc_old"])
+    torch.where(first, it.to(torch.int32), s["stop"], out=s["stop"])
+    torch.where(first, delta, s["d_ass"], out=s["d_ass"])
+    torch.logical_or(done, newly_done, out=s["done"])
+
+
 def photosynthesis_kernel_simplified(leaf, *, co2_pa, pressure_pa, vpd_pa,
                                      stomwl, vpd_sensitivity,
                                      max_iter=1000, tol=1.0e-7,
@@ -369,55 +404,31 @@ def photosynthesis_kernel_simplified(leaf, *, co2_pa, pressure_pa, vpd_pa,
     first), the |dASS| that stopped it and the loop's iteration count as
     JAX's while_loop counts it (from 1, the bootstrap step being 0)."""
     j, vcmax = leaf["j"], leaf["vcmax"]
-    kc, ko = leaf["kc"], leaf["ko"]
-    comp, rd, gscd = leaf["gamma_star"], leaf["rd"], leaf["gsc_min"]
     stomwl = as_f64(stomwl, j.device)
     shape = torch.broadcast_shapes(j.shape, stomwl.shape)
-    j = torch.broadcast_to(j, shape)
-    cs = torch.broadcast_to(co2_pa, shape)
-    vpd_term = vpd_sensitivity / (vpd_sensitivity + vpd_pa)
-    ko_term = 1.0 + rdiv(OSS, ko)
-
-    def step(cc):
-        wc = vcmax * cc / (cc + kc * ko_term)
-        wj = j * cc / (4.5 * cc + 10.5 * comp)
-        vc = torch.minimum(wc, wj)
-        ass = torch.clamp_min(vc * (1.0 - comp / cc), 0.0)
-        gsc = gscd + stomwl * (ass - rd) / (cs - comp) * vpd_term
-        gsc = torch.maximum(gsc, gscd)
-        cc_new = torch.clamp_min(cs - pressure_pa * (ass - rd) / gsc, 1.0e-2)
-        return cc_new, ass, gsc
-
-    cc, ass_old, gsc_old = step(0.7 * cs)     # bootstrap: the first ASSOLD
-    zero = torch.zeros_like(ass_old)
+    c = dict(j=j, vcmax=vcmax, kc=leaf["kc"], comp=leaf["gamma_star"], rd=leaf["rd"],
+             gscd=leaf["gsc_min"], stomwl=stomwl, co2_pa=co2_pa, pressure_pa=pressure_pa,
+             vpd_term=vpd_sensitivity / (vpd_sensitivity + vpd_pa),
+             ko_term=1.0 + rdiv(OSS, leaf["ko"]), tol=tol)
+    # the bootstrap establishes the first ASSOLD
+    cc, ass_old, gsc_old = _step(c, 0.7 * torch.broadcast_to(co2_pa, shape))
     done = torch.zeros(ass_old.shape, dtype=torch.bool, device=j.device)
-    stop = torch.full(ass_old.shape, -1, dtype=torch.int32, device=j.device)
-    d_ass = zero
-    i = 1
-    last = -1
-    while i < max_iter:
-        for _ in range(min(CHECK_EVERY, max_iter - i)):
-            cc2, ass, gsc = step(cc)
-            delta = torch.abs(ass - ass_old)
-            newly_done = delta <= tol
-            cc = torch.where(done, cc, cc2)
-            ass_old = torch.where(done, ass_old, ass)
-            gsc_old = torch.where(done, gsc_old, gsc)
-            first = newly_done & ~done
-            stop = torch.where(first, i, stop)
-            d_ass = torch.where(first, delta, d_ass)
-            done = done | newly_done
-            i += 1
-        last = int(host_read(torch.where(torch.all(done), torch.max(stop), -1)))
-        if last >= 0:
-            break
+    carries = dict(cc=cc, ass_old=ass_old, gsc_old=gsc_old, d_ass=torch.zeros_like(ass_old),
+                   done=done, stop=torch.full(ass_old.shape, -1, dtype=torch.int32,
+                                              device=j.device))
+    out, last = fixed_point.run(
+        "vine", _iteration, {k: v for k, v in c.items() if isinstance(v, torch.Tensor)},
+        carries, {k: v for k, v in c.items() if not isinstance(v, torch.Tensor)},
+        max_iter, first_it=1)
+    ass_old, gsc_old, stop, d_ass = out["ass_old"], out["gsc_old"], out["stop"], out["d_ass"]
+    zero = torch.zeros_like(ass_old)
     n_iter = last if last >= 0 else max_iter - 1
     photosynthesis_kernel_simplified.iterations += n_iter
     photosynthesis_kernel_simplified.calls += 1
 
     night = j < 1.0e-7
     ass = where(night, 0.0, ass_old)
-    gsc = torch.where(night, gscd + zero, gsc_old)
+    gsc = torch.where(night, c["gscd"] + zero, gsc_old)
     tr = torch.clamp_min((gsc / 0.64) * vpd_pa / pressure_pa, 1.0e-8)
     if return_stop:
         return ass, gsc, tr, dict(stop=stop, d_ass=d_ass, iterations=n_iter)

@@ -41,7 +41,7 @@ from criteria3d_tpu_torch.solver.step import (compute_period_stats,
 
 __all__ = ["synthetic_catchment", "build_problem", "storm_state", "small_hour",
            "SMALL_CONFIGS", "build_coupled_problem", "heat_column",
-           "coupled_storm", "small_coupled_hour", "SMALL_COUPLED_CONFIGS",
+           "coupled_storm", "coupled_box", "small_coupled_hour", "SMALL_COUPLED_CONFIGS",
            "catchment_grid", "build_model_problem", "model_day_forcing",
            "MODEL_CONFIG", "small_model", "write_project", "HYDRALL_CONFIG",
            "forest_mask", "build_hydrall_problem", "small_hydrall_model",
@@ -179,6 +179,21 @@ def coupled_storm(grid: Grid, params: SolverParameters, water: WaterState):
     heat, boundary = initial_heat(grid, params, water, 288.15,
                                   air_temperature=291.15, rel_humidity=85.0,
                                   wind_speed=3.0, net_irradiance=80.0)
+    return grid, water, heat, boundary
+
+
+def coupled_box(params: SolverParameters, device, n: int, irradiance: float = 80.0):
+    """:func:`build_coupled_problem`'s storm on an n x n box of
+    ``synthetic_catchment(3)`` (the disc's radius 0.45 n) under
+    ``irradiance`` W/m2 of net radiation: the coupled machine's small cases
+    (tests/test_torch_coupled_machine.py's 12 box, the card's 32 box).
+    Returns ``(grid, water, heat, boundary)``."""
+    grid, water = build_problem(synthetic_catchment(3, n=n, radius=n * 0.45), 4.0,
+                                params, device)
+    grid = with_heat_surface(grid)
+    heat, boundary = initial_heat(grid, params, water, 288.15, air_temperature=291.15,
+                                  rel_humidity=85.0, wind_speed=3.0,
+                                  net_irradiance=irradiance)
     return grid, water, heat, boundary
 
 

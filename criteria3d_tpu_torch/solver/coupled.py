@@ -20,8 +20,9 @@ sub-step's system, a sweep, the sub-step's end, the chunk's end, the step's
 end, the period's water balance). Every carry of the nest is a buffer or a
 0-d slot on the device (the dts in float64 with JAX's operations in JAX's
 order), so solver/device_loop.py drives it like the water machine: as CUDA
-graphs on one card, unit by unit from Python on the CPU and a mesh (a host
-read after each unit that decides from data). The heat hooks of the water
+graphs on one card, whole or in blocks, unit by unit from Python on the CPU
+and a mesh over several cards (a host read after each unit that decides
+from data). The heat hooks of the water
 step read the machine's buffers (the step's temperatures, conductances and
 frozen flux); the HeatBoundary and the heat state are copied into buffers
 each period. The counts of a run are in :func:`counts` (reset them with
@@ -33,7 +34,7 @@ JAX's GSPMD partitions it: the buffers are blocked, the water step's heat
 hooks are per-block closures over each block's buffers, the heat functions
 run per block with their sums and maxima combined on ``mesh.home``
 (solver/heat.py) and the heat sweeps refresh x's rings every ``RING``
-sweeps and at a solve's end. ``gather_pytree`` joins the result.
+sweeps and at a solve's end, in a unit the phase guards. ``gather_pytree`` joins the result.
 """
 
 from __future__ import annotations
@@ -61,16 +62,17 @@ _COUNT_NAMES = ("steps", "attempts", "approximations", "inner_iterations",
                 "chunks", "substeps_accepted", "substeps_rejected")
 
 # the coupled units' phases, after the water step's (solver/step.py's)
-STEP_START = 13     # the step's frozen conductances (and thermal flux)
-WATER_END = 14      # the water step's end: the evaporation rate, the chunk loop's start
-CHUNK = 15          # a chunk: boundary flow and dtHeat, invariants, frozen system
-REBUILD = 16        # exact mode's energy cache for a new sub-step length
-SUBSTEP = 17        # a sub-step's system
-SWEEP = 18          # one heat Jacobi sweep and its stop test
-SUBSTEP_END = 19    # the balance: accept or halve; the sub-step loop's test
-CHUNK_END = 20      # the chunk loop's test
-STEP_END = 21       # the step's temperatures for the next step's hooks
-PERIOD_END = 22     # the period water balance
+STEP_START = 14     # the step's frozen conductances (and thermal flux)
+WATER_END = 15      # the water step's end: the evaporation rate, the chunk loop's start
+CHUNK = 16          # a chunk: boundary flow and dtHeat, invariants, frozen system
+REBUILD = 17        # exact mode's energy cache for a new sub-step length
+SUBSTEP = 18        # a sub-step's system
+SWEEP = 19          # one heat Jacobi sweep and its stop test
+SUBSTEP_END = 20    # the balance: accept or halve; the sub-step loop's test
+CHUNK_END = 21      # the chunk loop's test
+STEP_END = 22       # the step's temperatures for the next step's hooks
+PERIOD_END = 23     # the period water balance
+H_EXCHANGE = 24     # on a mesh, the heat sweeps' x rings refreshed
 
 # the sub-step loop's cap in a chunk (JAX's coupled.py:169, :188)
 SUBSTEPS_PER_CHUNK = 4096
@@ -120,7 +122,7 @@ class _CoupledMachine(_Machine):
 
     STATUS = _Machine.STATUS + ("chunks", "substeps_accepted", "substeps_rejected",
                                 "heat_sweeps")
-    INTS = _Machine.INTS + ("chunk_it", "sub_it", "sweep_it", "step_after")
+    INTS = _Machine.INTS + ("chunk_it", "sub_it", "sweep_it", "step_after", "h_next")
     REALS = _Machine.REALS + ("t_sum", "dt_pref", "chunk", "t_in", "dt_h", "dt_try",
                               "cache_dt", "flow_sum", "heat_sp", "heat_sw", "heat_mbr",
                               "whole_storage", "whole_sink", "whole_mbe", "whole_mbr")
@@ -134,7 +136,6 @@ class _CoupledMachine(_Machine):
         self.max_substeps = max_substeps
         self.frozen = params.heat_frozen_props and self.fast
         self.budget = H.sweep_budget(params)
-        self.h_stale = 0
         self.w.heat_tol.fill_(float(H.heat_tolerance(params)))
 
         # the heat state and the forcing, loaded each period
@@ -213,6 +214,8 @@ class _CoupledMachine(_Machine):
                  STEP_END: self._step_end, PERIOD_END: self._period_end}
         if not self.frozen:
             units[REBUILD] = self._rebuild
+        if self.ring:
+            units[H_EXCHANGE] = self._h_exchange
         out = super().units()
         out.update({code: (fn.__name__.lstrip("_"), fn) for code, fn in units.items()})
         return out
@@ -222,6 +225,8 @@ class _CoupledMachine(_Machine):
         follows.update({STEP_START: START, REBUILD: SUBSTEP,
                         SUBSTEP: SWEEP if self.budget > 0 else SUBSTEP_END,
                         STEP_END: "step_after", PERIOD_END: DONE})
+        if self.ring:
+            follows[H_EXCHANGE] = "h_next"
         return follows
 
     def tallies(self) -> list:
@@ -367,25 +372,31 @@ class _CoupledMachine(_Machine):
             _put(self.hsys[:4], (b_p, c_up, c_down, c_lat))
             _put(self.x_heat, t0)
         self.i.sweep_it.zero_()
-        self.h_stale = 0
         self.i.phase.fill_(SWEEP if self.budget > 0 else SUBSTEP_END)
 
     def _sweep(self):
         """One heat Jacobi sweep and the loop's test (JAX's sweep
-        ``while_loop``, heat.py:1094 / :1298); on a mesh x's rings are
-        refreshed every ``RING`` sweeps (counted on the host: a mesh runs
-        under the eager driver)."""
+        ``while_loop``, heat.py:1094 / :1298); on a mesh the phase goes to
+        the ring refresh every ``RING`` sweeps and at the loop's end."""
         i, w = self.i, self.w
         with torch.profiler.record_function(H.HEAT_SOLVE_RANGE):
             x, norm = H.heat_sweep(self.hsys, self.x_heat)
-            if self.ring:
-                self.h_stale += 1
-                if self.h_stale == self.ring:
-                    x, self.h_stale = exchange(x), 0
             _put(self.x_heat, x)
             i.sweep_it.add_(1)
-            i.phase.copy_(torch.where(H.sweep_goes_on(i.sweep_it, self.budget, norm,
-                                                      w.heat_tol), SWEEP, SUBSTEP_END))
+            nxt = torch.where(H.sweep_goes_on(i.sweep_it, self.budget, norm, w.heat_tol),
+                              SWEEP, SUBSTEP_END)
+            if self.ring:
+                i.h_next.copy_(nxt)
+                nxt = torch.where((torch.remainder(i.sweep_it, self.ring) == 0)
+                                  | (nxt == SUBSTEP_END), H_EXCHANGE, nxt)
+            i.phase.copy_(nxt)
+
+    def _h_exchange(self):
+        """The heat sweeps' ring refresh on a mesh: x with fresh rings, then
+        ``h_next``, the phase the sweep's test chose."""
+        with torch.profiler.record_function(H.HEAT_SOLVE_RANGE):
+            _put(self.x_heat, exchange(self.x_heat))
+        self.i.phase.copy_(self.i.h_next)
 
     def _substep_end(self):
         """The sub-step's end (JAX :174-178, :195-207): the temperatures,
@@ -393,8 +404,6 @@ class _CoupledMachine(_Machine):
         sub-step loop's test."""
         g, p, i, r = self.grid, self.params, self.i, self.r
         x = self.x_heat
-        if self.ring and self.h_stale:
-            x, self.h_stale = exchange(x), 0
         inv = bmap(lambda f: f.inv, self.fz) if self.frozen else self.cache
         t_new, storage, sink, mbr, ok = H.substep_end(
             g, p, x, self.heat_mask, self.T, r.heat_sp, r.flow_sum, r.dt_try, inv)

@@ -21,12 +21,13 @@ select form line by line, into the carries: accept, halve, restore, NaN,
 dt growth, best-step tracking, the Courant cut, CG's and the Jacobi
 loops' stops. A branch that replaces whole fields (the best iterate, the
 restore, the accepted update) is a unit of its own that the phase guards.
-solver/device_loop.py drives the machine: as CUDA graphs on the card (the
-host reads once per launch of up to ``UNITS_PER_LAUNCH`` units), or unit
-by unit from Python, reading the phase after each unit that decides from
-data (the CPU, a mesh): ``_Machine.follows`` names what follows the
-others. solver/coupled.py's machine is a larger one: its water step hands
-on to its heat units (``step_end``) and its hooks read its buffers.
+solver/device_loop.py drives the machine: as CUDA graphs on one card,
+whole or in blocks (the host reads once per launch of up to
+``UNITS_PER_LAUNCH`` units), or unit by unit from Python, reading the phase
+after each unit that decides from data (the CPU, a mesh over several
+cards): ``_Machine.follows`` names what follows the others.
+solver/coupled.py's machine is a larger one: its water step hands on to
+its heat units (``step_end``) and its hooks read its buffers.
 
 With ``params.mesh`` the step runs on the blocks of ``shard_pytree``'s grid
 and state, as JAX's GSPMD partitions it: the field arithmetic goes through
@@ -36,7 +37,8 @@ every global sum is a per-block partial over owned cells added on
 ``mesh.home``, and each stencil reads fresh rings: the state fields keep
 theirs fresh (the solvers end with an exchange), the bundle exchanges x
 once a bundle, CG exchanges p once an iteration and per-sweep Jacobi x once
-every ``RING`` sweeps and at the solve's end. The assembly on a grown block is
+every ``RING`` sweeps and at the solve's end (a unit of its own, which the
+phase guards from the sweep count on the device). The assembly on a grown block is
 exact on all but its outer cell, so no coefficient is exchanged. The
 heat-coupling hooks are then a
 :class:`~criteria3d_tpu_torch.parallel.sharding.Blocked` of per-block
@@ -99,6 +101,7 @@ RESTORE = 9         # restoreBestStep
 ATTEMPT_END = 10    # retry, or end the step (fatal)
 ACCEPT = 11         # acceptStep, and the step's end
 HALVE = 12          # a divergence that halves dt
+X_EXCHANGE = 13     # on a mesh, x's rings refreshed (every RING sweeps, and at the end)
 
 # passes of _decimal_floor_dt's loop: exact for dt / Courant >= 1e-24 s
 FLOOR_DT_PASSES = 24
@@ -475,21 +478,6 @@ def _link_flows(grid: Grid, params: SolverParameters, h_n: torch.Tensor,
 # the machine: the period, step-retry, Picard and inner loops flattened
 # ----------------------------------------------------------------------
 
-class _Slots:
-    """Named 0-d views of one buffer on the device (a carry's scalars)."""
-
-    def __init__(self, names, dtype, device):
-        self.buffer = torch.zeros(len(names), dtype=dtype, device=device)
-        self.index = {name: k for k, name in enumerate(names)}
-        for k, name in enumerate(names):
-            setattr(self, name, self.buffer[k])
-
-    def span(self, first: str, n: int) -> torch.Tensor:
-        """The ``n`` slots from ``first`` on, as one view."""
-        k = self.index[first]
-        return self.buffer[k:k + n]
-
-
 # int64 scalars: the status (the phase, the period's stats and the counts
 # kept on the card), what a driver reads, then the others
 _STATUS = ("phase", "steps", "attempts", "approximations", "sweeps", "launches",
@@ -500,8 +488,9 @@ _INTS = (
     # the phases that follow the evaluation (after the guarded units:
     # ``then`` after the best iterate, ``after`` after the restore), the
     # attempt's end (``end_next``, :meth:`_Machine._set_end_next`) and the
-    # step's end (``step_next``, set at the attempt's start)
-    "then", "after", "end_next", "step_next")
+    # step's end (``step_next``, set at the attempt's start), and the
+    # phase after a ring refresh of per-sweep Jacobi's x (``x_next``)
+    "then", "after", "end_next", "step_next", "x_next")
 # scalars of the state dtype: the period (t, its length), the step's dt,
 # the attempt's dt_curr, courant, best MBR and balance, and the state's own
 _REALS = ("t", "period", "dt", "dt_curr", "courant", "best_mbr",
@@ -533,7 +522,8 @@ class _Machine:
 
     Every value a unit hands to a later unit lives in a buffer made here:
     the state's fields and 0-d values, the attempt's carry, the assembled
-    system, the inner solver's vectors and the scalars (:class:`_Slots`).
+    system, the inner solver's vectors and the scalars
+    (:class:`~criteria3d_tpu_torch.solver.device_loop.Slots`).
     A unit reads buffers and writes its results into them (``copy_``), so a
     CUDA graph of the unit replays on the same addresses; a unit never
     reads a device value on the host. ``units()`` maps each phase code to
@@ -562,10 +552,9 @@ class _Machine:
         self.cg = params.inner_solver == "cg"
         self.bundle = (not self.cg) and fast and params.use_pallas
         self.track = params.track_link_flow
-        # per-sweep Jacobi on a mesh refreshes x's rings every RING sweeps,
-        # counted on the host: a mesh runs under the eager driver only
+        # per-sweep Jacobi on a mesh refreshes x's rings in a unit of its own
+        # (X_EXCHANGE), every RING sweeps and at the solve's end
         self.exchanges = bool(self.ring) and not self.cg and not self.bundle
-        self.stale = 0
         wd = params.sweep_dtype if fast else params.dtype
         self.wd = wd
         if fast:
@@ -573,9 +562,9 @@ class _Machine:
             # a capture (Grid.astype keeps them with the grid)
             bmap(lambda g: g.astype(wd), grid)
 
-        self.i = _Slots(self.STATUS + self.INTS, torch.int64, home)
-        self.r = _Slots(self.REALS, params.dtype, home)
-        self.w = _Slots(self.SOLVE, wd, home)
+        self.i = device_loop.Slots(self.STATUS + self.INTS, torch.int64, home)
+        self.r = device_loop.Slots(self.REALS, params.dtype, home)
+        self.w = device_loop.Slots(self.SOLVE, wd, home)
         self.status = self.i.buffer[:len(self.STATUS)]
         tol = params.residual_tolerance
         self.w.tol.fill_(max(tol, 1e-7) if fast else tol)
@@ -621,6 +610,8 @@ class _Machine:
                  EVALUATE: self._evaluate, STORE_BEST: self._store_best,
                  RESTORE: self._restore, ATTEMPT_END: self._attempt_end,
                  ACCEPT: self._accept, HALVE: self._halve}
+        if self.exchanges:
+            units[X_EXCHANGE] = self._x_exchange
         return {code: (fn.__name__.lstrip("_"), fn) for code, fn in units.items()}
 
     def follows(self) -> dict:
@@ -635,6 +626,8 @@ class _Machine:
                    RESTORE: "after", ATTEMPT_END: "end_next", ACCEPT: "step_next"}
         if not self.cg:
             follows[SOLVE_INIT] = SOLVE
+        if self.exchanges:
+            follows[X_EXCHANGE] = "x_next"
         return follows
 
     def tallies(self) -> list:
@@ -783,7 +776,6 @@ class _Machine:
                 i.phase.copy_(torch.where(i.done != 0, SOLVE_END, SOLVE))
             else:
                 w.best.fill_(1.0)
-                self.stale = 0
                 i.phase.fill_(SOLVE)
 
     def _solve(self):
@@ -811,12 +803,6 @@ class _Machine:
                     n = 1
                 # the comparisons in the sweep dtype, as in JAX
                 converged, div, best = sweep_test(total / w.n_nodes, w.tol, w.best)
-            if self.exchanges:
-                # a sweep leaves the outer cell of a block stale, so the
-                # owned cells stay exact for RING sweeps between exchanges
-                self.stale += 1
-                if self.stale == self.ring:
-                    x, self.stale = exchange(x), 0
             _copy(self.x, x)
             w.best.copy_(best)
             i.it.add_(n)
@@ -825,8 +811,23 @@ class _Machine:
             i.diverged.copy_(div)
             # a divergence halves dt where dt can halve (JAX :463-470)
             halve = div & (self.r.dt > self.params.delta_t_min)
-            i.phase.copy_(torch.where(~done & (i.it < i.max_iter), SOLVE,
-                                      torch.where(halve, HALVE, SOLVE_END)))
+            nxt = torch.where(~done & (i.it < i.max_iter), SOLVE,
+                              torch.where(halve, HALVE, SOLVE_END))
+            if self.exchanges:
+                # a sweep leaves the outer cell of a block stale, so the
+                # owned cells stay exact for RING sweeps between refreshes;
+                # the solve's end needs fresh rings too
+                i.x_next.copy_(nxt)
+                nxt = torch.where((torch.remainder(i.it, self.ring) == 0)
+                                  | (nxt == SOLVE_END), X_EXCHANGE, nxt)
+            i.phase.copy_(nxt)
+
+    def _x_exchange(self):
+        """Per-sweep Jacobi's ring refresh on a mesh: x with fresh rings,
+        then ``x_next``, the phase the sweep's test chose."""
+        with torch.profiler.record_function(SOLVE_RANGE):
+            _copy(self.x, exchange(self.x))
+        self.i.phase.copy_(self.i.x_next)
 
     def _halve(self):
         """A divergence that halves dt (JAX :463-470): the sweeps, the
@@ -841,14 +842,11 @@ class _Machine:
         i.phase.fill_(ATTEMPT_END)
 
     def _solve_end(self):
-        """The solve's end (JAX :471-505): CG's surface clamp (on a mesh the
-        per-sweep solve's last exchange), the sweeps and the iterate's
-        update (x, se, the physical conductances)."""
+        """The solve's end (JAX :471-505): CG's surface clamp, the sweeps
+        and the iterate's update (x, se, the physical conductances)."""
         g, p, i = self.grid, self.params, self.i
         with torch.profiler.record_function(SOLVE_RANGE):
             x = cg_clamp(self.ops, self.x) if self.cg else self.x
-            if self.exchanges and self.stale:
-                x = exchange(x)
         i.n_sweeps.add_(i.it)
         _copy(self.c_h, x)
         se_fn = W.compute_se_psi if self.fast else W.compute_se
@@ -1002,15 +1000,17 @@ def _run(grid, params: SolverParameters, state: WaterState, period: float,
         lambda m: m.load(state, period, start), _home(grid), params.mesh)
 
 
-def shapes_of(state) -> tuple | None:
+def shapes_of(state) -> tuple:
     """The shapes, dtypes and devices of a state's fields (a dataclass of
-    tensors and 0-d values; None for a blocked state, which runs eager and
-    keeps no machine): a part of a kept machine's key."""
-    fields = [getattr(state, f.name) for f in dataclasses.fields(state)]
-    if any(isinstance(v, Blocked) for v in fields):
-        return None
-    return tuple((tuple(t.shape), t.dtype, t.device) if isinstance(t, torch.Tensor)
-                 else shapes_of(t) if dataclasses.is_dataclass(t) else t for t in fields)
+    tensors, blocked tensors and 0-d values; a blocked field by its mesh
+    and each block's): a part of a kept machine's key."""
+    def shape(v):
+        if isinstance(v, torch.Tensor):
+            return tuple(v.shape), v.dtype, v.device
+        if isinstance(v, Blocked):
+            return id(v.mesh), tuple(shape(b) for b in v.blocks.flat)
+        return shapes_of(v) if dataclasses.is_dataclass(v) else v
+    return tuple(shape(getattr(state, f.name)) for f in dataclasses.fields(state))
 
 
 def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,

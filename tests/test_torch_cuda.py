@@ -1,8 +1,9 @@
 """The CUDA kernels of the port against their plain PyTorch twins, the
 tiled bundled-Jacobi design against the per-sweep one, the mesh loop and
 the partitioned water and coupled hours on blocks of the card against one
-device, the water period's CUDA graphs against its eager driver,
-small hours of
+device, the water and coupled periods' CUDA graphs against their eager
+driver (whole and on blocks of the card), the fixed points of HYDRALL and
+the vine graph-driven against eager-driven, small hours of
 the float64, CG and coupled water + heat paths, the model cycle's physics
 maps and hours, and a project's hours from files, on the card against the
 CPU path. Every test here carries the ``cuda`` marker and skips where
@@ -14,6 +15,7 @@ runs on a machine without them:
 (``--noconftest``: tests/conftest.py configures JAX.)
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -648,15 +650,9 @@ COUPLED_GRAPH_BRANCHES = {
 def _coupled_inputs(params, n, irradiance=80.0, device="cuda"):
     """The bench's coupled storm (problems.build_coupled_problem's forcing,
     ``irradiance`` W/m2) on an n x n box of the synthetic catchment (seed 3,
-    the disc's radius 0.45 n)."""
+    the disc's radius 0.45 n): problems.coupled_box."""
     from criteria3d_tpu_torch import problems as TP
-    dem = TP.synthetic_catchment(3, n=n, radius=n * 0.45)
-    grid, water = TP.build_problem(dem, 4.0, params, device)
-    grid = TP.with_heat_surface(grid)
-    heat, boundary = TP.initial_heat(grid, params, water, 288.15, air_temperature=291.15,
-                                     rel_humidity=85.0, wind_speed=3.0,
-                                     net_irradiance=irradiance)
-    return grid, water, heat, boundary
+    return TP.coupled_box(params, device, n, irradiance)
 
 
 def _coupled_period(params, inputs, period, eager: bool, max_substeps: int = 256):
@@ -846,3 +842,251 @@ def test_constants_made_under_a_capture_are_not_kept():
     graph.replay()
     torch.cuda.synchronize()
     assert float(inside) == value
+
+
+# ----------------------------------------------------------------------
+# the partitioned periods on one card's blocks and the fixed points, as
+# CUDA graphs against the eager driver
+# ----------------------------------------------------------------------
+
+def _driven(run, eager: bool):
+    """``run()`` on the card under the graph driver (or the eager one), the
+    kept machines dropped and every count set to 0 before it: (result,
+    host reads, bundle launches, coupled counts, the drivers' counts, peak
+    GiB)."""
+    import contextlib
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    device_loop.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    device_loop.reset_counts()
+    CP.reset_counts()
+    host_read.count = 0
+    before = TB.jacobi_bundle.launches
+    with device_loop.forced_eager() if eager else contextlib.nullcontext():
+        out = run()
+    torch.cuda.synchronize()
+    res = (out, host_read.count, TB.jacobi_bundle.launches - before, CP.counts(),
+           device_loop.counts(), torch.cuda.max_memory_allocated() / 2**30)
+    device_loop.clear()
+    return res
+
+
+def _card_mesh():
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh
+    return make_mesh(4, devices=[torch.device("cuda")] * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(GRAPH_FORMS))
+def test_graph_driver_on_blocks_matches_eager(form):
+    """The water hour of a 64-box catchment on 2 x 2 blocks of the card,
+    twice graph-driven (the second run on the kept machine) and once
+    eager-driven on the same blocks: the same stats, MBR and bundle
+    launches, heads bit-equal; one capture, the graph hours' host reads at
+    most 5 % of the eager hour's, the peak at most 2 x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch import compute_period_stats
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import device_loop
+    mesh = _card_mesh()
+    params = dataclasses.replace(GRAPH_FORMS[form](), mesh=mesh)
+    grid, state = build_problem(synthetic_catchment(0, n=64, radius=30.0), 4.0,
+                                GRAPH_FORMS[form](), "cuda")
+    grid, state = shard_pytree(grid, mesh), shard_pytree(state, mesh)
+    assert device_loop.driver_for(mesh.home, mesh) == ("graph", "")
+    def hour():
+        return compute_period_stats(grid, params, state, 3600.0)
+    g = _driven(lambda: [hour(), hour()], False)
+    e = _driven(hour, True)
+    eo, es = e[0]
+    assert g[2] == 2 * e[2] and (e[2] > 0) == (form == "bundle")
+    for go, gs in g[0]:
+        assert tuple(gs) == tuple(es)
+        assert torch.equal(go.balance_whole.mbr, eo.balance_whole.mbr)
+        assert torch.equal(gather_pytree(go).h, gather_pytree(eo).h)
+    assert g[4]["graph_periods"] == 2 and g[4]["captures"] == 1
+    assert e[4]["eager_periods"] == 1 and g[1] * 10 <= e[1], (g[1], e[1])
+    assert g[5] <= 2.0 * e[5], (g[5], e[5])
+
+
+@pytest.mark.cuda
+def test_graph_driver_coupled_hour_on_blocks_matches_eager():
+    """The frozen coupled storm hour of a 32 valley (cell 10 m) on 2 x 2
+    blocks of the card, twice graph-driven (the second run on the kept
+    machine) and once eager-driven on the same blocks: every count and both
+    balances equal, h and T bit-equal; one capture, the graph hours' host
+    reads at most 5 % of the eager hour's, the peak at most 2 x."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
+    from criteria3d_tpu_torch.problems import build_coupled_problem
+    from criteria3d_tpu_torch.solver import coupled as CP
+    n = 32
+    rows, cols = np.mgrid[0:n, 0:n]
+    dem = 100.0 + (n - 1 - rows) * 0.5 + np.abs(cols - n // 2) * 0.8
+    mesh = _card_mesh()
+    params = COUPLED_GRAPH_FORMS["frozen"](mesh=mesh)
+    inputs = build_coupled_problem(dem, 10.0, COUPLED_GRAPH_FORMS["frozen"](), "cuda")
+    blocked = [shard_pytree(t, mesh) for t in inputs]
+    def hour():
+        return CP.compute_period_coupled(blocked[0], params, *blocked[1:], 3600.0)
+    g = _driven(lambda: [hour(), hour()], False)
+    e = _driven(hour, True)
+    ew, eh = e[0]
+    assert g[3] == {k: 2 * v for k, v in e[3].items()} and e[3]["heat_sweeps"] > 0
+    assert g[2] == e[2] == 0
+    for gw, gh in g[0]:
+        for a, b in ((gw.balance_whole.mbr, ew.balance_whole.mbr), (gh.mbr, eh.mbr),
+                     (gh.sink_whole, eh.sink_whole)):
+            assert torch.equal(a, b)
+        assert torch.equal(gather_pytree(gw).h, gather_pytree(ew).h)
+        assert torch.equal(gather_pytree(gh).t, gather_pytree(eh).t)
+    assert g[4]["graph_periods"] == 2 and g[4]["captures"] == 1
+    assert e[4]["eager_periods"] == 1 and g[1] * 10 <= e[1], (g[1], e[1])
+    assert g[5] <= 2.0 * e[5], (g[5], e[5])
+
+
+@pytest.mark.cuda
+def test_units_on_blocks_make_no_host_sync():
+    """Every unit of the float64 water machine and of the coupled machine on
+    2 x 2 blocks of the card (the ring-refresh units among them), run
+    eagerly under torch.cuda.set_sync_debug_mode("error"), makes no host
+    synchronisation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.device import host_array
+    from criteria3d_tpu_torch.parallel.sharding import shard_pytree
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import step as TSt
+
+    def run_units(m):
+        units, seen = m.units(), set()
+        status = host_array(m.status)
+        while status[0] != m.DONE:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                units[int(status[0])][1]()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            seen.add(int(status[0]))
+            status = host_array(m.status)
+        return seen
+    mesh = _card_mesh()
+    grid, state = build_problem(synthetic_catchment(0, n=32, radius=14.0), 4.0,
+                                SolverParameters(), "cuda")
+    grid, state = shard_pytree(grid, mesh), shard_pytree(state, mesh)
+    m = TSt._Machine(grid, SolverParameters(mesh=mesh), state, False)
+    m.load(state, 600.0, 0.0)
+    assert {TSt.SOLVE, TSt.X_EXCHANGE, TSt.SOLVE_END} <= run_units(m)
+    frozen = COUPLED_GRAPH_FORMS["frozen"]
+    blocked = [shard_pytree(t, mesh) for t in _coupled_inputs(frozen(), 16)]
+    mc = CP._CoupledMachine(blocked[0], frozen(mesh=mesh), *blocked[1:], False, 256)
+    mc.load(*blocked[1:], 1200.0)
+    assert {CP.SWEEP, CP.H_EXCHANGE, CP.SUBSTEP_END} <= run_units(mc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,period", [(12, 1200.0), (32, 1800.0)], ids=["12", "32"])
+def test_exact_f32_coupled_on_card(n, period):
+    """ROADMAP C5: the float32 exact-mode coupled period
+    (``fast_f32(heat_vapor=True, heat_frozen_props=False)``, whose rejected
+    sub-steps rebuild the energy cache) on the 12 box of the forced
+    cache-rebuild case and on a 32 box: graph-driven against eager-driven
+    on the card, every count equal, h, T and both balances bit-equal;
+    against the CPU h within 1e-4 m and T within 1.5e-2 K (the fast exact
+    periods' bar against JAX, tests/test_torch_coupled_machine.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.solver import coupled as CP
+    params = SolverParameters.fast_f32(heat_vapor=True, heat_frozen_props=False)
+    inputs = _coupled_inputs(params, n)
+    g = _coupled_period(params, inputs, period, False)
+    e = _coupled_period(params, inputs, period, True)
+    _assert_coupled_same(g, e)
+    assert g[2]["substeps_rejected"] > 0
+    cpu = _coupled_inputs(params, n, device="cpu")
+    CP.reset_counts()
+    cw, ch = CP.compute_period_coupled(cpu[0], params, *cpu[1:], period)
+    assert float((g[0].h.cpu() - cw.h).abs().max()) <= 1e-4
+    assert float((g[1].t.cpu() - ch.t).abs().max()) <= 1.5e-2
+
+
+def _recorded(module, name, stops):
+    """``module.name`` replaced by a wrapper recording each call's per-cell
+    stops; returns the original, to put back."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        *out, info = orig(*args, return_stop=True, **kw)
+        stops.append(info)
+        return tuple(out)
+    wrapper.iterations = wrapper.calls = 0
+    setattr(module, name, wrapper)
+    return orig
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["hydrall", "vine"])
+def test_fixed_points_graph_driven_match_eager(side, tmp_path):
+    """A daylight hour of a 16-box HYDRALL model (2 fixed-point calls) and
+    of a 16-box vineyard project (4 calls, cells that run to max_iter
+    among them) on the card, graph-driven and eager-driven from the same
+    state: every call graph-driven in one launch, the outputs and every
+    call's stop iterations and |dASS| equal; the vineyard hour's host reads
+    a few against the eager hour's hundreds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    import copy
+    import datetime
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.solver import device_loop
+    if side == "hydrall":
+        from criteria3d_tpu_torch.physics import hydrall as module
+        from criteria3d_tpu_torch.problems import model_day_forcing, small_hydrall_model
+        name, calls = "photosynthesis_kernel", 2
+        model = small_hydrall_model(SolverParameters.fast_f32(), "cuda", n=16)
+        forcing = model_day_forcing(model.grid, None, 12)
+        when = (2023, 3, 21, 12)
+    else:
+        from criteria3d_tpu_torch.physics import vine_photosynthesis as module
+        from criteria3d_tpu_torch.problems import (VINE_DATE, seed_vine_canopy,
+                                                   write_vine_project)
+        from criteria3d_tpu_torch.vine3d_project import Vine3DProject
+        name, calls = "photosynthesis_kernel_simplified", 4
+        ini = write_vine_project(str(tmp_path / "v16"), n=16, seed=0)
+        prj = Vine3DProject.load(ini, output_dir=str(tmp_path / "out"))
+        prj.initialize(fast=True, device="cuda")
+        seed_vine_canopy(prj.model)
+        model = prj.model
+        forcing = prj.hourly_forcing(datetime.datetime(*VINE_DATE, 12))
+        when = (*VINE_DATE, 12)
+    twin = copy.copy(model)
+    runs = []
+    for m, eager in ((model, False), (twin, True)):
+        stops = []
+        orig = _recorded(module, name, stops)
+        try:
+            out = _driven(lambda: m.run_hour(forcing, *when), eager)
+        finally:
+            setattr(module, name, orig)
+        runs.append((out, stops))
+    (g, gs), (e, es) = runs
+    assert len(gs) == len(es) == calls
+    for a, b in zip(gs, es):
+        assert torch.equal(a["stop"], b["stop"]) and torch.equal(a["d_ass"], b["d_ass"])
+        assert a["iterations"] == b["iterations"]
+    for k, v in e[0].items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(g[0][k], v), k
+    assert g[4]["graph_fixed_points"] == calls and g[4]["eager_fixed_points"] == 0
+    assert e[4]["eager_fixed_points"] == calls
+    if side == "vine":
+        assert max(int(s["iterations"]) for s in gs) > 100
+        assert g[1] * 20 <= e[1], (g[1], e[1])

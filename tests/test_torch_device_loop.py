@@ -30,6 +30,7 @@ from criteria3d_tpu.solver import water as JW
 from criteria3d_tpu.solver.step import compute_period_stats as j_period_stats
 import criteria3d_tpu_torch as T
 from criteria3d_tpu_torch.device import host_read
+from criteria3d_tpu_torch.parallel.sharding import make_mesh
 from criteria3d_tpu_torch.solver import device_loop
 from criteria3d_tpu_torch.solver import step as TSt
 from criteria3d_tpu_torch.solver import water as TW
@@ -201,16 +202,22 @@ def test_decimal_floor_dt_matches_jax():
 
 
 def test_drivers_and_no_graph_off_the_card():
-    """Which driver runs where: the graph only on a CUDA device without a
-    mesh (the water and the coupled period alike: the heat hooks no longer
-    decide it); every other case names its reason; forced_eager on the
-    card too."""
-    cuda = torch.device("cuda")
-    assert device_loop.driver_for(cuda, None) == ("graph", "")
+    """Which driver runs where: the graph on a CUDA device, whole or on a
+    mesh whose blocks all lie on its card (the water and the coupled period
+    alike: the heat hooks no longer decide it); a mesh over two distinct
+    cards, the CPU and forced_eager (on the card too) take the eager one,
+    each with its reason."""
+    cuda, cuda0, cuda1 = torch.device("cuda"), torch.device("cuda", 0), torch.device("cuda", 1)
+    one_card = make_mesh(4, devices=[cuda0] * 4)
+    assert device_loop.driver_for(cuda0, None) == ("graph", "")
+    assert device_loop.driver_for(cuda0, one_card) == ("graph", "")
+    assert device_loop.driver_for(cuda0, make_mesh(1, devices=[cuda0])) == ("graph", "")
     for dev, mesh, word in ((torch.device("cpu"), None, "cpu"),
-                            (cuda, object(), "mesh")):
+                            (torch.device("cpu"), make_mesh(2, devices=["cpu"] * 2), "cpu"),
+                            (cuda0, make_mesh(2, devices=[cuda0, cuda1]), "several cards")):
         driver, why = device_loop.driver_for(dev, mesh)
         assert driver == "eager" and word in why
     with device_loop.forced_eager():
         assert device_loop.driver_for(cuda, None)[0] == "eager"
+        assert device_loop.driver_for(cuda0, one_card)[0] == "eager"
     assert device_loop.driver_for(cuda, None)[0] == "graph"

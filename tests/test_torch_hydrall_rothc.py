@@ -230,6 +230,43 @@ def test_photosynthesis_kernel_matches_jax(case):
     assert flips == 0, f"{flips} cells stop at another iteration than JAX's"
 
 
+@pytest.mark.parametrize("max_iter", [63, 10000])
+def test_fixed_point_machine_matches_jax(max_iter):
+    """The fixed point as a machine (physics/fixed_point.py) under the eager
+    driver, the CPU's, on the midday leaf with a 2 x 2 map of stress 1 and
+    0.05 (their cells stop at iterations 1 and 125): at max_iter 63 (15 units of CHECK_EVERY iterations and one of
+    the last 3) the stressed cells run to max_iter, as in JAX; at 10,000
+    every cell stops. Each stopped cell's stop iteration is JAX's (0 flips),
+    the outputs rel 1e-12 against JAX cut at the same max_iter, the loop's
+    iteration count JAX's; one host read a unit."""
+    import math
+    from criteria3d_tpu_torch.solver import device_loop
+    jp, tp, jenv, tenv, _ = _kernel_inputs("stressed")
+    stress = np.array([[1.0, 0.05], [0.05, 1.0]])
+    jout = JH.photosynthesis_kernel(jp, stress=jnp.asarray(stress), max_iter=max_iter, **jenv)
+    device_loop.reset_counts()
+    *tout, info = TH.photosynthesis_kernel(tp, stress=_t(stress), max_iter=max_iter,
+                                           return_stop=True, **tenv)
+    counts = device_loop.counts()
+    for a, b, name in zip(tout, jout, ("ass", "gsc", "tr")):
+        close(a, b, name=f"max_iter {max_iter} {name}")
+    stop = info["stop"]
+    running = int((stop < 0).sum())
+    assert (running > 0) == (max_iter == 63) and int((stop >= 0).sum()) > 0
+    if running:
+        assert info["iterations"] == max_iter
+    assert counts["eager_fixed_points"] == 1
+    assert counts["eager_reads"] == math.ceil(info["iterations"] / TH.CHECK_EVERY)
+    flips = stop_flips(
+        lambda m: JH.photosynthesis_kernel(jp, stress=jnp.asarray(stress), max_iter=m,
+                                           **jenv),
+        stop, info["d_ass"], jout)
+    print(f"max_iter {max_iter}: stop iterations {sorted(set(stop.reshape(-1).tolist()))}, "
+          f"{running} cells at max_iter, loop iterations {info['iterations']}, "
+          f"flipped cells {flips}")
+    assert flips == 0, f"{flips} cells stop at another iteration than JAX's"
+
+
 def test_respiration_and_annual_growth_match_jax():
     """test_hydrall.py's pools (the defaults and a doubled stand) at 2 and
     15 degC, and the allocation of a 0.5 kg C m-2 NPP under three climates,

@@ -29,6 +29,7 @@ import criteria3d_tpu_torch as T
 from criteria3d_tpu_torch.device import host_read
 from criteria3d_tpu_torch.parallel import sharding as TS
 from criteria3d_tpu_torch.solver import jacobi_bundle as TB
+from criteria3d_tpu_torch.solver import step as TSt
 from tests.test_catchment3d import valley_dem
 from tests.test_torch_core import SOIL, build_grids, rain_states
 from tests.test_torch_cuda import seeded_system
@@ -310,14 +311,23 @@ def whole_runs():
     return runs
 
 
+# each form's hour on the 32 valley: (steps, attempts, approximations,
+# inner iterations) and the eager driver's host reads, as the port gave them
+# before per-sweep Jacobi's ring refresh became a unit of the machine (the
+# float64 hour's 1,607 sweeps are no multiple of RING)
+PARENT_HOURS = {"bundle": ((16, 17, 47, 1360), 265), "cg_line": ((16, 17, 48, 68), 212),
+                "f64": ((16, 17, 48, 1607), 1704)}
+
+
 @pytest.mark.parametrize("shape", MESHES, ids=[f"{r}x{c}" for r, c in MESHES])
 @pytest.mark.parametrize("form", list(FORMS))
 def test_partitioned_step_matches_whole_box(whole_runs, form, shape):
     """compute_step and a one-hour compute_period_stats on blocks of the
     32 valley, gathered, against the port's whole-box runs: identical stats,
-    dt and host reads; float32 heads bit-equal (the stats agree, and every
-    cell does the whole box's arithmetic), float64 heads within 1e-9 m;
-    MBR within 1e-8 (the float64 sums of the balance add in another
+    dt and host reads, the ones the port gave before the ring refresh
+    became a unit (PARENT_HOURS); float32 heads bit-equal (the stats agree,
+    and every cell does the whole box's arithmetic), float64 heads within
+    1e-9 m; MBR within 1e-8 (the float64 sums of the balance add in another
     order)."""
     ref = whole_runs[form]
     mesh = cpu_mesh(*shape)
@@ -329,6 +339,7 @@ def test_partitioned_step_matches_whole_box(whole_runs, form, shape):
     reads = host_read.count
     step, hour = TS.gather_pytree(step), TS.gather_pytree(hour)
     assert dt == ref["dt"] and tuple(stats) == tuple(ref["stats"]) and reads == ref["reads"]
+    assert (tuple(stats), reads) == PARENT_HOURS[form]
     for out, whole, bal in ((step, ref["step"], "balance_current"),
                             (hour, ref["hour"], "balance_whole")):
         if form == "f64":
@@ -337,6 +348,49 @@ def test_partitioned_step_matches_whole_box(whole_runs, form, shape):
             assert torch.equal(out.h, whole.h)
         assert float(getattr(out, bal).mbr) == pytest.approx(
             float(getattr(whole, bal).mbr), abs=1e-8)
+
+
+# per-sweep Jacobi's ring refresh, a unit the phase guards: (parameters,
+# the form the rain state is initialised under) of a 600 s period on the 32
+# valley whose one solve takes 25 sweeps, so it ends between two refreshes
+RING_FORMS = {"f64": (lambda **m: T.SolverParameters(**m), "f64"),
+              "f32_jacobi": (lambda **m: T.SolverParameters.fast_f32(inner_solver="jacobi",
+                                                                      **m), "cg_line")}
+RING_MESHES = [(2, 2), (1, 4), (2, 4)]
+
+
+@pytest.mark.parametrize("shape", RING_MESHES, ids=[f"{r}x{c}" for r, c in RING_MESHES])
+@pytest.mark.parametrize("form", list(RING_FORMS))
+def test_ring_refresh_unit_keeps_the_parents_counts(form, shape, monkeypatch):
+    """A 600 s period of per-sweep Jacobi (float64 and float32) on blocks of
+    the 32 valley under the eager driver: its one solve of 25 sweeps
+    refreshes x's rings after sweeps 8, 16 and 24 and at its end (the
+    ring-refresh unit, 4 exchanges); the stats and host reads are the ones
+    the port gave when a host counter refreshed them ((1, 1, 1, 25) and 28)
+    and the whole box's; float32 heads bit-equal to the whole box's,
+    float64 within 1e-9 m."""
+    make, init = RING_FORMS[form]
+    grid, state = port_case(init, valley_dem(32))
+    host_read.count = 0
+    whole, stats = T.compute_period_stats(grid, make(), state, 600.0)
+    assert (tuple(stats), host_read.count) == ((1, 1, 1, 25), 28)
+    mesh = cpu_mesh(*shape)
+    exchanges = []
+
+    def counted(x):
+        exchanges.append(1)
+        return TS.exchange(x)
+    monkeypatch.setattr(TSt, "exchange", counted)
+    host_read.count = 0
+    out, stats_m = T.compute_period_stats(TS.shard_pytree(grid, mesh), make(mesh=mesh),
+                                          TS.shard_pytree(state, mesh), 600.0)
+    assert (tuple(stats_m), host_read.count) == ((1, 1, 1, 25), 28)
+    assert len(exchanges) == 4
+    h = TS.gather_pytree(out).h
+    if form == "f64":
+        np.testing.assert_allclose(h.numpy(), whole.h.numpy(), rtol=0, atol=1e-9)
+    else:
+        assert torch.equal(h, whole.h)
 
 
 @pytest.mark.parametrize("f64", [False, True], ids=["cg_diag", "f64_cg"])

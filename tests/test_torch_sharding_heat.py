@@ -184,6 +184,18 @@ def heat_mbr(name, inputs, water, heat):
     return heat_outcome(name, grid, CASES[name][0](), water, heat)[0]
 
 
+# each case's counts (COUNT_KEYS) and eager host reads, as the port gave
+# them when a host counter refreshed the heat sweeps' rings: the frozen
+# hour's 829 heat sweeps, exact mode's 6 and float64's 9 end between two
+# refreshes
+COUNT_KEYS = ("steps", "attempts", "approximations", "inner_iterations", "chunks",
+              "substeps_accepted", "substeps_rejected", "heat_sweeps")
+PARENT_COUNTS = {"frozen": ((18, 20, 55, 77, 18, 48, 8, 829), 1180),
+                 "exact": ((1, 1, 1, 1, 1, 1, 0, 6), 15),
+                 "f64": ((1, 1, 1, 8, 1, 1, 0, 9), 24),
+                 "advection": ((9, 10, 26, 34, 21, 192, 49, 1374), 1778)}
+
+
 @pytest.mark.parametrize("name,shape", [(n, s) for n, (_, _, shapes) in CASES.items()
                                         for s in shapes],
                          ids=[f"{n}-{r}x{c}" for n, (_, _, shapes) in CASES.items()
@@ -191,7 +203,9 @@ def heat_mbr(name, inputs, water, heat):
 def test_partitioned_coupled_matches_whole_box(whole_runs, name, shape):
     """compute_period_coupled on blocks of the 32 valley's coupled storm,
     gathered, against the port's whole-box run: every counter of
-    coupled.counts() and the host reads equal; float32 h and T bit-equal,
+    coupled.counts() and the host reads equal, and the ones the port gave
+    before the heat sweeps' ring refresh became a unit (PARENT_COUNTS);
+    float32 h and T bit-equal,
     float64 within 1e-9 m and 1e-9 K; the water MBR within 1e-8 and the
     heat MBR within 1e-8 of its scale (the float64 balance sums add
     per-block partials in another order)."""
@@ -199,6 +213,7 @@ def test_partitioned_coupled_matches_whole_box(whole_runs, name, shape):
     w1, h1, counts1, reads1 = ref["out"]
     _, (w2, h2, counts2, reads2) = blocked_run(ref, name, shape)
     assert counts2 == counts1 and reads2 == reads1
+    assert (tuple(counts2[k] for k in COUNT_KEYS), reads2) == PARENT_COUNTS[name]
     assert counts1["heat_sweeps"] > 0 and counts1["chunks"] > 0
     w2, h2 = TS.gather_pytree(w2), TS.gather_pytree(h2)
     if name == "f64":
@@ -211,6 +226,35 @@ def test_partitioned_coupled_matches_whole_box(whole_runs, name, shape):
     mbr1 = heat_mbr(name, ref["inputs"], w1, h1)
     mbr2 = heat_mbr(name, ref["inputs"], w2, h2)
     assert mbr2 == pytest.approx(mbr1, rel=1e-8, abs=1e-8)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (2, 4)], ids=["2x2", "1x4", "2x4"])
+@pytest.mark.parametrize("name", ["exact", "f64"])
+def test_heat_ring_refresh_unit(whole_runs, name, shape, monkeypatch):
+    """The 600 s exact-mode (float32) and float64 coupled periods on blocks
+    under the eager driver: their one heat sub-step of 6 and of 9 sweeps
+    refreshes x's rings in the ring-refresh unit at the sweeps' end only,
+    and after sweep 8 and at the end (1 and 2 exchanges); the counts and
+    host reads are the port's before (PARENT_COUNTS); float32 h and T
+    bit-equal to the whole box's, float64 within 1e-9."""
+    ref = whole_runs[name]
+    w1, h1, counts1, reads1 = ref["out"]
+    exchanges = []
+
+    def counted(x):
+        exchanges.append(1)
+        return TS.exchange(x)
+    monkeypatch.setattr(CP, "exchange", counted)
+    _, (w2, h2, counts2, reads2) = blocked_run(ref, name, shape)
+    assert (tuple(counts2[k] for k in COUNT_KEYS), reads2) == PARENT_COUNTS[name]
+    assert counts2 == counts1 and reads2 == reads1
+    assert len(exchanges) == {"exact": 1, "f64": 2}[name]
+    w2, h2 = TS.gather_pytree(w2), TS.gather_pytree(h2)
+    if name == "f64":
+        np.testing.assert_allclose(w2.h.numpy(), w1.h.numpy(), rtol=0, atol=1e-9)
+        np.testing.assert_allclose(h2.t.numpy(), h1.t.numpy(), rtol=0, atol=1e-9)
+    else:
+        assert torch.equal(w2.h, w1.h) and torch.equal(h2.t, h1.t)
 
 
 # ----------------------------------------------------------------------

@@ -278,6 +278,50 @@ def test_kernel_simplified_matches_jax(leaf, stressed):
     assert flips == 0, f"{flips} cells stop at another iteration than JAX's"
 
 
+@pytest.mark.parametrize("max_iter", [30, 1000])
+def test_fixed_point_machine_matches_jax(max_iter):
+    """The vine's fixed point as a machine (physics/fixed_point.py) under
+    the eager driver, the CPU's, on the stressed sunlit leaves: at max_iter
+    30 (the bootstrap, then 7 units of CHECK_EVERY iterations and one of
+    the last 1) and at 1,000 some cells run to max_iter, as in JAX; each
+    stopped cell's stop iteration JAX's (0 flips), the outputs rel 1e-12
+    against JAX cut at the same max_iter, the loop's iteration count JAX's
+    (from 1); one host read a unit."""
+    import math
+    from criteria3d_tpu_torch.solver import device_loop
+    env = canopy_env()
+    jwx, _, jsun, _ = _canopy_pieces(env)
+    tleaf = {k: _t(np.asarray(v)) for k, v in jsun.items()}
+    stomwl = 1e6 * env["stress_profile"]
+    co2 = np.asarray(JV.atmospheric_co2_pa(2023, jnp.float64(172.0),
+                                           jnp.asarray(env["pressure_pa"])))
+    kw = dict(co2_pa=co2, pressure_pa=env["pressure_pa"], vpd_pa=np.asarray(jwx["vpd"]))
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    jout = JV.photosynthesis_kernel_simplified(jsun, stomwl=jnp.asarray(stomwl),
+                                               vpd_sensitivity=1300.0, max_iter=max_iter,
+                                               **jkw)
+    device_loop.reset_counts()
+    *tout, info = TV.photosynthesis_kernel_simplified(
+        tleaf, stomwl=_t(stomwl), vpd_sensitivity=1300.0, max_iter=max_iter,
+        return_stop=True, **{k: _t(v) for k, v in kw.items()})
+    counts = device_loop.counts()
+    for a, b, name in zip(tout, jout, ("ass", "gsc", "tr")):
+        close(a, b, name=f"max_iter {max_iter} {name}")
+    stop = info["stop"]
+    running = int((stop < 0).sum())
+    assert running > 0 and int((stop >= 0).sum()) > 0
+    assert info["iterations"] == max_iter - 1
+    assert counts["eager_fixed_points"] == 1
+    assert counts["eager_reads"] == math.ceil(info["iterations"] / TV.CHECK_EVERY)
+    flips = stop_flips(
+        lambda m: JV.photosynthesis_kernel_simplified(
+            jsun, stomwl=jnp.asarray(stomwl), vpd_sensitivity=1300.0, max_iter=m, **jkw),
+        stop, info["d_ass"], jout)
+    print(f"max_iter {max_iter}: stop iterations {sorted(set(stop.reshape(-1).tolist()))}, "
+          f"{running} cells at max_iter, flipped cells {flips}")
+    assert flips == 0, f"{flips} cells stop at another iteration than JAX's"
+
+
 def test_canopy_fluxes_and_respiration_match_jax():
     """vine_canopy_fluxes (JAX's jitted chain) on the seeded maps with the
     stage's leaf width, two cultivars; plant respiration and the
