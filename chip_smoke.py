@@ -1516,12 +1516,21 @@ def fixed_point_drivers(label: str, run, module, kernel: str, dev) -> dict:
     import contextlib
     import torch
     from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.physics import fixed_point as FP
     from criteria3d_tpu_torch.solver import device_loop
     on_card = torch_device_type(dev) == "cuda"
     runs = {}
+    # each call's least bytes an iteration (FP.iteration_bytes)
+    moved = []
+    fp_run = FP.run
+
+    def run_and_size(kind, body, inputs, carries, *args, **kw):
+        moved.append(FP.iteration_bytes(inputs, carries))
+        return fp_run(kind, body, inputs, carries, *args, **kw)
     for driver in ("graph", "eager"):
         stops = []
         orig = recording(module, kernel, stops, stops=True)
+        FP.run = run_and_size
         try:
             _sync(dev)
             _peak_gib(dev, reset=True)
@@ -1536,6 +1545,7 @@ def fixed_point_drivers(label: str, run, module, kernel: str, dev) -> dict:
                                 peak_gib=_peak_gib(dev))
         finally:
             setattr(module, kernel, orig)
+            FP.run = fp_run
     g, e = runs["graph"], runs["eager"]
     ga, ea = dict(_flat_tensors(g["out"])), dict(_flat_tensors(e["out"]))
     differ = [k for k in ea if not torch.equal(ga[k], ea[k])]
@@ -1543,8 +1553,14 @@ def fixed_point_drivers(label: str, run, module, kernel: str, dev) -> dict:
         torch.equal(a["stop"], b["stop"]) and torch.equal(a["d_ass"], b["d_ass"])
         for a, b in zip(g["stops"], e["stops"]))
     gd, calls = g["drivers"], len(g["stops"])
+    iterations = [int(st["iterations"]) for st in g["stops"]]
+    # the bound of one iteration: its least bytes over the card's rate
+    bound_ms = [b / HBM_BYTES_PER_S * 1e3 for b in moved[:calls]]
+    graph_ms = g["wall_s"] * 1e3 / max(sum(iterations), 1)
     print(f"# {label} graph vs eager ({torch_device_type(dev)}): {calls} fixed-point calls, "
-          f"iterations {[int(st['iterations']) for st in g['stops']]}; graph {gd['graph_fixed_points']} "
+          f"iterations {iterations}; an iteration's least bytes {moved[:calls]}, bound "
+          f"{bound_ms} ms (bytes), graph-driven wall {graph_ms} ms an iteration; graph "
+          f"{gd['graph_fixed_points']} "
           f"calls in {gd['launches']} launches (capture {gd['capture_s']} s), wall "
           f"{g['wall_s']} s, host reads {g['reads']}, peak {g['peak_gib']} GiB; eager wall "
           f"{e['wall_s']} s, host reads {e['reads']}, peak {e['peak_gib']} GiB; outputs "
@@ -1558,7 +1574,8 @@ def fixed_point_drivers(label: str, run, module, kernel: str, dev) -> dict:
               and gd["launches"] == calls,
               f"{label}: {calls} fixed-point calls, drivers {gd}")
     return dict(calls=calls, graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
-                graph_reads=g["reads"], eager_reads=e["reads"],
+                iteration_bytes=moved[:calls], iteration_bound_ms=bound_ms,
+                graph_ms_per_iteration=graph_ms, graph_reads=g["reads"], eager_reads=e["reads"],
                 graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
                 launches=gd["launches"], capture_s=gd["capture_s"])
 
@@ -2912,7 +2929,8 @@ def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
     the card), of the x exchange alone, the bound of a mesh bundle (each
     block's kernel bound at its grown size plus the exchange's bytes:
     every grown cell written once, read once from its source) and the
-    tiled variant each block runs."""
+    tiled variant each block runs; on the card the kernel's ms on each
+    block, on the block's own card (``block_ms``, row-major)."""
     import numpy as np
     import torch
     from criteria3d_tpu_torch.bench_jacobi import bundle_inputs, cuda_ms
@@ -2949,13 +2967,19 @@ def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
         if card:
             rec["ms"] = cuda_ms(lambda: JB.mesh_bundle(system, xs), reps=20)
             rec["exchange_ms"] = cuda_ms(lambda: exchange(xs), reps=20)
+            rec["block_ms"] = []
+            for idx, x in np.ndenumerate(xs.blocks):
+                with torch.cuda.device(x.device):
+                    rec["block_ms"].append(cuda_ms(lambda: JB.jacobi_bundle(
+                        *(a.blocks[idx] for a in system), x, halo=K), reps=20))
         out["meshes"][mesh.devices.size] = rec
         share = rec["exchange_ms"] / rec["ms"] if card else None
         print(f"# 3v mesh loop over {mesh.shape} (blocks on "
               f"{sorted({str(d) for d in mesh.devices.flat})}): x bit-equal to the "
               f"single-device loop, n_it {nm} diverged {dm}; blocks hold "
               f"{rec['grown_share']} x the cells; ms per bundle {rec.get('ms')} "
-              f"(exchange {rec.get('exchange_ms')}, share {share}) against the single "
+              f"(exchange {rec.get('exchange_ms')}, share {share}; the kernel on each "
+              f"block, on its card, {rec.get('block_ms')}) against the single "
               f"kernel's {single_ms}, bound {bound_ms} ms; tiled variants {variants}",
               flush=True)
         del blocked, system, xs, xm
@@ -2964,6 +2988,10 @@ def mesh_loops(seed: int, dev, n: int, meshes=None) -> dict:
 
 # 3v (iii): the storm hours partitioned, in phases 3-3c's order
 MESH_FORMS = ("bundle", "cg_line", "f64")
+# and the same blocks split into machines (each block its own, and the
+# bundle's also by rows of blocks), run by the rounds driver
+MESH_MACHINES = {"bundle": ((0, 1, 2, 3), (0, 0, 1, 1)), "cg_line": ((0, 1, 2, 3),),
+                 "f64": ((0, 1, 2, 3),)}
 
 
 def mesh_form_params(form: str, mesh=None):
@@ -2998,13 +3026,14 @@ def one_device_hour(form: str, seed: int, dev, n: int) -> dict:
                 eager_peak_gib=None)
 
 
-def _mesh_driver(mesh, device=None) -> str:
-    """The driver of a period on ``mesh`` (on ``device`` without one)."""
+def _mesh_driver(mesh, device=None, kind: str = "water") -> str:
+    """The driver of a ``kind`` period on ``mesh`` (on ``device`` without
+    one)."""
     from criteria3d_tpu_torch.solver import device_loop
-    return device_loop.driver_for(mesh.home if mesh is not None else device, mesh)[0]
+    return device_loop.driver_for(mesh.home if mesh is not None else device, mesh, kind)[0]
 
 
-def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
+def mesh_hour(form: str, card: str, dev, ref: dict, mesh, machines=()) -> dict:
     """3v (iii): the storm hour of ``form`` partitioned over ``mesh``
     (grid and state cut from the host by ``shard_pytree``, the whole
     water step on the blocks, the result joined by ``gather_pytree``)
@@ -3012,13 +3041,17 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
     bundle launches (one per block and bundle), the graph machine's
     launches and capture seconds, the peak memory. On one card's blocks the
     graph driver runs it (its machine captured by a zero-length period
-    first) against the graph-driven one-device hour: the same stats and
-    MBR, float32 heads bit-equal, float64 within 1e-9 m, host reads at most
-    5 % of the eager one-device hour's. On several cards the eager driver
-    runs it against the eager one-device hour: the same host reads; heads
-    within 1e-5 m (f32) or 1e-9 m (f64) when the stats are equal, else
-    within the free-running float32 envelopes of tests/test_fast_f32.py
-    (max 0.1 m, median 1e-2 m). |MBR| < 2e-3 either way."""
+    first), and on a mesh over several cards the rounds driver (one
+    machine a card), against the graph-driven one-device hour: the same
+    stats and MBR, float32 heads bit-equal, float64 within 1e-9 m, host
+    reads at most 5 % of the eager one-device hour's (graph) or at most the
+    graph launches plus 3 (rounds). The eager driver (the CPU) runs it
+    against the eager one-device hour: the same host reads; heads within
+    1e-5 m (f32) or 1e-9 m (f64) when the stats are equal, else within the
+    free-running float32 envelopes of tests/test_fast_f32.py (max 0.1 m,
+    median 1e-2 m). |MBR| < 2e-3 either way. Then the same blocks split
+    into each grouping of ``machines`` (:func:`machines_hour`). The result
+    holds the joined heads on the host (``h``)."""
     import torch
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
@@ -3053,7 +3086,6 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
     wall = time.time() - t0
     launches, reads, drv = JB.jacobi_bundle.launches, host_read.count, device_loop.counts()
     peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
-    del grid_s, state_s
     device_loop.clear()
     t0 = time.time()
     out = gather_pytree(out, "cpu")
@@ -3075,15 +3107,18 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
               f"3v: {launches} launches for {stats[3]} sweeps on {blocks} blocks")
     if form != "bundle":
         check(launches == 0, f"3v {form}: {launches} bundle launches")
-    if driver == "graph":
-        check(drv["graph_periods"] == 1 and drv["eager_periods"] == 0,
-              f"3v {form}: the partitioned hour did not run graph-driven ({drv})")
+    if driver in ("graph", "rounds"):
+        check(drv[f"{driver}_periods"] == 1 and drv["eager_periods"] == 0,
+              f"3v {form}: the partitioned hour did not run {driver}-driven ({drv})")
         check(tuple(stats) == tuple(ref["stats"]) and mbr == ref["mbr"],
               f"3v {form}: stats {stats} MBR {mbr} against the one device's "
               f"{ref['stats']} {ref['mbr']}")
         check(dh_max <= 1e-9 if form == "f64" else dh_max == 0.0,
               f"3v {form}: heads {dh_max} m from the one-device hour's")
-        if ref["eager_reads"]:
+        if driver == "rounds":
+            check(reads <= drv["launches"] + 3, f"3v {form}: {reads} host reads for "
+                  f"{drv['launches']} batches of rounds")
+        elif ref["eager_reads"]:
             check(reads <= 0.05 * ref["eager_reads"], f"3v {form}: {reads} host reads, "
                   f"more than 5 % of the eager hour's {ref['eager_reads']}")
     else:
@@ -3096,9 +3131,80 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
             check(dh_max < 0.1 and dh_median < 1e-2,
                   f"3v {form}: heads {dh_max} m (median {dh_median}) outside the f32 "
                   "envelopes")
-    return dict(stats=stats, mbr=mbr, wall_s=wall, host_reads=reads,
-                launches=launches, graph_launches=drv["launches"], capture_s=capture_s,
-                peak_gib=peak, driver=driver, dh_max=dh_max, parts=parts)
+    res = dict(stats=tuple(stats), mbr=mbr, wall_s=wall, host_reads=reads,
+               launches=launches, graph_launches=drv["launches"], rounds=drv["rounds"],
+               capture_s=capture_s, peak_gib=peak, driver=driver, dh_max=dh_max,
+               parts=parts, h=out.h)
+    t0 = time.time()
+    res["machines"] = {m: machines_hour(form, card, grid_s, state_s, mesh, m, res)
+                       for m in machines}
+    if machines:
+        parts["machines"] = time.time() - t0
+    del grid_s, state_s
+    return res
+
+
+def machines_hour(form: str, card: str, grid_s, state_s, mesh, machines, one: dict) -> dict:
+    """3v (iii): the storm hour of ``form`` on the blocks of ``mesh``
+    (``grid_s``, ``state_s``) split into the machines ``machines`` (one
+    int a block, row-major), run by the rounds driver (on one card, each
+    machine on its own stream; captured by a zero-length period first),
+    against ``one``, the one machine's hour on the same blocks: stats, MBR
+    and bundle launches equal, heads bit-equal, host reads at most the
+    graph launches (batches of rounds) plus 3. Returns its wall, host
+    reads, graph launches, rounds, capture seconds and peak memory."""
+    import torch
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, make_mesh, remesh
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import jacobi_bundle as JB
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    split = make_mesh(mesh.devices.size, devices=list(mesh.devices.flat), machines=machines)
+    grid, state = remesh(grid_s, split), remesh(state_s, split)
+    params = mesh_form_params(form, split)
+    on_card = torch_device_type(mesh.home) == "cuda"
+    driver = _mesh_driver(split)
+    check(driver == "rounds", f"3v {form}: machines {machines} run by the {driver} driver")
+    device_loop.clear()
+    if on_card:
+        _sync_mesh(mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    device_loop.reset_counts()
+    compute_period_stats(grid, params, state, 0.0)
+    _sync_mesh(mesh)
+    capture_s = device_loop.counts()["capture_s"]
+    JB.jacobi_bundle.launches = 0
+    host_read.count = 0
+    device_loop.reset_counts()
+    t0 = time.time()
+    out, stats = compute_period_stats(grid, params, state, 3600.0)
+    _sync_mesh(mesh)
+    wall = time.time() - t0
+    launches, reads, drv = JB.jacobi_bundle.launches, host_read.count, device_loop.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    h = gather_pytree(out.h, "cpu")
+    mbr = float(out.balance_whole.mbr)
+    device_loop.clear()
+    same = torch.equal(h, one["h"])
+    print(f"# 3v {form} storm hour on {mesh.shape} blocks split into machines {machines} "
+          f"({card}), rounds driver: stats {tuple(stats)} MBR {mbr} wall {wall} s host reads "
+          f"{reads} graph launches {drv['launches']} rounds {drv['rounds']} bundle launches "
+          f"{launches} capture {capture_s} s peak {peak} GiB; one machine: stats "
+          f"{one['stats']} MBR {one['mbr']} wall {one['wall_s']} s launches "
+          f"{one['launches']}; heads bit-equal {same}", flush=True)
+    check(drv["rounds_periods"] == 1 and drv["eager_periods"] == 0,
+          f"3v {form} machines {machines}: drivers {drv}")
+    check(tuple(stats) == one["stats"] and mbr == one["mbr"] and launches == one["launches"],
+          f"3v {form} machines {machines}: stats {stats} MBR {mbr} launches {launches} "
+          f"against one machine's {one['stats']} {one['mbr']} {one['launches']}")
+    check(same, f"3v {form} machines {machines}: heads "
+                f"{float((h - one['h']).abs().max())} m from one machine's")
+    check(reads <= drv["launches"] + 3,
+          f"3v {form} machines {machines}: {reads} host reads for {drv['launches']} batches")
+    return dict(stats=tuple(stats), mbr=mbr, wall_s=wall, host_reads=reads,
+                graph_launches=drv["launches"], rounds=drv["rounds"], launches=launches,
+                capture_s=capture_s, peak_gib=peak)
 
 
 def one_device_coupled_hour(seed: int, dev, n: int) -> dict:
@@ -3149,7 +3255,7 @@ def mesh_coupled_hour(card: str, dev, ref: dict, mesh) -> dict:
     from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     grid = ref["inputs"][0]
-    driver = _mesh_driver(mesh)
+    driver = _mesh_driver(mesh, kind="coupled")
     on_card = torch_device_type(mesh.home) == "cuda"
     params = mesh_form_params("coupled", mesh)
     device_loop.clear()
@@ -3243,56 +3349,77 @@ def _sync_mesh(mesh) -> None:
 def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
     """3v on a host with several cards (``main`` needs one and does not run
     it): the mesh of one block per card (``make_mesh()``): the mesh loop on
-    phase 2's inputs against one card; the bundle storm hour on one card
-    (eager-driven, as a mesh over several cards runs) and partitioned over
-    the cards, each card's peak memory of the
-    partitioned hour at most 0.35 of the one-card hour's (nothing whole
-    lives on a card: the grid and state are cut from the host); and the
-    scaling bench's line, whose mesh leg takes one block per card."""
+    phase 2's inputs against one card; each storm hour (MESH_FORMS)
+    graph-driven on one card, whole and on 2 x 2 blocks (one machine), and
+    partitioned over the cards, one machine a card in rounds: stats, MBR
+    and launches equal, heads bit-equal to the one card's 2 x 2 hour, host
+    reads at most the rounds' batches plus 3; each card's peak memory of
+    the bundle hour over the cards at most 0.35 of the one-card whole
+    hour's (nothing whole lives on a card: the grid and state are cut from
+    the host); the coupled hour (:func:`mesh_cards_coupled`, eager over
+    the cards); and the scaling bench's line, whose mesh leg takes one
+    block per card."""
     import torch
     from criteria3d_tpu_torch import scaling_bench
-    from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import make_mesh
-    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
     from criteria3d_tpu_torch.solver import device_loop
-    from criteria3d_tpu_torch.solver.step import compute_period_stats
     check(torch.cuda.device_count() > 1, "mesh_cards needs more than one card")
     mesh = make_mesh()
+    cards = torch.cuda.device_count()
+    peer = [[torch.cuda.can_device_access_peer(a, b) for b in range(cards) if b != a]
+            for a in range(cards)]
+    print(f"# 3v mesh over {cards} cards: peer access {peer} ({card})", flush=True)
     loops = mesh_loops(seed, "cuda", n, [mesh])
     torch.cuda.empty_cache()
-    params = mesh_form_params("bundle")
-    grid, state0 = build_problem(synthetic_catchment(seed, n=n), 4.0, params, "cpu")
-    g0, s0 = grid.to("cuda:0"), state0.to("cuda:0")
-    torch.cuda.synchronize(0)
-    torch.cuda.reset_peak_memory_stats(0)
-    host_read.count = 0
-    # eager-driven, as the partitioned hour runs: reads and peaks compare
-    with device_loop.forced_eager():
-        out, stats = compute_period_stats(g0, params, s0, 3600.0)
-    torch.cuda.synchronize(0)
-    one_peak = torch.cuda.max_memory_allocated(0)
-    ref = dict(grid=grid, state0=state0, h=out.h.to("cpu"), stats=tuple(stats),
-               mbr=float(out.balance_whole.mbr), reads=host_read.count,
-               eager_reads=host_read.count, eager_peak_gib=one_peak / 2**30)
-    del g0, s0, out
-    torch.cuda.empty_cache()
-    for i in range(torch.cuda.device_count()):
-        torch.cuda.reset_peak_memory_stats(i)
-    hour = mesh_hour("bundle", card, "cuda", ref, mesh)
-    peaks = [torch.cuda.max_memory_allocated(i) for i in range(torch.cuda.device_count())]
-    shares = [p / one_peak for p in peaks]
-    print(f"# 3v bundle storm hour: one card's peak {one_peak / 2**30} GiB; "
-          f"partitioned over {mesh.devices.size} cards, each card's peak "
-          f"{[p / 2**30 for p in peaks]} GiB, shares {shares} ({card})", flush=True)
-    check(max(shares) <= 0.35, f"3v: a card's peak is {max(shares)} of the one-card "
-                               "hour's, above 0.35")
-    del ref
-    torch.cuda.empty_cache()
+    hours, one_peak = {}, None
+    for form in MESH_FORMS:
+        torch.cuda.synchronize(0)
+        torch.cuda.reset_peak_memory_stats(0)
+        ref = one_device_hour(form, seed, "cuda:0", n)
+        torch.cuda.synchronize(0)
+        if form == "bundle":
+            one_peak = torch.cuda.max_memory_allocated(0)
+        device_loop.clear()
+        torch.cuda.empty_cache()
+        two = mesh_hour(form, card, "cuda", ref, virtual_mesh(4, "cuda:0"))
+        torch.cuda.empty_cache()
+        for i in range(cards):
+            torch.cuda.reset_peak_memory_stats(i)
+        over = mesh_hour(form, card, "cuda", ref, mesh)
+        peaks = [torch.cuda.max_memory_allocated(i) for i in range(cards)]
+        same = torch.equal(over["h"], two["h"])
+        print(f"# 3v {form} storm hour over {cards} cards ({over['driver']} driver): wall "
+              f"{over['wall_s']} s host reads {over['host_reads']} graph launches "
+              f"{over['graph_launches']} rounds {over['rounds']} capture {over['capture_s']} s; "
+              f"one card's 2 x 2 hour {two['wall_s']} s ({two['driver']}); heads bit-equal to "
+              f"it {same}; each card's peak {[p / 2**30 for p in peaks]} GiB ({card})",
+              flush=True)
+        check(over["driver"] == "rounds", f"3v {form} over the cards: {over['driver']} driver")
+        check(over["stats"] == two["stats"] and over["mbr"] == two["mbr"]
+              and over["launches"] == two["launches"] and same,
+              f"3v {form} over the cards: stats {over['stats']} MBR {over['mbr']} launches "
+              f"{over['launches']} against the one card's 2 x 2 hour's {two['stats']} "
+              f"{two['mbr']} {two['launches']}, heads bit-equal {same}")
+        over["peaks"] = peaks
+        over["one_card_2x2_wall_s"] = two["wall_s"]
+        if form == "bundle":
+            shares = [p / one_peak for p in peaks]
+            print(f"# 3v bundle storm hour: one card's peak {one_peak / 2**30} GiB; over "
+                  f"{cards} cards, each card's shares {shares} ({card})", flush=True)
+            check(max(shares) <= 0.35, f"3v: a card's peak is {max(shares)} of the "
+                                       "one-card hour's, above 0.35")
+            over["shares"] = shares
+        for r in (over, two):
+            r.pop("h")
+        hours[form] = over
+        del ref, two
+        device_loop.clear()
+        torch.cuda.empty_cache()
     coupled = mesh_cards_coupled(seed, card, n, mesh)
     scaling = scaling_bench.scaling(n, n, mesh.devices.size, "cuda")
     print(json.dumps(scaling), flush=True)
-    return dict(loops=loops, hour=hour, one_card_peak=one_peak, peaks=peaks,
-                shares=shares, coupled=coupled, scaling=scaling)
+    return dict(loops=loops, hours=hours, one_card_peak=one_peak, peer=peer,
+                coupled=coupled, scaling=scaling)
 
 
 def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
@@ -3351,6 +3478,9 @@ def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
 MESH_GRAPH_BOX = 64
 MESH_GRAPH_VALLEY = 32
 MESH_GRAPH_PERIOD = 1800.0
+# the coupled valley's period (a quarter of an hour since PR 18, so that the
+# script stays under 600 s with 3v's hours in machines)
+MESH_GRAPH_COUPLED_PERIOD = 900.0
 
 
 def valley_box(n: int):
@@ -3427,20 +3557,28 @@ def mesh_graph_vs_eager(card: str, dev="cuda") -> dict:
     frozen coupled storm hour on the MESH_GRAPH_VALLEY valley: stats,
     counts, both MBRs and bundle launches equal, heads and T bit-equal; on
     the card the graph driver ran, its host reads at most 5 % of the eager
-    hour's, its peak at most 2 x (each period MESH_GRAPH_PERIOD long). Then
+    hour's, its peak at most 2 x (each water period MESH_GRAPH_PERIOD long,
+    the coupled one MESH_GRAPH_COUPLED_PERIOD). Then
     every unit of a 600 s f64 water machine (its ring-refresh unit among
     them) and a 600 s coupled machine on the blocks runs under
     ``set_sync_debug_mode("error")``: no host synchronisation inside a
-    unit."""
+    unit. The bundle hour also runs on the same blocks split into 4
+    machines under ``device_loop.stream_rounds()`` (each machine on its own
+    stream, the rounds enqueued from the host with events, as machines on
+    several cards run; tests/test_torch_cuda.py runs every form so): stats,
+    MBR and launches equal, heads bit-equal to the graph-driven hour."""
     import torch
     from criteria3d_tpu_torch.bench import coupled_heat_mbr
-    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
+    from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh, remesh,
+                                                        shard_pytree)
     from criteria3d_tpu_torch.problems import (build_coupled_problem, build_problem,
                                                synthetic_catchment)
     from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import step as TSt
     on_card = torch_device_type(dev) == "cuda"
     mesh = virtual_mesh(4, dev)
+    split = make_mesh(4, devices=list(mesh.devices.flat), machines=(0, 1, 2, 3))
     out = {}
     n = MESH_GRAPH_BOX
     for form in MESH_FORMS:
@@ -3477,25 +3615,52 @@ def mesh_graph_vs_eager(card: str, dev="cuda") -> dict:
                                  f"eager {e['reads']}")
             check(g["peak_gib"] <= 2.0 * e["peak_gib"],
                   f"3x {form} on blocks: graph peak {g['peak_gib']} > 2 x {e['peak_gib']}")
+        if form != "bundle":
+            out[form] = dict(stats=tuple(gs), graph_reads=g["reads"], eager_reads=e["reads"],
+                             graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
+                             graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
+                             capture_s=g["drivers"]["capture_s"],
+                             graph_launches=g["drivers"]["launches"])
+            del grid, state, g, e
+            continue
+        with device_loop.stream_rounds():
+            r = _mesh_run(lambda: TSt.compute_period_stats(
+                remesh(grid, split), mesh_form_params(form, split), remesh(state, split),
+                MESH_GRAPH_PERIOD), False, on_card)
+        ro, rs = r["out"]
+        rh = gather_pytree(ro.h, "cpu")
+        print(f"# 3x {form} on the same blocks in 4 machines, each on its own stream "
+              f"(stream_rounds; {card}): stats {tuple(rs)} MBR {float(ro.balance_whole.mbr)} "
+              f"wall {r['wall_s']} s host reads {r['reads']} graph launches "
+              f"{r['drivers']['launches']} rounds {r['drivers']['rounds']} launches "
+              f"{r['launches']}; heads bit-equal to the graph hour {torch.equal(rh, gh)}",
+              flush=True)
+        check(tuple(rs) == tuple(gs) and float(ro.balance_whole.mbr) == gm
+              and r["launches"] == g["launches"] and torch.equal(rh, gh)
+              and r["drivers"]["rounds_periods"] == 1,
+              f"3x {form} in 4 machines on streams: {rs} {float(ro.balance_whole.mbr)} "
+              f"{r['launches']} against the graph hour's {gs} {gm} {g['launches']}")
         out[form] = dict(stats=tuple(gs), graph_reads=g["reads"], eager_reads=e["reads"],
                          graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
                          graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
                          capture_s=g["drivers"]["capture_s"],
-                         graph_launches=g["drivers"]["launches"])
-        del grid, state, g, e
+                         graph_launches=g["drivers"]["launches"],
+                         stream_rounds_wall_s=r["wall_s"], stream_rounds=r["drivers"]["rounds"])
+        del grid, state, g, e, r
     whole = mesh_form_params("coupled")
     params = mesh_form_params("coupled", mesh)
     inputs = build_coupled_problem(valley_box(MESH_GRAPH_VALLEY), 10.0, whole, dev)
     blocked = [shard_pytree(x, mesh) for x in inputs]
     g, e = (_mesh_run(lambda: CP.compute_period_coupled(blocked[0], params, *blocked[1:],
-                                                        MESH_GRAPH_PERIOD), eager, on_card)
+                                                        MESH_GRAPH_COUPLED_PERIOD), eager,
+                          on_card)
             for eager in (False, True))
     (gw, gt), (ew, et) = ([gather_pytree(x, "cpu") for x in r["out"]] for r in (g, e))
     gmbr = (float(gw.balance_whole.mbr), coupled_heat_mbr(inputs[0].to("cpu"), whole, gw, gt))
     embr = (float(ew.balance_whole.mbr), coupled_heat_mbr(inputs[0].to("cpu"), whole, ew, et))
     ratio = g["reads"] / max(e["reads"], 1)
     same = torch.equal(gw.h, ew.h) and torch.equal(gt.t, et.t)
-    print(f"# 3x coupled {MESH_GRAPH_PERIOD} s on 2 x 2 blocks of the {MESH_GRAPH_VALLEY} "
+    print(f"# 3x coupled {MESH_GRAPH_COUPLED_PERIOD} s on 2 x 2 blocks of the {MESH_GRAPH_VALLEY} "
           f"valley ({card}): "
           f"graph counts {g['counts']} MBRs {gmbr} wall {g['wall_s']} s host reads "
           f"{g['reads']} graph launches {g['drivers']['launches']} capture "
@@ -3568,7 +3733,8 @@ def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> di
     for form in MESH_FORMS:
         ref = refs[form] if refs else one_device_hour(form, seed, dev, n)
         lap(f"{form} one-device hour")
-        hours[form] = mesh_hour(form, card, dev, ref, mesh)
+        hours[form] = mesh_hour(form, card, dev, ref, mesh, MESH_MACHINES[form])
+        hours[form].pop("h")
         lap(f"{form} partitioned")
     scaling = scaling_bench.scaling(n, n, 4, dev)
     print(json.dumps(scaling), flush=True)
@@ -3648,6 +3814,60 @@ def mesh_busy(seed: int, card: str, dev="cuda", n: int = 768) -> dict:
         f"{form}: walls {v['graph_walls_s']} s (the kept machine's second run bit-equal to "
         f"its first), eager-profiled busy {v['busy_s']} s, idle share {v['idle_share']}"
         for form, v in out.items()), flush=True)
+    return out
+
+
+def mesh_rounds_busy(seed: int, card: str, mesh=None, n: int = 768) -> dict:
+    """The idle share of each storm hour (MESH_FORMS) under the rounds
+    driver on ``mesh`` (one block a card, ``make_mesh()``, when None; or a
+    grouping of one card's blocks), which ``main`` does not run: each
+    hour captured by a zero-length period and run once for its wall, all
+    of them before any profiling (a profiled run slows the launches after
+    it in the same process); then each once more under torch.profiler:
+    each card's busy time (the union of its device activities: the
+    profiler sees the kernels inside the machines' segment graphs) and
+    idle share 1 - busy / the unprofiled wall. Returns, per form, the
+    wall, host reads, busy seconds and idle shares per card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from criteria3d_tpu_torch.device import host_read
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh, shard_pytree
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver.step import compute_period_stats
+    from criteria3d_tpu_torch.utils.profiling import busy_by_device
+    mesh = mesh or make_mesh()
+    check(_mesh_driver(mesh) == "rounds", f"mesh_rounds_busy: {mesh.shape} runs no rounds")
+    dem = synthetic_catchment(seed, n=n, radius=n * 366.0 / 768)
+    device_loop.clear()
+    runs, out = {}, {}
+    for form in MESH_FORMS:
+        grid, state = (shard_pytree(x, mesh)
+                       for x in build_problem(dem, 4.0, mesh_form_params(form), "cpu"))
+        params = mesh_form_params(form, mesh)
+        compute_period_stats(grid, params, state, 0.0)
+        _sync_mesh(mesh)
+        host_read.count = 0
+        t0 = time.time()
+        _, stats = compute_period_stats(grid, params, state, 3600.0)
+        _sync_mesh(mesh)
+        runs[form] = (grid, params, state)
+        out[form] = dict(stats=tuple(stats), wall_s=time.time() - t0,
+                         host_reads=host_read.count)
+    for form, (grid, params, state) in runs.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            compute_period_stats(grid, params, state, 3600.0)
+            _sync_mesh(mesh)
+        busy = busy_by_device(prof)
+        r = out[form]
+        r.update(busy_s=busy, idle_share={c: 1.0 - b / r["wall_s"] for c, b in busy.items()})
+        print(f"# {form} storm hour in rounds on {mesh.shape} blocks of "
+              f"{sorted({str(d) for d in mesh.devices.flat})} ({card}): stats {r['stats']} "
+              f"wall {r['wall_s']} s host reads {r['host_reads']}; each card's busy {busy} s, "
+              f"idle share {r['idle_share']}", flush=True)
+        check(busy and all(b > 0 for b in busy.values()),
+              f"{form}: the profiler saw no device activity in the rounds")
+    device_loop.clear()
     return out
 
 
@@ -4127,6 +4347,12 @@ def main() -> int:
         "launches_mesh_hour": vp["hours"]["bundle"]["launches"],
         "mesh_ms_per_bundle": vp["loops"]["meshes"][4]["ms"],
         "mesh_exchange_ms": vp["loops"]["meshes"][4]["exchange_ms"],
+        # the kernel alone on each of those blocks (halo = K)
+        "mesh_block_ms": vp["loops"]["meshes"][4]["block_ms"],
+        # launches in 3v's bundle storm hour on the same blocks split into 4
+        # machines (rounds: each machine its own blocks' launches)
+        "launches_mesh_machines_hour": vp["hours"]["bundle"]["machines"][(0, 1, 2, 3)][
+            "launches"],
         "mesh_bound_ms": vp["loops"]["meshes"][4]["bound_ms"],
         # launches in the bench's mesh leg (3w): the bundle hour on a (1, 1)
         # mesh, one a bundle
@@ -4166,11 +4392,27 @@ def main() -> int:
         # in 3w's mesh leg, the bundle hour on a (1, 1) mesh
         "launches_mesh_hours": {k: h["graph_launches"] for k, h in vp["hours"].items()},
         "capture_s_mesh_hours": {k: h["capture_s"] for k, h in vp["hours"].items()},
+        # 3v's hours on the same 2 x 2 blocks split into machines, run by the
+        # rounds driver (c3d_switch_build's segment graphs, c3d_rounds): its
+        # launches are batches of UNITS_PER_LAUNCH rounds
+        "launches_mesh_machines_hours": {
+            f"{k} {''.join(map(str, m))}": r["graph_launches"]
+            for k, h in vp["hours"].items() for m, r in h.get("machines", {}).items()},
+        "rounds_mesh_machines_hours": {
+            f"{k} {''.join(map(str, m))}": r["rounds"]
+            for k, h in vp["hours"].items() for m, r in h.get("machines", {}).items()},
         "launches_bench_mesh_leg": wp["mesh"]["graph_launches"],
         # launches of the fixed points' machines: hour 13's hydrall_hour
         # (2 calls, 3m) and hour 12's vine canopy fluxes (4 calls, 3o)
         "launches_hydrall_fixed_points": sp["hydrall"]["drivers"]["launches"],
         "launches_vine_fixed_points": sp["vine"]["drivers"]["launches"],
+        # one fixed-point iteration's bound (its inputs read once, its
+        # carries read and written once, over the card's rate) for each
+        # call, and the graph-driven wall over the calls' iterations
+        "iteration_bound_ms_hydrall": sp["hydrall"]["drivers"]["iteration_bound_ms"],
+        "iteration_bound_ms_vine": sp["vine"]["drivers"]["iteration_bound_ms"],
+        "ms_per_iteration_hydrall": sp["hydrall"]["drivers"]["graph_ms_per_iteration"],
+        "ms_per_iteration_vine": sp["vine"]["drivers"]["graph_ms_per_iteration"],
         # heads of the graph-driven bundle hour against the eager driver's
         "max_abs_err": gx["bundle"]["dh_max"],
         "ms": gm_ms,
@@ -4230,7 +4472,11 @@ def main() -> int:
               f"{form} ({h['driver']}) stats={list(h['stats'])} mbr={h['mbr']} "
               f"wall_s={h['wall_s']} host_reads={h['host_reads']} launches={h['launches']} "
               f"graph_launches={h['graph_launches']} capture_s={h['capture_s']} "
-              f"peak_gib={h['peak_gib']}"
+              f"peak_gib={h['peak_gib']}" + "".join(
+                  f", machines {''.join(map(str, m))}: wall_s={r['wall_s']} "
+                  f"host_reads={r['host_reads']} graph_launches={r['graph_launches']} "
+                  f"rounds={r['rounds']} capture_s={r['capture_s']} peak_gib={r['peak_gib']}"
+                  for m, r in h.get("machines", {}).items())
               for form, h in vp["hours"].items()) + "; 3x on 2 x 2 blocks " + "; ".join(
               f"{form} reads {g['graph_reads']} / {g['eager_reads']} walls "
               f"{g['graph_wall_s']} / {g['eager_wall_s']} s peak GiB {g['graph_peak_gib']} / "

@@ -19,12 +19,27 @@ block owns (:func:`block_sum`, :func:`block_max`) on ``mesh.home`` in
 row-major block order. :func:`gather_pytree` joins the owned cells again.
 Code that takes a whole state (a ``HeatState``, ``HeatBoundary`` or
 ``WaterState``) gets one block's state from :func:`blocks_of`.
+
+A mesh's blocks may be run by several machines (solver/device_loop.py's
+rounds driver): by default one per device (one per card), or the explicit
+grouping of :func:`make_mesh`'s ``machines``. A machine holds a *part* of
+each Blocked (:func:`part`: ``None`` where another machine holds the block),
+and it reads the other machines' blocks only through a :class:`Join`: at a
+join each machine posts its blocks' partial sums and maxima and the owned
+strips its neighbours' rings take, the driver copies every machine's posts
+to every other machine (in CUDA's stream order on the card), and each
+machine then combines all the blocks' partials in the mesh's row-major
+block order (the float :func:`block_sum` gives) and grows its blocks from
+the strips (what :func:`exchange` gives). :func:`combine` is that join, and
+on a whole Blocked :func:`exchange` and :func:`block_sum` themselves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
+import threading
 
 import numpy as np
 import torch
@@ -36,7 +51,8 @@ __all__ = ["Mesh", "Blocked", "RING", "make_mesh", "check_shardable",
            "shard_pytree", "gather_pytree", "replicate_pytree", "split_blocks",
            "join_blocks", "halo_exchange", "exchange", "owned", "bmap", "unzip",
            "blocks_of", "is_field", "first_block", "block_sum", "block_max",
-           "pad_to_multiple"]
+           "pad_to_multiple", "machine_groups", "part", "merge", "held", "home_of",
+           "holds_home", "remesh", "Join", "joining", "combine"]
 
 # the ring every block carries: the bundled-Jacobi kernel's K sweeps
 # (solver/jacobi_bundle.SWEEPS_PER_BUNDLE), so that its owned cells are exact
@@ -48,9 +64,12 @@ RING = 8
 class Mesh:
     """A (rows, cols) object array of ``torch.device``, axes ('row', 'col');
     compared and hashed by identity, so it may sit in a frozen
-    ``SolverParameters``."""
+    ``SolverParameters``. ``machines``, when given, is a (rows, cols) int
+    array naming the machine that runs each block (:func:`machine_groups`);
+    by default each device's blocks are one machine's."""
 
     devices: np.ndarray
+    machines: np.ndarray | None = None
 
     @property
     def shape(self) -> dict:
@@ -77,12 +96,15 @@ class Blocked:
     blocks: np.ndarray
 
 
-def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
+def make_mesh(n_devices: int | None = None, devices=None, machines=None) -> Mesh:
     """A ('row', 'col') mesh, factorising the device count as square as
     possible (8 gives (2, 4), 4 gives (2, 2)). ``devices`` defaults to
     every visible CUDA device, and raises when there is none; pass
     ``[torch.device("cpu")] * n`` for a mesh of CPU blocks, or
-    ``[torch.device("cuda")] * n`` for n blocks on one card."""
+    ``[torch.device("cuda")] * n`` for n blocks on one card. ``machines``,
+    one int a device in the same order, groups the blocks into the
+    machines that run them (``[0, 1, 2, 3]``: each of 4 blocks its own);
+    by default each device's blocks are one machine's."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -103,7 +125,46 @@ def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     for k, d in enumerate(devices):
         arr[divmod(k, n // rows)] = d
     arr.flags.writeable = False
-    return Mesh(arr)
+    if machines is not None:
+        machines = np.asarray(list(machines)[:n], dtype=np.int64)
+        if machines.size != n:
+            raise ValueError(f"make_mesh: {machines.size} machines named for {n} devices")
+        machines = machines.reshape(arr.shape)
+        machines.flags.writeable = False
+    mesh = Mesh(arr, machines)
+    machine_groups(mesh)
+    return mesh
+
+
+def _device_key(d: torch.device) -> tuple:
+    """A device as (type, index), ``cuda`` without an index the current
+    card."""
+    if d.type == "cuda" and d.index is None:
+        return "cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0
+    return d.type, d.index
+
+
+def machine_groups(mesh: Mesh) -> list:
+    """The machines that run the mesh's blocks: one tuple of block indices
+    each, in row-major order, the machines ordered by their first block (so
+    the first holds block (0, 0), whose device is ``mesh.home``): the
+    explicit ``mesh.machines``, or one machine per device. All blocks of a
+    machine lie on one device; a grouping that says otherwise raises."""
+    if mesh.machines is None:
+        names = {idx: _device_key(d) for idx, d in np.ndenumerate(mesh.devices)}
+    else:
+        if tuple(mesh.machines.shape) != tuple(mesh.devices.shape):
+            raise ValueError(f"mesh machines of shape {mesh.machines.shape} for "
+                             f"devices of shape {mesh.devices.shape}")
+        names = {idx: int(v) for idx, v in np.ndenumerate(mesh.machines)}
+    groups: dict = {}
+    for idx in np.ndindex(mesh.devices.shape):
+        groups.setdefault(names[idx], []).append(idx)
+    out = [tuple(g) for g in groups.values()]
+    for g in out:
+        if len({_device_key(mesh.devices[idx]) for idx in g}) != 1:
+            raise ValueError(f"a machine's blocks {g} lie on several devices")
+    return out
 
 
 def check_shardable(leaf: torch.Tensor, mesh: Mesh) -> bool:
@@ -249,7 +310,10 @@ def owned(t: torch.Tensor, ring: int) -> torch.Tensor:
 def exchange(x: Blocked) -> Blocked:
     """``x`` with fresh rings: every block's owned cells grown again by its
     neighbours' owned cells (:func:`halo_exchange`), zeros past the global
-    edge. Each new block is a contiguous tensor on its device."""
+    edge. Each new block is a contiguous tensor on its device. On a
+    machine's part, through its :class:`Join` (:func:`combine`)."""
+    if _is_part(x):
+        return combine(x)[0]
     owned_blocks = np.empty(x.blocks.shape, dtype=object)
     for idx, b in np.ndenumerate(x.blocks):
         owned_blocks[idx] = owned(b, RING)
@@ -260,7 +324,8 @@ def bmap(fn, *args):
     """``fn`` block by block: each :class:`Blocked` argument gives its
     block, every other argument is passed as it is; the results form a
     Blocked. Without a Blocked argument it is ``fn(*args)``, once, on the
-    whole tensors."""
+    whole tensors. Over a machine's :func:`part` it runs on the blocks every
+    Blocked argument holds."""
     blocked = [a for a in args if isinstance(a, Blocked)]
     if not blocked:
         return fn(*args)
@@ -270,6 +335,8 @@ def bmap(fn, *args):
             raise ValueError("bmap: the arguments are blocked over different meshes")
     out = np.empty(first.blocks.shape, dtype=object)
     for idx in np.ndindex(first.blocks.shape):
+        if any(a.blocks[idx] is None for a in blocked):
+            continue
         out[idx] = fn(*(a.blocks[idx] if isinstance(a, Blocked) else a for a in args))
     return Blocked(first.mesh, out)
 
@@ -278,12 +345,12 @@ def unzip(x):
     """A Blocked of tuples as a tuple of Blocked (a plain tuple as it is)."""
     if not isinstance(x, Blocked):
         return x
-    n = len(x.blocks.flat[0])
+    n = len(first_block(x))
     outs = []
     for k in range(n):
         arr = np.empty(x.blocks.shape, dtype=object)
         for idx, v in np.ndenumerate(x.blocks):
-            arr[idx] = v[k]
+            arr[idx] = None if v is None else v[k]
         outs.append(Blocked(x.mesh, arr))
     return tuple(outs)
 
@@ -305,22 +372,87 @@ def blocks_of(tree):
     return Blocked(mesh, out)
 
 
+def held(x: Blocked) -> list:
+    """The indices of the blocks ``x`` holds, in row-major order (all of
+    them but on a machine's :func:`part`)."""
+    return [idx for idx, b in np.ndenumerate(x.blocks) if b is not None]
+
+
 def first_block(x):
-    """Block (0, 0) of a Blocked (a Grid's metadata and dtypes), else
-    ``x``."""
-    return x.blocks[0, 0] if isinstance(x, Blocked) else x
+    """The first block a Blocked holds, block (0, 0) but on a machine's
+    part (a Grid's metadata and dtypes), else ``x``."""
+    if not isinstance(x, Blocked):
+        return x
+    return x.blocks[held(x)[0]]
+
+
+def home_of(x: Blocked) -> torch.device:
+    """Where a Blocked's 0-d values live: ``mesh.home``, or on a machine's
+    part the device of its first block."""
+    return x.mesh.devices[held(x)[0]]
+
+
+def holds_home(x) -> bool:
+    """Whether ``x`` is whole, or a Blocked holding block (0, 0): the one
+    machine of a mesh's that counts what happens once a period."""
+    return not isinstance(x, Blocked) or x.blocks[0, 0] is not None
+
+
+def part(tree, blocks):
+    """One machine's part of a Blocked, or of every Blocked field of a
+    frozen dataclass: the blocks at the indices ``blocks``, ``None`` at the
+    others (no copy). ``blocks`` None gives ``tree`` as it is."""
+    if blocks is None:
+        return tree
+    if isinstance(tree, Blocked):
+        arr = np.empty(tree.blocks.shape, dtype=object)
+        for idx in blocks:
+            arr[idx] = tree.blocks[idx]
+        return Blocked(tree.mesh, arr)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, (Grid, Mesh)):
+        return dataclasses.replace(tree, **{
+            f.name: part(getattr(tree, f.name), blocks) for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), Blocked)})
+    return tree
+
+
+def merge(parts: list) -> Blocked:
+    """The machines' parts of one Blocked joined into the whole Blocked."""
+    arr = np.empty(parts[0].blocks.shape, dtype=object)
+    for p in parts:
+        for idx in held(p):
+            arr[idx] = p.blocks[idx]
+    return Blocked(parts[0].mesh, arr)
+
+
+def remesh(tree, mesh: Mesh):
+    """A Blocked, or a frozen dataclass with Blocked fields, as the same
+    blocks (no copy) over ``mesh``, a mesh of the same devices with another
+    grouping of its blocks into machines."""
+    if isinstance(tree, Blocked):
+        if not (tree.mesh.devices.shape == mesh.devices.shape and all(
+                _device_key(a) == _device_key(b) for a, b in
+                zip(tree.mesh.devices.flat, mesh.devices.flat))):
+            raise ValueError("remesh: the meshes' devices differ")
+        return Blocked(mesh, tree.blocks)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, (Grid, Mesh)):
+        return dataclasses.replace(tree, **{
+            f.name: remesh(getattr(tree, f.name), mesh) for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), Blocked)})
+    return tree
 
 
 def block_sum(parts):
     """The blocks' 0-d partials added on ``mesh.home`` in row-major block
     order (JAX's all-reduce; a fixed order, so a run repeats itself); a
-    tensor is returned as it is."""
-    return _combine(parts, torch.add)
+    tensor is returned as it is. On a machine's part, through its
+    :class:`Join` (:func:`combine`)."""
+    return combine(sums=(parts,))[1]
 
 
 def block_max(parts):
     """As :func:`block_sum`, for a maximum."""
-    return _combine(parts, torch.maximum)
+    return combine(maxes=(parts,))[1]
 
 
 def _combine(parts, op):
@@ -331,6 +463,171 @@ def _combine(parts, op):
         p = p.to(parts.mesh.home)
         total = p if total is None else op(total, p)
     return total
+
+
+def _is_part(*xs) -> bool:
+    return any(isinstance(x, Blocked) and any(b is None for b in x.blocks.flat)
+               for x in xs)
+
+
+def combine(x=None, sums=(), maxes=()):
+    """One join of the blocks: ``(x', *totals)``, x' the Blocked ``x`` with
+    fresh rings (:func:`exchange`; None for None) and a total for each of
+    ``sums`` (:func:`block_sum`) and ``maxes`` (:func:`block_max`), each the
+    blocks' 0-d partials. On a whole Blocked (or tensors) it is those
+    functions; on a machine's :func:`part` one :class:`Join` of the current
+    machine (:func:`joining`) gives them all, each total on the machine's
+    home device and bit-equal to the whole mesh's."""
+    if not _is_part(x, *sums, *maxes):
+        xs = exchange(x) if isinstance(x, Blocked) else x
+        return (xs, *(_combine(p, torch.add) for p in sums),
+                *(_combine(p, torch.maximum) for p in maxes))
+    join = getattr(_JOINING, "join", None)
+    if join is None:
+        raise RuntimeError("a machine's part of a mesh is joined only inside its "
+                           "driver's rounds (sharding.joining)")
+    return join.combine(x, sums, maxes)
+
+
+_JOINING = threading.local()
+
+
+@contextlib.contextmanager
+def joining(join: "Join"):
+    """Within the block, on this thread, :func:`combine` (and so
+    :func:`exchange`, :func:`block_sum`, :func:`block_max`) over a machine's
+    part goes through ``join``."""
+    prev = getattr(_JOINING, "join", None)
+    _JOINING.join = join
+    try:
+        yield join
+    finally:
+        _JOINING.join = prev
+
+
+# the 0-d partials one join carries per block (the balance's three sums)
+JOIN_PARTS = 4
+
+
+class Join:
+    """One machine's side of the joins between the machines of a mesh.
+
+    Its ``board`` (a byte buffer on the machine's device) holds a record per
+    block of the mesh: :data:`JOIN_PARTS` float64 partials (float32 ones
+    exactly as float64) and, for an exchange, the four bands of the block's
+    owned cells its neighbours' rings take (top and bottom RING rows, left
+    and right RING columns, of a field shaped and typed as ``like``). The
+    records are grouped machine by machine, so a machine's own blocks are
+    one slice of rows (:attr:`rows`). At a join the machine writes its
+    blocks' records, then :attr:`cut` (set by the driver) ends the round:
+    the driver copies each other machine's rows of its board into this
+    board's rows for them (and this machine's rows to the others), and the
+    machine reads every block's record here. ``cut`` is the driver's: on
+    the card it ends the capture of one graph and starts the next; on the
+    CPU it waits for the other machines' threads."""
+
+    def __init__(self, mesh: Mesh, groups: list, g: int, like: torch.Tensor):
+        self.mesh, self.groups, self.g = mesh, groups, g
+        order = [idx for grp in groups for idx in grp]
+        self.row = {idx: k for k, idx in enumerate(order)}
+        start = 0
+        self.rows = []
+        for grp in groups:
+            self.rows.append((start, start + len(grp)))
+            start += len(grp)
+        self.device = mesh.devices[groups[g][0]]
+        mr, mc = mesh.devices.shape
+        k = RING
+        lead = tuple(like.shape[:-2])
+        self.r, self.c = like.shape[-2] - 2 * k, like.shape[-1] - 2 * k
+        self.dtype, self.lead = like.dtype, lead
+        # the bands along each axis that has neighbours
+        bands = []
+        if mr > 1:
+            bands += [("top", lead + (k, self.c)), ("bottom", lead + (k, self.c))]
+        if mc > 1:
+            bands += [("left", lead + (self.r, k)), ("right", lead + (self.r, k))]
+        item = torch.empty((), dtype=like.dtype).element_size()
+        head = JOIN_PARTS * 8
+        size = head + sum(int(np.prod(sh)) for _, sh in bands) * item
+        self.record = -(-size // 16) * 16
+        self.board = torch.zeros((len(order), self.record), dtype=torch.uint8,
+                                 device=self.device)
+        self.parts = [self.board[b, :head].view(torch.float64) for b in range(len(order))]
+        self.bands = []
+        for b in range(len(order)):
+            views, off = {}, head
+            for name, sh in bands:
+                n = int(np.prod(sh)) * item
+                views[name] = self.board[b, off:off + n].view(like.dtype).view(sh)
+                off += n
+            self.bands.append(views)
+        self.cut = None
+
+    def combine(self, x, sums, maxes):
+        k, r, c = RING, self.r, self.c
+        mine = self.groups[self.g]
+        parts = list(sums) + list(maxes)
+        if len(parts) > JOIN_PARTS:
+            raise ValueError(f"a join carries at most {JOIN_PARTS} partials, not {len(parts)}")
+        if x is not None:
+            blk = first_block(x)
+            if blk.dtype != self.dtype or tuple(blk.shape) != self.lead + (r + 2 * k, c + 2 * k):
+                raise ValueError(f"a join exchanges fields of {self.lead + (r + 2 * k, c + 2 * k)} "
+                                 f"{self.dtype}, not {tuple(blk.shape)} {blk.dtype}")
+        for idx in mine:
+            b = self.row[idx]
+            if parts:
+                self.parts[b][:len(parts)].copy_(torch.stack([p.blocks[idx] for p in parts]))
+            if x is not None:
+                own = owned(x.blocks[idx], k)
+                views = self.bands[b]
+                if "top" in views:
+                    views["top"].copy_(own[..., :k, :])
+                    views["bottom"].copy_(own[..., r - k:, :])
+                if "left" in views:
+                    views["left"].copy_(own[..., :, :k])
+                    views["right"].copy_(own[..., :, c - k:])
+        self.cut()
+        totals = []
+        for n, p in enumerate(parts):
+            dtype = first_block(p).dtype
+            op = torch.add if n < len(sums) else torch.maximum
+            total = None
+            for idx in np.ndindex(self.mesh.devices.shape):
+                v = self.parts[self.row[idx]][n].to(dtype)
+                total = v if total is None else op(total, v)
+            totals.append(total)
+        return (None if x is None else self._grown(x), *totals)
+
+    def _grown(self, x: Blocked) -> Blocked:
+        """Each held block's owned cells grown by its neighbours' bands (the
+        board's), zeros past the global edge: :func:`halo_exchange`'s
+        values, the corners from the diagonal neighbours' bands."""
+        k, r, c = RING, self.r, self.c
+        mr, mc = self.mesh.devices.shape
+        out = np.empty(x.blocks.shape, dtype=object)
+        for (i, j) in self.groups[self.g]:
+            new = torch.zeros(self.lead + (r + 2 * k, c + 2 * k), dtype=self.dtype,
+                              device=self.device)
+            new[..., k:k + r, k:k + c] = owned(x.blocks[i, j], k)
+            for di in (-1, 0, 1):
+                for dj in (-1, 0, 1):
+                    ni, nj = i + di, j + dj
+                    if (di, dj) == (0, 0) or not (0 <= ni < mr and 0 <= nj < mc):
+                        continue
+                    src = self.bands[self.row[ni, nj]]
+                    rows = {-1: slice(0, k), 0: slice(k, k + r), 1: slice(k + r, r + 2 * k)}[di]
+                    cols = {-1: slice(0, k), 0: slice(k, k + c), 1: slice(k + c, c + 2 * k)}[dj]
+                    if di == 0:
+                        piece = src["right" if dj < 0 else "left"]
+                    else:
+                        band = src["bottom" if di < 0 else "top"]
+                        piece = band if dj == 0 else (band[..., :, c - k:] if dj < 0
+                                                      else band[..., :, :k])
+                    new[..., rows, cols] = piece
+            out[i, j] = new
+        return Blocked(x.mesh, out)
 
 
 def _index(ndim: int, dim: int, sl: slice, dim2: int | None = None,

@@ -28,7 +28,7 @@ import torch
 
 from criteria3d_tpu_torch.solver import device_loop
 
-__all__ = ["FixedPoint", "run", "CHECK_EVERY"]
+__all__ = ["FixedPoint", "run", "iteration_bytes", "CHECK_EVERY"]
 
 # iterations of a unit (the eager driver reads the host once a unit)
 CHECK_EVERY = 4
@@ -112,6 +112,16 @@ class FixedPoint:
                                   torch.where(left >= CHECK_EVERY, ITERATE, REST)))
 
 
+def iteration_bytes(inputs: dict, carries: dict) -> int:
+    """The least bytes one iteration of a fixed point moves through device
+    memory: every input read once, every per-cell carry read once and
+    written once (an iteration's bytes bound, whatever its kernels read
+    again)."""
+    def size(d):
+        return sum(v.numel() * v.element_size() for v in d.values())
+    return size(inputs) + 2 * size(carries)
+
+
 def _key(kind: str, inputs: dict, carries: dict, consts: dict, max_iter: int,
          first_it: int) -> tuple:
     def shapes(d):
@@ -130,5 +140,6 @@ def run(kind: str, body, inputs: dict, carries: dict, consts: dict, max_iter: in
     m, status = device_loop.run_period(
         _key(kind, inputs, carries, consts, max_iter, first_it),
         lambda: FixedPoint(body, inputs, carries, consts, max_iter, first_it),
-        lambda m: m.load(inputs, carries), device, what="fixed_points")
+        lambda m: m.load(inputs, carries), device, what="fixed_points",
+        kind="fixed_point")
     return {k: v.clone() for k, v in m.s.items()}, int(status[1])

@@ -463,7 +463,8 @@ def _run(grid, params: SolverParameters, water: WaterState, heat: H.HeatState,
     m, status = device_loop.run_period(
         key, lambda: _CoupledMachine(grid, params, water, heat, boundary, one_step,
                                      max_substeps),
-        lambda m: m.load(water, heat, boundary, period), _home(grid), params.mesh)
+        lambda m: m.load(water, heat, boundary, period), _home(grid), params.mesh,
+        kind="coupled")
     cnt, idx = compute_step_coupled.counts, m.i.index
     for name, slot in (("steps", "steps"), ("attempts", "attempts"),
                        ("approximations", "approximations"),

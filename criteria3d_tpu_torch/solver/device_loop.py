@@ -22,18 +22,43 @@ This module runs the units.
   the next run of the same key (the kind of machine, grid, parameters and
   shapes), at most :data:`MAX_MACHINES` of them, the least recently run
   dropped first; a run's inputs are copied into the machine's buffers.
+- **The rounds driver** (a water period on a mesh whose blocks several
+  machines run: one per card of a mesh over several cards, or the explicit
+  grouping of ``make_mesh``'s ``machines``, which may put one card's blocks
+  into several). Each machine holds its blocks' part of every buffer and
+  its own scalars on its own device, and the machines meet at every join
+  (a sum, a maximum, a ring refresh: ``sharding.Join``), where each posts
+  its blocks' partials and ring strips and reads every other machine's. A
+  unit is thus cut at its joins into *segments*; every machine runs one
+  segment a *round*, and between rounds each machine copies the others'
+  posts into its own board. On the card each segment is a CUDA graph
+  captured on the machine's own stream and pool, and a SWITCH on a code on
+  the machine's card selects its segment. Machines on several cards: one
+  graph a machine, and ``csrc/graph_machine.cu``'s ``c3d_rounds`` enqueues
+  up to :data:`UNITS_PER_LAUNCH` rounds at a time from the host (each
+  machine's graph on its own stream, then the copies, ordered by CUDA
+  events between the streams: a copy waits for the segment that wrote its
+  source, the next segment for every copy out of its board). Machines that
+  all lie on one card: ``c3d_rounds_build`` joins them into one graph, a
+  WHILE over a round (every machine's SWITCH side by side, then the
+  copies), its edges the order, up to :data:`UNITS_PER_LAUNCH` rounds a
+  launch (:func:`stream_rounds` asks for the several cards' way there, to
+  check it on one card). No kernel waits on memory another machine writes.
+  The host reads the machines' status once per batch of rounds. On the CPU
+  the machines are threads that meet at the same rounds.
 - **The eager driver** runs the same units in Python. It reads the
   machine's int carries after each unit that decides its next phase from
   data (an assembly's Courant test, an iteration's stop, a balance, an
   attempt's end); after the others it takes the next phase from the
-  machine's ``follows()`` without a read. It serves the CPU and a mesh over
-  several cards (a capture on the home card does not take the other cards'
-  work); :func:`forced_eager` asks for it on the card (to compare the
-  drivers).
+  machine's ``follows()`` without a read. It serves the CPU and the coupled
+  period on a mesh over several cards (its rounds are still to come);
+  :func:`forced_eager` asks for it on the card (to compare the drivers: it
+  then runs one machine over all the blocks).
 
 There is no fallback between them: where :func:`driver_for` names the graph
-driver it runs or raises (a failed capture, a host synchronisation inside a
-unit, a toolkit without CUDA 12.8's SWITCH nodes).
+or rounds driver it runs or raises (a failed capture or join, a host
+synchronisation inside a unit, a toolkit without CUDA 12.8's SWITCH
+nodes, machines that disagree).
 
 Memory: every kept machine holds its buffers (about what one run's inputs
 and carries take: a water or coupled machine's state, system and solver
@@ -60,15 +85,19 @@ import contextlib
 import ctypes
 import functools
 import os
+import threading
 import time
 
+import numpy as np
 import torch
 
 from criteria3d_tpu_torch.device import host_array, tallies_on_device
+from criteria3d_tpu_torch.parallel.sharding import Join, joining, machine_groups
 from criteria3d_tpu_torch.utils import buildcache
 
 __all__ = ["UNITS_PER_LAUNCH", "MAX_MACHINES", "Slots", "run_period", "driver_for",
-           "forced_eager", "counts", "reset_counts", "clear", "build_library", "SOURCE"]
+           "forced_eager", "stream_rounds", "counts", "reset_counts", "clear",
+           "build_library", "SOURCE"]
 
 UNITS_PER_LAUNCH = 1024
 # the kept graph machines (see the module docstring for their memory)
@@ -81,11 +110,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _force_eager = [False]
+_stream_rounds = [False]
 _cache: collections.OrderedDict = collections.OrderedDict()   # key -> _GraphMachine
-_pools: dict = {}     # card -> the graph memory pool every kept machine shares
+_pools: dict = {}     # (card, k) -> the graph memory pool the kept machines' k-th share
 _COUNT_NAMES = ("graph_periods", "eager_periods", "graph_fixed_points",
                 "eager_fixed_points", "launches", "eager_units", "eager_reads",
-                "captures", "capture_s")
+                "captures", "capture_s", "rounds_periods", "rounds")
 _counts = dict.fromkeys(_COUNT_NAMES, 0)
 
 
@@ -112,7 +142,8 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     """Since the last :func:`reset_counts`: periods (and steps) and fixed
-    points run by each driver, the graph driver's launches, the eager
+    points run by each driver, the graph driver's launches (the rounds
+    driver's batches of rounds among them), the rounds run, the eager
     driver's units and host reads, the captures made and their seconds,
     plus ``units_per_launch`` and the machines kept now."""
     return dict(_counts, units_per_launch=UNITS_PER_LAUNCH, kept=len(_cache))
@@ -129,6 +160,19 @@ def forced_eager():
         _force_eager[0] = False
 
 
+@contextlib.contextmanager
+def stream_rounds():
+    """Within the block, machines that all lie on one card run their rounds
+    as machines on several cards do: each on its own stream, the rounds
+    enqueued from the host with events between the streams (the card's
+    check of that path)."""
+    _stream_rounds[0] = True
+    try:
+        yield
+    finally:
+        _stream_rounds[0] = False
+
+
 def _card(d: torch.device) -> int:
     """A CUDA device's index (the current card for ``cuda``)."""
     if d.index is not None:
@@ -136,18 +180,25 @@ def _card(d: torch.device) -> int:
     return torch.cuda.current_device() if torch.cuda.is_available() else 0
 
 
-def driver_for(device: torch.device, mesh) -> tuple[str, str]:
-    """``("graph", "")`` where the graph driver runs (a period, a step or a
-    fixed point on a CUDA device: a whole box, or a mesh whose blocks all
-    lie on ``device``'s card), else ``("eager", why)``."""
+def driver_for(device: torch.device, mesh, kind: str = "water") -> tuple[str, str]:
+    """The driver of a machine of ``kind`` ("water", "coupled" or
+    "fixed_point") on ``device`` (over ``mesh``) and why: ``("rounds", "")``
+    for a water period (or step) on a mesh whose blocks several machines
+    run (:func:`~criteria3d_tpu_torch.parallel.sharding.machine_groups`: a
+    mesh over several cards, or an explicit grouping), on the card or the
+    CPU; ``("graph", "")`` on a CUDA device, for a whole box or a mesh whose
+    blocks all lie on ``device``'s card (the coupled period one machine
+    whatever the grouping); else ``("eager", why)``."""
     if _force_eager[0]:
         return "eager", "asked for (device_loop.forced_eager)"
+    if kind == "water" and mesh is not None and len(machine_groups(mesh)) > 1:
+        return "rounds", ""
     if device.type != "cuda":
         return "eager", f"a {device.type} device: CUDA graphs run on the card only"
     if mesh is not None and any(d.type != "cuda" or _card(d) != _card(device)
                                 for d in mesh.devices.flat):
-        return "eager", ("a mesh over several cards: a capture on the home card does "
-                         "not take the other cards' work")
+        return "eager", ("the coupled period on a mesh over several cards: its heat "
+                         "units are not yet cut at their joins into per-card rounds")
     return "graph", ""
 
 
@@ -168,6 +219,18 @@ def _library() -> ctypes.CDLL:
     lib.c3d_machine_launch.restype = I
     lib.c3d_machine_destroy.argtypes = [P]
     lib.c3d_machine_destroy.restype = I
+    lib.c3d_switch_build.argtypes = [I, P, P, P]
+    lib.c3d_switch_build.restype = I
+    lib.c3d_event_create.argtypes = [I, P]
+    lib.c3d_event_create.restype = I
+    lib.c3d_event_destroy.argtypes = [P]
+    lib.c3d_event_destroy.restype = I
+    lib.c3d_peer.argtypes = [I, I]
+    lib.c3d_peer.restype = I
+    lib.c3d_rounds.argtypes = [I, I, P, P, P, P, P, I, P, P, P, P, P, P, LL]
+    lib.c3d_rounds.restype = I
+    lib.c3d_rounds_build.argtypes = [I, P, P, P, I, P, P, P, P, LL, P, I, P]
+    lib.c3d_rounds_build.restype = I
     return lib
 
 
@@ -176,13 +239,15 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"graph machine: {what} failed: CUDA error {err}")
 
 
-def _pool(device: torch.device):
-    """The graph memory pool of ``device``'s card, made at its first
-    capture and shared by every machine kept there."""
-    card = _card(device)
-    if card not in _pools:
-        _pools[card] = torch.cuda.graph_pool_handle()
-    return _pools[card]
+def _pool(device: torch.device, k: int = 0):
+    """The ``k``-th graph memory pool of ``device``'s card, made at its
+    first capture and shared by the machines kept there (the machines of one
+    rounds run, which replay side by side, take pools 0, 1, ... each)."""
+    key = (_card(device), k)
+    if key not in _pools:
+        with torch.cuda.device(device):
+            _pools[key] = torch.cuda.graph_pool_handle()
+    return _pools[key]
 
 
 class _GraphMachine:
@@ -202,7 +267,8 @@ class _GraphMachine:
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
         slots = {(fn, attr): machine.status[k] for fn, attr, k in machine.tallies()}
-        with torch.cuda.stream(stream), tallies_on_device(slots):
+        with torch.cuda.device(device), torch.cuda.stream(stream), \
+                tallies_on_device(slots):
             for code, (name, unit) in machine.units().items():
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
                 graph.capture_begin(pool=pool)
@@ -223,10 +289,11 @@ class _GraphMachine:
               for c in range(n_cases)])
         self.count = torch.zeros(1, dtype=torch.int32, device=device)
         exec_ = ctypes.c_void_p()
-        _check(self.lib.c3d_machine_build(
-            n_cases, raw, machine.status[0].data_ptr(), machine.DONE,
-            self.count.data_ptr(), UNITS_PER_LAUNCH, ctypes.byref(exec_)),
-            "building the graph (SWITCH and WHILE nodes need CUDA 12.8)")
+        with torch.cuda.device(device):
+            _check(self.lib.c3d_machine_build(
+                n_cases, raw, machine.status[0].data_ptr(), machine.DONE,
+                self.count.data_ptr(), UNITS_PER_LAUNCH, ctypes.byref(exec_)),
+                "building the graph (SWITCH and WHILE nodes need CUDA 12.8)")
         self.exec = exec_
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
@@ -242,8 +309,7 @@ class _GraphMachine:
             status = host_array(m.status)
             if status[0] == m.DONE:
                 break
-        for fn, attr, k in m.tallies():
-            setattr(fn, attr, getattr(fn, attr) + int(status[k]))
+        _add_tallies(m, status)
         return status
 
     def close(self) -> None:
@@ -259,6 +325,322 @@ def clear() -> None:
         _, gm = _cache.popitem()
         gm.close()
     _pools.clear()
+
+
+def _fold(machines, rows: np.ndarray) -> np.ndarray:
+    """The status of machines run side by side (``rows``, one a machine):
+    the first machine's, the counts kept on the cards summed over the
+    machines (each counts its own blocks' launches). Machines that
+    disagree on anything else raise."""
+    tally = [k for _, _, k in machines[0].tallies()]
+    rest = [k for k in range(rows.shape[1]) if k not in tally]
+    if not (rows[:, rest] == rows[0, rest]).all():
+        raise RuntimeError(f"the rounds driver's machines disagree: status {rows.tolist()}")
+    status = rows[0].copy()
+    status[tally] = rows[:, tally].sum(axis=0)
+    return status
+
+
+def _add_tallies(machine, status) -> None:
+    for fn, attr, k in machine.tallies():
+        setattr(fn, attr, getattr(fn, attr) + int(status[k]))
+
+
+def _peer_access(a: torch.device, b: torch.device) -> bool:
+    """Whether card ``a`` reads and writes card ``b``'s memory directly
+    (``torch.cuda.can_device_access_peer``); enabled here when it can, so
+    the rounds' copies between them go peer to peer, else through the
+    host."""
+    if _card(a) == _card(b):
+        return True
+    if not torch.cuda.can_device_access_peer(_card(a), _card(b)):
+        return False
+    _check(_library().c3d_peer(_card(a), _card(b)), "enabling peer access")
+    return True
+
+
+class _SegmentCapture:
+    """The capture of one machine's units cut at their joins: the driver's
+    ``Join.cut``. Segment codes run from 0 in capture order; a unit's last
+    segment sets the code of the first segment of the unit its phase
+    names (``table``), the others the next code."""
+
+    def __init__(self, machine, pool):
+        self.machine, self.pool = machine, pool
+        self.seg = torch.zeros((), dtype=torch.int64, device=machine.home)
+        n_phases = max(machine.units()) + 1
+        self.table = torch.full((n_phases,), -1, dtype=torch.int64, device=machine.home)
+        self.first, self.graphs = {}, []
+        self.graph = None
+
+    def _begin(self):
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.graph.capture_begin(pool=self.pool)
+
+    def _end(self):
+        self.graph.capture_end()
+        self.graphs.append(self.graph)
+        self.graph = None
+
+    def cut(self):
+        self.seg.fill_(len(self.graphs) + 1)
+        self._end()
+        self._begin()
+
+    def unit(self, code, name, fn):
+        self.first[code] = len(self.graphs)
+        self._begin()
+        try:
+            fn()
+            phase = self.machine.i.phase
+            self.seg.copy_(self.table.index_select(0, phase.view(1))[0])
+        except Exception as e:
+            with contextlib.suppress(Exception):
+                self.graph.capture_end()
+            raise RuntimeError(f"rounds driver: capturing unit {name!r} failed; a unit "
+                               f"may not read the device from the host ({e})") from e
+        self._end()
+
+    def done(self):
+        """Fill the phase -> first segment table (DONE and the phases
+        without a unit select no segment)."""
+        table = torch.full(self.table.shape, -1, dtype=torch.int64)
+        for code, first in self.first.items():
+            table[code] = first
+        self.table.copy_(table)
+
+
+class _Rounds:
+    """The machines of one mesh run side by side in rounds on the card:
+    each machine's units captured as segments on its own stream and pool.
+    On one card (unless :func:`stream_rounds`) one graph runs the rounds
+    (``c3d_rounds_build``); else each machine gets a graph that selects its
+    segment by a SWITCH on its code (``c3d_switch_build``) and the host
+    enqueues the rounds (``c3d_rounds``)."""
+
+    def __init__(self, machines, joins):
+        # the joins' boards stay alive with the machine: the rounds copy
+        # between them by address
+        self.machines, self.joins = machines, joins
+        self.lib = _library()
+        self.execs, self.events, self.streams, self.caps = [], [], [], []
+        t0 = time.perf_counter()
+        devices = [m.home for m in machines]
+        cards = sorted({_card(d) for d in devices})
+        for d in cards:
+            torch.cuda.synchronize(d)
+        for a in devices:          # the copies between cards peer to peer where they can
+            for b in devices:
+                _peer_access(a, b)
+        for g, (m, join) in enumerate(zip(machines, joins)):
+            dev = m.home
+            m.prepare_capture()
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            cap = _SegmentCapture(m, _pool(dev, g))
+            join.cut = cap.cut
+            slots = {(fn, attr): m.status[k] for fn, attr, k in m.tallies()}
+            with torch.cuda.device(dev), torch.cuda.stream(stream), \
+                    tallies_on_device(slots), joining(join):
+                for code, (name, unit) in m.units().items():
+                    cap.unit(code, name, unit)
+            join.cut = None
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            cap.done()
+            self.streams.append(stream)
+            self.caps.append(cap)
+        G = len(machines)
+        home = machines[0].home
+        # the copies of every round: machine g pulls each other machine's
+        # rows of the boards into its own
+        copies = [(g, h) for g in range(G) for h in range(G) if h != g]
+        rec = joins[0].record
+        P = ctypes.c_void_p
+        dst = (P * len(copies))(*[joins[g].board.data_ptr() + joins[g].rows[h][0] * rec
+                                  for g, h in copies])
+        src = (P * len(copies))(*[joins[h].board.data_ptr() + joins[h].rows[h][0] * rec
+                                  for g, h in copies])
+        size = (ctypes.c_longlong * len(copies))(*[
+            (joins[h].rows[h][1] - joins[h].rows[h][0]) * rec for g, h in copies])
+        self.one_graph = len(cards) == 1 and not _stream_rounds[0]
+        if self.one_graph:
+            graphs = [gr.raw_cuda_graph() for cap in self.caps for gr in cap.graphs]
+            self.count = torch.zeros(1, dtype=torch.int32, device=home)
+            exec_ = P()
+            with torch.cuda.device(home):
+                _check(self.lib.c3d_rounds_build(
+                    G, (ctypes.c_int * G)(*[len(cap.graphs) for cap in self.caps]),
+                    (P * len(graphs))(*graphs), (P * G)(*[c.seg.data_ptr() for c in self.caps]),
+                    len(copies), dst, src, size, machines[0].status.data_ptr(),
+                    machines[0].DONE, self.count.data_ptr(), UNITS_PER_LAUNCH,
+                    ctypes.byref(exec_)),
+                    "building the rounds' graph (SWITCH and WHILE nodes need CUDA 12.8)")
+            self.execs.append(exec_)
+        else:
+            for m, cap in zip(machines, self.caps):
+                raw = (P * len(cap.graphs))(*[gr.raw_cuda_graph() for gr in cap.graphs])
+                exec_ = P()
+                with torch.cuda.device(m.home):
+                    _check(self.lib.c3d_switch_build(len(cap.graphs), raw, cap.seg.data_ptr(),
+                                                     ctypes.byref(exec_)),
+                           "building a machine's segment graph (SWITCH nodes need CUDA 12.8)")
+                self.execs.append(exec_)
+                for _ in range(2):
+                    ev = P()
+                    _check(self.lib.c3d_event_create(_card(m.home), ctypes.byref(ev)),
+                           "creating an event")
+                    self.events.append(ev)
+            self.gathered = torch.zeros((G, len(machines[0].status)), dtype=torch.int64,
+                                        device=home)
+            self.args = (
+                UNITS_PER_LAUNCH, G, (ctypes.c_int * G)(*[_card(d) for d in devices]),
+                (P * G)(*[e.value for e in self.execs]),
+                (P * G)(*[s.cuda_stream for s in self.streams]),
+                (P * G)(*[self.events[2 * g].value for g in range(G)]),
+                (P * G)(*[self.events[2 * g + 1].value for g in range(G)]),
+                len(copies), (ctypes.c_int * len(copies))(*[g for g, _ in copies]),
+                dst, src, size, (P * G)(*[self.gathered[g].data_ptr() for g in range(G)]),
+                (P * G)(*[m.status.data_ptr() for m in machines]),
+                len(machines[0].status) * 8)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        self.capture_s = time.perf_counter() - t0
+
+    def _launch(self):
+        """One batch of rounds: the machines' status rows, read once, and
+        the rounds run."""
+        ms = self.machines
+        home = ms[0].home
+        if self.one_graph:
+            stream = torch.cuda.current_stream(home)
+            _check(self.lib.c3d_machine_launch(self.execs[0], stream.cuda_stream),
+                   "a launch of the rounds")
+            read = host_array(torch.cat([m.status for m in ms]
+                                        + [self.count.to(torch.int64)]))
+            return read[:-1].reshape(len(ms), -1), int(read[-1])
+        _check(self.lib.c3d_rounds(*self.args), "a batch of rounds")
+        torch.cuda.current_stream(home).wait_stream(self.streams[0])
+        return host_array(self.gathered), UNITS_PER_LAUNCH
+
+    def run(self):
+        ms = self.machines
+        for m, cap, stream in zip(ms, self.caps, self.streams):
+            cap.seg.copy_(cap.table[m.first_phase])
+            if not self.one_graph:
+                stream.wait_stream(torch.cuda.current_stream(m.home))
+        while True:
+            rows, rounds = self._launch()
+            _counts["launches"] += 1
+            _counts["rounds"] += rounds
+            done = rows[:, 0] == ms[0].DONE
+            if done.all():
+                break
+            if done.any():
+                raise RuntimeError("the rounds driver's machines disagree: phases "
+                                   f"{rows[:, 0].tolist()}")
+        if not self.one_graph:
+            for m, stream in zip(ms, self.streams):
+                torch.cuda.current_stream(m.home).wait_stream(stream)
+        status = _fold(ms, rows)
+        _add_tallies(ms[0], status)
+        return status
+
+    def close(self) -> None:
+        for e in self.execs:
+            _check(self.lib.c3d_machine_destroy(e), "destroying a rounds graph")
+        for e in self.events:
+            _check(self.lib.c3d_event_destroy(e), "destroying an event")
+        self.execs, self.events = [], []
+
+
+class _Stop(Exception):
+    pass
+
+
+def _run_rounds_threads(machines, joins):
+    """The rounds on the CPU: each machine a thread that runs its units and
+    stops at each join (a segment's end). A round lets every machine run
+    one segment, one machine after the other (no two threads hold Python
+    at once), then the main thread makes every machine's copies of the
+    others' posts; it reads the status once per batch of
+    :data:`UNITS_PER_LAUNCH` rounds, as the card's driver does."""
+    G = len(machines)
+    go = [threading.Semaphore(0) for _ in range(G)]
+    ended = threading.Semaphore(0)
+    flags = dict(stop=False)
+    errors = [None] * G
+    where = [None] * G
+
+    def worker(g):
+        m, join = machines[g], joins[g]
+        units = m.units()
+        step = [None, 0]
+
+        def cut():
+            where[g] = tuple(step)
+            step[1] += 1
+            ended.release()
+            go[g].acquire()
+            if flags["stop"]:
+                raise _Stop
+        join.cut = cut
+        try:
+            go[g].acquire()
+            with joining(join):
+                while not flags["stop"]:
+                    # the phase, read as the card's SWITCH reads it
+                    phase = int(m.i.phase)
+                    step[:] = [phase, 0]
+                    if phase != m.DONE:
+                        units[phase][1]()
+                        if g == 0:
+                            _counts["eager_units"] += 1
+                    cut()
+        except _Stop:
+            pass
+        except BaseException as e:     # noqa: BLE001 - handed to the main thread
+            errors[g] = e
+            ended.release()
+        finally:
+            join.cut = None
+
+    threads = [threading.Thread(target=worker, args=(g,), daemon=True) for g in range(G)]
+    for t in threads:
+        t.start()
+    try:
+        while not flags["stop"]:
+            for r in range(UNITS_PER_LAUNCH):
+                for g in range(G):
+                    go[g].release()
+                    ended.acquire()
+                    if errors[g] is not None:
+                        raise RuntimeError(f"a machine of the rounds driver failed: "
+                                           f"{errors[g]!r}") from errors[g]
+                if len(set(where)) != 1:
+                    raise RuntimeError("the rounds driver's machines are out of step: "
+                                       f"(phase, join) {where}")
+                for g in range(G):
+                    for h in range(G):
+                        if h != g:
+                            lo, hi = joins[h].rows[h]
+                            joins[g].board[lo:hi].copy_(joins[h].board[lo:hi])
+                _counts["rounds"] += 1
+            _counts["launches"] += 1
+            rows = host_array(torch.stack([m.status for m in machines]))
+            done = rows[:, 0] == machines[0].DONE
+            if done.any() and not done.all():
+                raise RuntimeError("the rounds driver's machines disagree: phases "
+                                   f"{rows[:, 0].tolist()}")
+            flags["stop"] = bool(done.all())
+    finally:
+        flags["stop"] = True
+        for g in range(G):
+            go[g].release()
+        for t in threads:
+            t.join(timeout=60)
+    status = _fold(machines, rows)
+    _add_tallies(machines[0], status)
+    return status
 
 
 def _read_ints(machine):
@@ -283,14 +665,45 @@ def _run_eager(machine):
                  else int(ints[machine.i.index[nxt]]))
 
 
+def _build_rounds(build, mesh):
+    groups = machine_groups(mesh)
+    machines = [build(g) for g in groups]
+    like = machines[0].join_like()
+    joins = [Join(mesh, groups, k, like) for k in range(len(groups))]
+    return machines, joins
+
+
 def run_period(key, build, load, device: torch.device, mesh=None,
-               what: str = "periods"):
+               what: str = "periods", kind: str = "water"):
     """Run one period (or step, or fixed point: ``what`` names the count
     it adds to) of a machine to DONE and return ``(machine, status)``:
     ``build()`` makes the machine (under the graph driver only when ``key``
     has none kept), ``load(machine)`` copies the run's inputs into its
-    buffers."""
-    driver, _ = driver_for(device, mesh)
+    buffers. Under the rounds driver ``build(blocks)`` makes the machine of
+    the mesh's blocks ``blocks`` (one a ``machine_groups`` entry; it names
+    the field its joins exchange with ``join_like()``), ``load`` runs on
+    each, and the machine returned is the list of them."""
+    driver, _ = driver_for(device, mesh, kind)
+    if driver == "rounds":
+        _counts["rounds_periods"] += 1
+        if device.type != "cuda":
+            machines, joins = _build_rounds(build, mesh)
+            for m in machines:
+                load(m)
+            return machines, _run_rounds_threads(machines, joins)
+        key = (key, _stream_rounds[0])
+        gm = _cache.get(key)
+        if gm is None:
+            while len(_cache) >= MAX_MACHINES:
+                _cache.popitem(last=False)[1].close()
+            gm = _Rounds(*_build_rounds(build, mesh))
+            _counts["captures"] += 1
+            _counts["capture_s"] += gm.capture_s
+            _cache[key] = gm
+        _cache.move_to_end(key)
+        for m in gm.machines:
+            load(m)
+        return gm.machines, gm.run()
     if driver == "eager":
         machine = build()
         load(machine)

@@ -27,9 +27,8 @@ import os
 import torch
 
 from criteria3d_tpu_torch.device import host_read, scalar, tally
-from criteria3d_tpu_torch.parallel.sharding import (RING, Blocked, Mesh,
-                                                    block_sum, bmap, exchange,
-                                                    unzip)
+from criteria3d_tpu_torch.parallel.sharding import (RING, Blocked, Mesh, bmap,
+                                                    combine, unzip)
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
 from criteria3d_tpu_torch.utils import buildcache
 
@@ -284,10 +283,13 @@ def mesh_bundle(system: tuple, x: Blocked, K: int = SWEEPS_PER_BUNDLE):
     exact, and the ring (whose sweeps read stale or missing neighbours) is
     left out of the norm. Returns x with fresh rings and the sum of the
     blocks' norm sums on the home device, added in row-major block order
-    (the counterpart of JAX's ``psum``)."""
+    (the counterpart of JAX's ``psum``): one join (``sharding.combine``),
+    so on a mesh whose blocks several machines run, one round a bundle.
+    Each machine launches the kernel on its own blocks, on their card, and
+    counts those launches."""
     out, sums = unzip(bmap(lambda b, cu, cd, cl, m, xb: jacobi_bundle(
         b, cu, cd, cl, m, xb, K=K, halo=RING), *system, x))
-    return exchange(out), block_sum(sums)
+    return combine(out, sums=(sums,))
 
 
 def sweep_test(norm: torch.Tensor, tol: torch.Tensor, best: torch.Tensor):

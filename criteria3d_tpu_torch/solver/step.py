@@ -24,8 +24,12 @@ restore, the accepted update) is a unit of its own that the phase guards.
 solver/device_loop.py drives the machine: as CUDA graphs on one card,
 whole or in blocks (the host reads once per launch of up to
 ``UNITS_PER_LAUNCH`` units), or unit by unit from Python, reading the phase
-after each unit that decides from data (the CPU, a mesh over several
-cards): ``_Machine.follows`` names what follows the others.
+after each unit that decides from data (the CPU): ``_Machine.follows``
+names what follows the others. On a mesh whose blocks several machines run
+(one per card, or ``make_mesh``'s ``machines``), each machine holds its
+blocks' part of every buffer and its own scalars, and the rounds driver
+runs them side by side, joined at every sum, maximum and ring refresh
+(``sharding.combine``).
 solver/coupled.py's machine is a larger one: its water step hands on to
 its heat units (``step_end``) and its hooks read its buffers.
 
@@ -59,9 +63,10 @@ from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
                                              WaterState)
 from criteria3d_tpu_torch.device import host_array, host_read, scalar, tally
 from criteria3d_tpu_torch.parallel.sharding import (RING, Blocked, block_max,
-                                                    block_sum, bmap, exchange,
-                                                    first_block, is_field, owned,
-                                                    unzip)
+                                                    block_sum, bmap, combine,
+                                                    exchange, first_block, holds_home,
+                                                    home_of, is_field, merge,
+                                                    owned, part, unzip)
 from criteria3d_tpu_torch.solver import device_loop
 from criteria3d_tpu_torch.solver import water as W
 from criteria3d_tpu_torch.solver.jacobi_bundle import (SWEEPS_PER_BUNDLE,
@@ -154,8 +159,8 @@ def _check_blocks(grid, params: SolverParameters, *states) -> None:
 
 def _home(grid) -> torch.device:
     """Where the 0-d values of a step live: the grid's device, or its
-    mesh's home device."""
-    return grid.mesh.home if isinstance(grid, Blocked) else grid.device
+    mesh's home device (on a machine's part, the machine's device)."""
+    return home_of(grid) if isinstance(grid, Blocked) else grid.device
 
 
 def _ring(grid) -> int:
@@ -189,11 +194,14 @@ def initialize_balance(grid: Grid, params: SolverParameters,
 
 class CGOperators(NamedTuple):
     """One CG solve's operators on an assembled system (:func:`cg_operators`):
-    the preconditioner ``precond(s)``, the D-weighted dot product
-    ``mdot(a, b)`` and the psi-weighted mean norm ``weight_norm(z, x)``, each
-    over the blocks on a mesh, with the system, grid, ring width, the
-    working dtype, the heads' elevation field in that dtype and whether x
-    is signed psi (the fast path) or total head."""
+    the preconditioner ``precond(s)`` and the D-weighted dot product
+    ``mdot(a, b)``, each over the blocks on a mesh, with the system, grid,
+    ring width, the working dtype, the heads' elevation field in that dtype
+    and whether x is signed psi (the fast path) or total head.
+    ``dot_part(a, b)`` and ``norm_part(z, x)`` give a dot's and the
+    psi-weighted mean norm's per-block partials, ``dot_of`` and ``norm_of``
+    their value from the combined total, so that one join combines several
+    (:func:`cg_start`, :func:`cg_iteration`)."""
     system: W.LinearSystem
     grid: Grid
     ring: int
@@ -201,8 +209,11 @@ class CGOperators(NamedTuple):
     z_field: torch.Tensor
     precond: Callable
     mdot: Callable
-    weight_norm: Callable
     psi_form: bool
+    dot_part: Callable
+    norm_part: Callable
+    dot_of: Callable
+    norm_of: Callable
 
 
 def cg_operators(system: W.LinearSystem, grid: Grid, params: SolverParameters,
@@ -229,20 +240,29 @@ def cg_operators(system: W.LinearSystem, grid: Grid, params: SolverParameters,
         w = torch.where(apsi > 1.0, 1.0 / apsi, 1.0)
         return owned(torch.where(g.mask, torch.abs(z) * w, 0.0), ring).sum()
 
-    def weight_norm(z, x):
-        return block_sum(bmap(weight_sum, grid, z_field, z, x)) / n_nodes
+    def norm_part(z, x):
+        return bmap(weight_sum, grid, z_field, z, x)
+
+    def norm_of(total):
+        return total / n_nodes
 
     def dot_sum(g, d, a, b):
         return owned(torch.where(g.mask, d * a * b, 0.0), ring).sum(
             dtype=torch.float64)
 
+    def dot_part(a, b):
+        return bmap(dot_sum, grid, diag, a, b)
+
+    def dot_of(total):
+        return total.to(dt)
+
     def mdot(a, b):
         # <a, b>_D: products in the working dtype, summed in float64 (the
         # balance gate's precision), cast back
-        return block_sum(bmap(dot_sum, grid, diag, a, b)).to(dt)
+        return dot_of(block_sum(dot_part(a, b)))
 
-    return CGOperators(system, grid, ring, dt, z_field, precond, mdot, weight_norm,
-                       psi_form)
+    return CGOperators(system, grid, ring, dt, z_field, precond, mdot, psi_form,
+                       dot_part, norm_part, dot_of, norm_of)
 
 
 def cg_start(ops: CGOperators, x_init):
@@ -251,7 +271,9 @@ def cg_start(ops: CGOperators, x_init):
     s = bmap(lambda sy, g, x: torch.where(
         g.mask, sy.b + W.stencil_apply(sy, x) - x, 0.0), ops.system, ops.grid, x_init)
     p = ops.precond(s)
-    return s, p, ops.mdot(s, p), ops.weight_norm(s, x_init)
+    # the dot and the norm in one join
+    _, rho, norm0 = combine(sums=(ops.dot_part(s, p), ops.norm_part(s, x_init)))
+    return s, p, ops.dot_of(rho), ops.norm_of(norm0)
 
 
 def cg_iteration(ops: CGOperators, x, s, p, rho, best, tol_t):
@@ -275,10 +297,11 @@ def cg_iteration(ops: CGOperators, x, s, p, rho, best, tol_t):
     s = bmap(lambda g, s, w: torch.where(
         g.mask, s - alpha.to(s.device) * w, 0.0), grid, s, w)
     z = ops.precond(s)
-    rho_new = ops.mdot(s, z)
+    # r . M^-1 r and the norm in one join
+    _, rho_new, norm = combine(sums=(ops.dot_part(s, z), ops.norm_part(s, x)))
+    rho_new, norm = ops.dot_of(rho_new), ops.norm_of(norm)
     beta = rho_new / torch.where(rho != 0.0, rho, 1.0)
     p = bmap(lambda z, p: z + beta.to(z.device) * p, z, p)
-    norm = ops.weight_norm(s, x)
     converged = norm < tol_t
     div = breakdown | (~converged & (norm > best * 10.0))
     return x, s, p, rho_new, torch.minimum(best, norm), converged, div
@@ -379,8 +402,10 @@ def restore_best_step(grid: Grid, params: SolverParameters,
     closures) joins the flows on either path. Restores are rare:
     ``restore_best_step.count`` counts them (reset it to 0 before a run;
     under the graph driver the count is kept on the card and added after
-    the period)."""
-    tally(restore_best_step, "count", _home(grid))
+    the period; on a mesh run by several machines, the machine holding
+    block (0, 0) counts)."""
+    if holds_home(grid):
+        tally(restore_best_step, "count", _home(grid))
 
     def restore(g, h_r, h_old, sink_source, pond, boundary_flux_fn):
         if _is_fast(params):
@@ -415,8 +440,8 @@ def _balance(grid, params: SolverParameters, h, se, water_flow,
     ring = _ring(grid)
     surf, soil, flow = unzip(bmap(lambda g, h, se, wf: sums(g, params, h, se, wf, ring),
                                   grid, h, se, water_flow))
-    return W.balance_from_sums(params, block_sum(surf), block_sum(soil),
-                               block_sum(flow), prev_storage, dt)
+    _, surf, soil, flow = combine(sums=(surf, soil, flow))
+    return W.balance_from_sums(params, surf, soil, flow, prev_storage, dt)
 
 
 def _assemble(g: Grid, params: SolverParameters, h, h_old, se, sink_source,
@@ -640,6 +665,11 @@ class _Machine:
         """What must exist before a capture: the kernel library, loaded."""
         if self.bundle:
             _bundle_library()
+
+    def join_like(self):
+        """A block of the one field the machine's joins exchange (x, and
+        CG's p, which is shaped and typed as x)."""
+        return first_block(self.x)
 
     def load(self, state: WaterState, period: float, start: float) -> None:
         """Copy a period's inputs into the buffers and set the carries to
@@ -994,10 +1024,24 @@ def _run(grid, params: SolverParameters, state: WaterState, period: float,
     # parameters, the mode and the state's shapes
     key = ("water", id(grid), id(extra_flux_fn), id(boundary_flux_fn), params,
            one_step, shapes_of(state))
-    return device_loop.run_period(
-        key, lambda: _Machine(grid, params, state, one_step, extra_flux_fn,
-                              boundary_flux_fn),
+    m, status = device_loop.run_period(
+        key, lambda blocks=None: _Machine(part(grid, blocks), params, part(state, blocks),
+                                          one_step, part(extra_flux_fn, blocks),
+                                          part(boundary_flux_fn, blocks)),
         lambda m: m.load(state, period, start), _home(grid), params.mesh)
+    return (_merged(m) if isinstance(m, list) else m), status
+
+
+def _merged(machines: list):
+    """The machines of one mesh's rounds as one machine for reading their
+    result: every blocked buffer joined from the machines' parts, the
+    scalars the first machine's (the machines hold equal ones)."""
+    out = object.__new__(type(machines[0]))
+    out.__dict__.update(machines[0].__dict__)
+    for name, v in vars(machines[0]).items():
+        if isinstance(v, Blocked):
+            setattr(out, name, merge([getattr(m, name) for m in machines]))
+    return out
 
 
 def shapes_of(state) -> tuple:

@@ -16,7 +16,7 @@ import time
 
 __all__ = ["HBM_BYTES_PER_S", "F32_FLOPS", "FLOPS_PER_NODE_SWEEP",
            "FLOPS_PER_NODE_NORM", "RollUp", "roll_up", "device_activity",
-           "layer_ranges", "breakdown"]
+           "busy_by_device", "layer_ranges", "breakdown"]
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and float32 non-tensor rate
 HBM_BYTES_PER_S = 3.35e12
@@ -124,6 +124,19 @@ def device_activity(prof, range_names) -> tuple:
         elif e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
             device.append((e.start_ns(), e.end_ns(), e.name(), e.correlation_id()))
     return device, launches, ranges
+
+
+def busy_by_device(prof) -> dict:
+    """{card index: its busy seconds} of a finished torch.profiler run: the
+    union of each card's own device activities (:func:`roll_up` on them),
+    for a run over several cards."""
+    from torch.autograd import DeviceType
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            per.setdefault(e.device_index(), []).append(
+                (e.start_ns(), e.end_ns(), e.name(), e.correlation_id()))
+    return {card: roll_up(acts, {}, ()).busy_s for card, acts in sorted(per.items())}
 
 
 def layer_ranges() -> tuple:

@@ -238,12 +238,14 @@ def test_driver_off_the_card_and_on_a_mesh():
     host reads, h and T to the bit."""
     from criteria3d_tpu_torch.device import host_read
     _, tp, _, port, _, _ = jax_inputs("fast_frozen")
-    assert device_loop.driver_for(torch.device("cpu"), None)[0] == "eager"
+    assert device_loop.driver_for(torch.device("cpu"), None, "coupled")[0] == "eager"
     mesh = make_mesh(1, devices=[torch.device("cpu")])
-    assert device_loop.driver_for(torch.device("cpu"), mesh)[0] == "eager"
+    assert device_loop.driver_for(torch.device("cpu"), mesh, "coupled")[0] == "eager"
     cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
-    assert device_loop.driver_for(cuda0, make_mesh(4, devices=[cuda0] * 4)) == ("graph", "")
-    driver, why = device_loop.driver_for(cuda0, make_mesh(2, devices=[cuda0, cuda1]))
+    assert device_loop.driver_for(cuda0, make_mesh(4, devices=[cuda0] * 4),
+                                  "coupled") == ("graph", "")
+    driver, why = device_loop.driver_for(cuda0, make_mesh(2, devices=[cuda0, cuda1]),
+                                         "coupled")
     assert driver == "eager" and "several cards" in why
     runs = []
     for m in (None, mesh):

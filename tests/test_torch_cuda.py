@@ -915,6 +915,83 @@ def test_graph_driver_on_blocks_matches_eager(form):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("streams", [False, True], ids=["one_graph", "streams"])
+@pytest.mark.parametrize("form,machines", [("bundle", (0, 1, 2, 3)), ("bundle", (0, 0, 1, 1)),
+                                           ("cg_line", (0, 1, 2, 3)), ("f64", (0, 1, 2, 3))],
+                         ids=["bundle-4", "bundle-2", "cg_line-4", "f64-4"])
+def test_machines_on_one_card_match_one_machine(form, machines, streams):
+    """The water hour of a 64-box catchment on 2 x 2 blocks of the card
+    split into 4 (or 2) machines, run in rounds twice (the second on the
+    kept machines) — in one graph, or (``stream_rounds``) each machine on
+    its own stream with the rounds enqueued from the host, as on several
+    cards — against one machine over the same blocks graph-driven: the
+    same stats, MBR and bundle launches, heads bit-equal; one capture;
+    host reads one a batch of rounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    import contextlib
+    from criteria3d_tpu_torch import compute_period_stats
+    from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh, remesh,
+                                                        shard_pytree)
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import device_loop
+    one = _card_mesh()
+    split = make_mesh(4, devices=[torch.device("cuda")] * 4, machines=machines)
+    grid, state = build_problem(synthetic_catchment(0, n=64, radius=30.0), 4.0,
+                                GRAPH_FORMS[form](), "cuda")
+    grid, state = shard_pytree(grid, one), shard_pytree(state, one)
+    assert device_loop.driver_for(split.home, split) == ("rounds", "")
+
+    def hour(mesh, n):
+        params = dataclasses.replace(GRAPH_FORMS[form](), mesh=mesh)
+        g, s = remesh(grid, mesh), remesh(state, mesh)
+        return [compute_period_stats(g, params, s, 3600.0) for _ in range(n)]
+    with device_loop.stream_rounds() if streams else contextlib.nullcontext():
+        r = _driven(lambda: hour(split, 2), False)
+    o = _driven(lambda: hour(one, 1), False)
+    oo, os_ = o[0][0]
+    assert r[2] == 2 * o[2] and (o[2] > 0) == (form == "bundle")
+    for ro, rs in r[0]:
+        assert tuple(rs) == tuple(os_)
+        assert torch.equal(ro.balance_whole.mbr, oo.balance_whole.mbr)
+        assert torch.equal(gather_pytree(ro).h, gather_pytree(oo).h)
+    assert r[4]["rounds_periods"] == 2 and r[4]["captures"] == 1
+    assert r[1] == r[4]["launches"] >= 2, (r[1], r[4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("machines", [None, (0, 1, 2, 3)], ids=["one", "rounds"])
+def test_profiled_hour_on_blocks_runs_clean(machines):
+    """A graph-driven bundle hour of a 64-box catchment on 2 x 2 blocks of
+    the card under torch.profiler (one machine, or 4 in rounds; one such
+    profiled run faulted with an illegal memory access at full size once,
+    PERF.md section 7): no fault, the stats of the same hour unprofiled,
+    and the profiler's device events counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from torch.profiler import ProfilerActivity, profile
+    from criteria3d_tpu_torch import compute_period_stats
+    from criteria3d_tpu_torch.parallel.sharding import make_mesh, shard_pytree
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import device_loop
+    mesh = make_mesh(4, devices=[torch.device("cuda")] * 4, machines=machines)
+    params = dataclasses.replace(GRAPH_FORMS["bundle"](), mesh=mesh)
+    grid, state = build_problem(synthetic_catchment(0, n=64, radius=30.0), 4.0,
+                                GRAPH_FORMS["bundle"](), "cuda")
+    grid, state = shard_pytree(grid, mesh), shard_pytree(state, mesh)
+    device_loop.clear()
+    _, plain = compute_period_stats(grid, params, state, 1800.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, stats = compute_period_stats(grid, params, state, 1800.0)
+        torch.cuda.synchronize()
+    device_loop.clear()
+    events = sum(1 for e in prof.events() if e.device_type.name == "CUDA")
+    print(f"profiled 2 x 2 bundle hour, machines {machines}: {events} device events")
+    assert tuple(stats) == tuple(plain) and events > 0
+
+
+@pytest.mark.cuda
 def test_graph_driver_coupled_hour_on_blocks_matches_eager():
     """The frozen coupled storm hour of a 32 valley (cell 10 m) on 2 x 2
     blocks of the card, twice graph-driven (the second run on the kept

@@ -204,18 +204,22 @@ def test_decimal_floor_dt_matches_jax():
 def test_drivers_and_no_graph_off_the_card():
     """Which driver runs where: the graph on a CUDA device, whole or on a
     mesh whose blocks all lie on its card (the water and the coupled period
-    alike: the heat hooks no longer decide it); a mesh over two distinct
-    cards, the CPU and forced_eager (on the card too) take the eager one,
-    each with its reason."""
+    alike: the heat hooks no longer decide it); a water period on a mesh
+    over two distinct cards the rounds driver (one machine a card); the
+    coupled period there, the CPU and forced_eager (on the card too) take
+    the eager one, each with its reason."""
     cuda, cuda0, cuda1 = torch.device("cuda"), torch.device("cuda", 0), torch.device("cuda", 1)
     one_card = make_mesh(4, devices=[cuda0] * 4)
+    two_cards = make_mesh(2, devices=[cuda0, cuda1])
     assert device_loop.driver_for(cuda0, None) == ("graph", "")
     assert device_loop.driver_for(cuda0, one_card) == ("graph", "")
     assert device_loop.driver_for(cuda0, make_mesh(1, devices=[cuda0])) == ("graph", "")
-    for dev, mesh, word in ((torch.device("cpu"), None, "cpu"),
-                            (torch.device("cpu"), make_mesh(2, devices=["cpu"] * 2), "cpu"),
-                            (cuda0, make_mesh(2, devices=[cuda0, cuda1]), "several cards")):
-        driver, why = device_loop.driver_for(dev, mesh)
+    assert device_loop.driver_for(cuda0, two_cards) == ("rounds", "")
+    for dev, mesh, word, kind in (
+            (torch.device("cpu"), None, "cpu", "water"),
+            (torch.device("cpu"), make_mesh(2, devices=["cpu"] * 2), "cpu", "water"),
+            (cuda0, two_cards, "several cards", "coupled")):
+        driver, why = device_loop.driver_for(dev, mesh, kind)
         assert driver == "eager" and word in why
     with device_loop.forced_eager():
         assert device_loop.driver_for(cuda, None)[0] == "eager"
