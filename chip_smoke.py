@@ -231,7 +231,15 @@ Phases (any failed check exits non-zero before the last line):
    machine's launches and capture seconds and the peak memory; |MBR| <
    2e-3, stats and MBR equal to phases 3-3c's graph-driven hours, heads
    bit-equal (f32) or within 1e-9 m (f64), host reads at most 5 % of the
-   eager hours'; ``scaling_bench``'s line for the 768 box (the float64
+   eager hours'; (iii) the same three hours on the same blocks split into
+   4 machines (one a block) and the bundle's also into 2 (rows of
+   blocks), run by the rounds driver (each machine on its own stream, the
+   rounds enqueued from the host with events between the streams, as over
+   several cards) in a process of its own (``--machines-hours``: a
+   process that has run torch.profiler makes every CUDA call slower):
+   stats, MBR and launches equal to the one machine's, heads bit-equal,
+   host reads at most the batches of rounds plus 3, as many batches as the
+   rounds run need; ``scaling_bench``'s line for the 768 box (the float64
    step and the bundle step, each on one device and on 4 blocks); (iv)
    phase 3e's coupled storm hour partitioned over 2 x 2 blocks (grid,
    water, heat and boundary cut by ``shard_pytree``, the whole coupled
@@ -242,13 +250,13 @@ Phases (any failed check exits non-zero before the last line):
    water and heat MBR, the gaps of h and T to 3e's hour; |water MBR| <
    2e-3, every count and the water MBR equal to 3e's, the heat MBR within
    rel 1e-8 (the blocks' partials add in another order), h and T
-   bit-equal; (3x (vi)) the storm hour of each water form on 2 x 2 blocks
-   of a 64 box and the frozen coupled hour on a 32 valley, graph-driven
-   against eager-driven on the same blocks (stats, counts, MBRs and
-   launches equal, heads and T bit-equal, host reads at most 5 %, peak at
-   most 2 x), and every unit of an f64 water and a coupled machine on the
-   blocks under ``set_sync_debug_mode("error")``; the seconds of each part
-   of 3v (the 2 x 4 loop made room for 3w);
+   bit-equal; (3x (vi)) the frozen coupled half hour on 2 x 2 blocks of a
+   32 valley, graph-driven against eager-driven on the same blocks
+   (counts, MBRs and launches equal, h and T bit-equal, host reads at most
+   5 %, peak at most 2 x), and every unit of an f64 water and a coupled
+   machine on the blocks under ``set_sync_debug_mode("error")``; the
+   seconds of each part of 3v (the 2 x 4 loop made room for 3w, the water
+   forms' eager hours on blocks for (iii));
 3w. the port's bench (``python -m criteria3d_tpu_torch.bench``), the legs
    phases 3b and 3e do not run: (i) the day leg at coarsen 4 (chained
    hours of 6 periods of 600 s under ``fast_f32()``), cut to its 3 storm
@@ -3033,7 +3041,7 @@ def _mesh_driver(mesh, device=None, kind: str = "water") -> str:
     return device_loop.driver_for(mesh.home if mesh is not None else device, mesh, kind)[0]
 
 
-def mesh_hour(form: str, card: str, dev, ref: dict, mesh, machines=()) -> dict:
+def mesh_hour(form: str, card: str, dev, ref: dict, mesh) -> dict:
     """3v (iii): the storm hour of ``form`` partitioned over ``mesh``
     (grid and state cut from the host by ``shard_pytree``, the whole
     water step on the blocks, the result joined by ``gather_pytree``)
@@ -3049,9 +3057,8 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh, machines=()) -> dict:
     against the eager one-device hour: the same host reads; heads within
     1e-5 m (f32) or 1e-9 m (f64) when the stats are equal, else within the
     free-running float32 envelopes of tests/test_fast_f32.py (max 0.1 m,
-    median 1e-2 m). |MBR| < 2e-3 either way. Then the same blocks split
-    into each grouping of ``machines`` (:func:`machines_hour`). The result
-    holds the joined heads on the host (``h``)."""
+    median 1e-2 m). |MBR| < 2e-3 either way. The result holds the joined
+    heads on the host (``h``)."""
     import torch
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
@@ -3116,8 +3123,7 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh, machines=()) -> dict:
         check(dh_max <= 1e-9 if form == "f64" else dh_max == 0.0,
               f"3v {form}: heads {dh_max} m from the one-device hour's")
         if driver == "rounds":
-            check(reads <= drv["launches"] + 3, f"3v {form}: {reads} host reads for "
-                  f"{drv['launches']} batches of rounds")
+            check_rounds(f"3v {form}", reads, drv)
         elif ref["eager_reads"]:
             check(reads <= 0.05 * ref["eager_reads"], f"3v {form}: {reads} host reads, "
                   f"more than 5 % of the eager hour's {ref['eager_reads']}")
@@ -3133,26 +3139,33 @@ def mesh_hour(form: str, card: str, dev, ref: dict, mesh, machines=()) -> dict:
                   "envelopes")
     res = dict(stats=tuple(stats), mbr=mbr, wall_s=wall, host_reads=reads,
                launches=launches, graph_launches=drv["launches"], rounds=drv["rounds"],
-               capture_s=capture_s, peak_gib=peak, driver=driver, dh_max=dh_max,
-               parts=parts, h=out.h)
-    t0 = time.time()
-    res["machines"] = {m: machines_hour(form, card, grid_s, state_s, mesh, m, res)
-                       for m in machines}
-    if machines:
-        parts["machines"] = time.time() - t0
+               rounds_enqueued=drv["rounds_enqueued"], capture_s=capture_s, peak_gib=peak,
+               driver=driver, dh_max=dh_max, parts=parts, h=out.h)
     del grid_s, state_s
     return res
 
 
-def machines_hour(form: str, card: str, grid_s, state_s, mesh, machines, one: dict) -> dict:
+def check_rounds(label: str, reads: int, drv: dict) -> None:
+    """A period run by the rounds driver: host reads at most its batches
+    of rounds (graph launches) plus 3, and as many batches as the rounds
+    that ran a segment need (a batch ends early once none is left)."""
+    from criteria3d_tpu_torch.solver import device_loop
+    check(reads <= drv["launches"] + 3,
+          f"{label}: {reads} host reads for {drv['launches']} batches of rounds")
+    check(drv["launches"] == -(-drv["rounds"] // device_loop.UNITS_PER_LAUNCH)
+          and drv["rounds"] <= drv["rounds_enqueued"],
+          f"{label}: {drv['launches']} batches for {drv['rounds']} rounds run, "
+          f"{drv['rounds_enqueued']} enqueued")
+
+
+def machines_hour(form: str, card: str, grid_s, state_s, mesh, machines) -> dict:
     """3v (iii): the storm hour of ``form`` on the blocks of ``mesh``
     (``grid_s``, ``state_s``) split into the machines ``machines`` (one
-    int a block, row-major), run by the rounds driver (on one card, each
-    machine on its own stream; captured by a zero-length period first),
-    against ``one``, the one machine's hour on the same blocks: stats, MBR
-    and bundle launches equal, heads bit-equal, host reads at most the
-    graph launches (batches of rounds) plus 3. Returns its wall, host
-    reads, graph launches, rounds, capture seconds and peak memory."""
+    int a block, row-major), run by the rounds driver (each machine on its
+    own stream; captured by a zero-length period first): its stats, MBR,
+    wall, host reads, graph launches (batches of rounds), rounds run and
+    enqueued, bundle launches, capture seconds, peak memory and heads (on
+    the host, ``h``), host reads held by :func:`check_rounds`."""
     import torch
     from criteria3d_tpu_torch.device import host_read
     from criteria3d_tpu_torch.parallel.sharding import gather_pytree, make_mesh, remesh
@@ -3186,25 +3199,93 @@ def machines_hour(form: str, card: str, grid_s, state_s, mesh, machines, one: di
     h = gather_pytree(out.h, "cpu")
     mbr = float(out.balance_whole.mbr)
     device_loop.clear()
-    same = torch.equal(h, one["h"])
     print(f"# 3v {form} storm hour on {mesh.shape} blocks split into machines {machines} "
           f"({card}), rounds driver: stats {tuple(stats)} MBR {mbr} wall {wall} s host reads "
-          f"{reads} graph launches {drv['launches']} rounds {drv['rounds']} bundle launches "
-          f"{launches} capture {capture_s} s peak {peak} GiB; one machine: stats "
-          f"{one['stats']} MBR {one['mbr']} wall {one['wall_s']} s launches "
-          f"{one['launches']}; heads bit-equal {same}", flush=True)
+          f"{reads} graph launches {drv['launches']} rounds {drv['rounds']} (enqueued "
+          f"{drv['rounds_enqueued']}) bundle launches {launches} capture {capture_s} s peak "
+          f"{peak} GiB", flush=True)
     check(drv["rounds_periods"] == 1 and drv["eager_periods"] == 0,
           f"3v {form} machines {machines}: drivers {drv}")
-    check(tuple(stats) == one["stats"] and mbr == one["mbr"] and launches == one["launches"],
-          f"3v {form} machines {machines}: stats {stats} MBR {mbr} launches {launches} "
-          f"against one machine's {one['stats']} {one['mbr']} {one['launches']}")
-    check(same, f"3v {form} machines {machines}: heads "
-                f"{float((h - one['h']).abs().max())} m from one machine's")
-    check(reads <= drv["launches"] + 3,
-          f"3v {form} machines {machines}: {reads} host reads for {drv['launches']} batches")
+    check_rounds(f"3v {form} machines {machines}", reads, drv)
     return dict(stats=tuple(stats), mbr=mbr, wall_s=wall, host_reads=reads,
-                graph_launches=drv["launches"], rounds=drv["rounds"], launches=launches,
-                capture_s=capture_s, peak_gib=peak)
+                graph_launches=drv["launches"], rounds=drv["rounds"],
+                rounds_enqueued=drv["rounds_enqueued"], launches=launches,
+                capture_s=capture_s, peak_gib=peak, h=h)
+
+
+def machines_hours_run(work: str, card: str, dev) -> None:
+    """The body of :func:`machines_hours`, in the process that runs the
+    hours: the grids and states saved in ``work`` cut into 2 x 2 blocks of
+    ``dev``, and each storm hour (MESH_FORMS) split into each grouping of
+    MESH_MACHINES (:func:`machines_hour`); each hour's heads and numbers
+    written back to ``work``."""
+    import torch
+    from criteria3d_tpu_torch.parallel.sharding import shard_pytree
+    saved = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    mesh = virtual_mesh(4, dev)
+    results = {}
+    for form in MESH_FORMS:
+        grid, state = saved[form]
+        grid_s, state_s = shard_pytree(grid, mesh), shard_pytree(state, mesh)
+        for machines in MESH_MACHINES[form]:
+            name = f"{form}-{''.join(map(str, machines))}"
+            r = machines_hour(form, card, grid_s, state_s, mesh, machines)
+            torch.save(r.pop("h"), os.path.join(work, f"{name}.pt"))
+            results[name] = r
+        del grid_s, state_s
+    with open(os.path.join(work, "results.json"), "w") as f:
+        json.dump(results, f)
+
+
+def machines_hours(refs: dict, card: str, dev) -> dict:
+    """3v (iii): the storm hours (MESH_FORMS) on 2 x 2 blocks split into
+    machines (:func:`machines_hours_run`), on the card in a process of its
+    own (``chip_smoke.py --machines-hours DIR``): torch.profiler, once run
+    in a process, slows every CUDA call after it there, and the rounds
+    driver makes ~50 a round from the host. ``refs`` gives each form's
+    grid and initial state (saved for that process); returns, per form and
+    grouping, what :func:`machines_hour` measured, with the heads."""
+    import torch
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({form: (refs[form]["grid"], refs[form]["state0"]) for form in MESH_FORMS},
+                   os.path.join(work, "inputs.pt"))
+        if torch_device_type(dev) == "cuda":
+            sys.stdout.flush()
+            done = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--machines-hours", work], timeout=600)
+            check(done.returncode == 0,
+                  f"3v: the machines' hours exited with {done.returncode}")
+        else:
+            machines_hours_run(work, card, dev)
+        with open(os.path.join(work, "results.json")) as f:
+            results = json.load(f)
+        out = {form: {} for form in MESH_FORMS}
+        for name, r in results.items():
+            form, groups = name.split("-")
+            r["stats"] = tuple(r["stats"])
+            r["h"] = torch.load(os.path.join(work, f"{name}.pt"))
+            out[form][tuple(int(c) for c in groups)] = r
+    return out
+
+
+def check_machines_hour(form: str, card: str, machines, r: dict, one: dict) -> None:
+    """3v (iii): ``r``, the storm hour of ``form`` on 2 x 2 blocks split
+    into ``machines`` (:func:`machines_hour`), against ``one``, the one
+    machine's hour on the same blocks (:func:`mesh_hour`): stats, MBR and
+    bundle launches equal, heads bit-equal."""
+    import torch
+    same = torch.equal(r["h"], one["h"])
+    print(f"# 3v {form} storm hour in machines {machines} ({card}): stats {r['stats']} MBR "
+          f"{r['mbr']} wall {r['wall_s']} s launches {r['launches']}; one machine: stats "
+          f"{one['stats']} MBR {one['mbr']} wall {one['wall_s']} s launches "
+          f"{one['launches']}; heads bit-equal {same}", flush=True)
+    check(r["stats"] == one["stats"] and r["mbr"] == one["mbr"]
+          and r["launches"] == one["launches"],
+          f"3v {form} machines {machines}: stats {r['stats']} MBR {r['mbr']} launches "
+          f"{r['launches']} against one machine's {one['stats']} {one['mbr']} "
+          f"{one['launches']}")
+    check(same, f"3v {form} machines {machines}: heads "
+                f"{float((r['h'] - one['h']).abs().max())} m from one machine's")
 
 
 def one_device_coupled_hour(seed: int, dev, n: int) -> dict:
@@ -3390,7 +3471,8 @@ def mesh_cards(seed: int, card: str, n: int = 768) -> dict:
         same = torch.equal(over["h"], two["h"])
         print(f"# 3v {form} storm hour over {cards} cards ({over['driver']} driver): wall "
               f"{over['wall_s']} s host reads {over['host_reads']} graph launches "
-              f"{over['graph_launches']} rounds {over['rounds']} capture {over['capture_s']} s; "
+              f"{over['graph_launches']} rounds {over['rounds']} (enqueued "
+              f"{over['rounds_enqueued']}) capture {over['capture_s']} s; "
               f"one card's 2 x 2 hour {two['wall_s']} s ({two['driver']}); heads bit-equal to "
               f"it {same}; each card's peak {[p / 2**30 for p in peaks]} GiB ({card})",
               flush=True)
@@ -3473,14 +3555,12 @@ def mesh_cards_coupled(seed: int, card: str, n: int = 768, mesh=None) -> dict:
 
 
 # 3x (vi): graph against eager on the same 2 x 2 blocks at a small box:
-# the water hours' box and the coupled hour's valley (test_torch_cuda.py's),
-# and the periods' length [s] (half an hour: the script stays under 600 s)
+# the water machine's box and the coupled hour's valley (test_torch_cuda.py's),
+# and the coupled period's length [s] (half an hour: the script stays under
+# 600 s)
 MESH_GRAPH_BOX = 64
 MESH_GRAPH_VALLEY = 32
 MESH_GRAPH_PERIOD = 1800.0
-# the coupled valley's period (a quarter of an hour since PR 18, so that the
-# script stays under 600 s with 3v's hours in machines)
-MESH_GRAPH_COUPLED_PERIOD = 900.0
 
 
 def valley_box(n: int):
@@ -3551,108 +3631,35 @@ def units_make_no_sync(label: str, machine, on_card: bool) -> set:
 
 
 def mesh_graph_vs_eager(card: str, dev="cuda") -> dict:
-    """Phase 3x (vi): the partitioned hours graph-driven against
-    eager-driven on the same 2 x 2 blocks of ``dev``: the storm hour of each
-    water form on a MESH_GRAPH_BOX box (test_torch_cuda.py's) and the
-    frozen coupled storm hour on the MESH_GRAPH_VALLEY valley: stats,
-    counts, both MBRs and bundle launches equal, heads and T bit-equal; on
-    the card the graph driver ran, its host reads at most 5 % of the eager
-    hour's, its peak at most 2 x (each water period MESH_GRAPH_PERIOD long,
-    the coupled one MESH_GRAPH_COUPLED_PERIOD). Then
-    every unit of a 600 s f64 water machine (its ring-refresh unit among
-    them) and a 600 s coupled machine on the blocks runs under
+    """Phase 3x (vi): the frozen coupled storm period (MESH_GRAPH_PERIOD)
+    on 2 x 2 blocks of the MESH_GRAPH_VALLEY valley of ``dev``, graph-driven
+    against eager-driven on the same blocks: every count, both MBRs and
+    bundle launches equal, h and T bit-equal; on the card the graph driver
+    ran, its host reads at most 5 % of the eager period's, its peak at
+    most 2 x. Then every unit of a 600 s f64 water machine on 2 x 2 blocks
+    of a MESH_GRAPH_BOX box (its ring-refresh unit among them) and a 600 s
+    coupled machine on the valley's blocks runs under
     ``set_sync_debug_mode("error")``: no host synchronisation inside a
-    unit. The bundle hour also runs on the same blocks split into 4
-    machines under ``device_loop.stream_rounds()`` (each machine on its own
-    stream, the rounds enqueued from the host with events, as machines on
-    several cards run; tests/test_torch_cuda.py runs every form so): stats,
-    MBR and launches equal, heads bit-equal to the graph-driven hour."""
+    unit. (The water forms' graph-driven hours on blocks are held to the
+    one-device hours in 3v at full size; their eager twins on blocks run in
+    tests/test_torch_cuda.py.)"""
     import torch
     from criteria3d_tpu_torch.bench import coupled_heat_mbr
-    from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh, remesh,
-                                                        shard_pytree)
+    from criteria3d_tpu_torch.parallel.sharding import gather_pytree, shard_pytree
     from criteria3d_tpu_torch.problems import (build_coupled_problem, build_problem,
                                                synthetic_catchment)
     from criteria3d_tpu_torch.solver import coupled as CP
-    from criteria3d_tpu_torch.solver import device_loop
     from criteria3d_tpu_torch.solver import step as TSt
     on_card = torch_device_type(dev) == "cuda"
     mesh = virtual_mesh(4, dev)
-    split = make_mesh(4, devices=list(mesh.devices.flat), machines=(0, 1, 2, 3))
     out = {}
     n = MESH_GRAPH_BOX
-    for form in MESH_FORMS:
-        params = mesh_form_params(form, mesh)
-        grid, state = build_problem(synthetic_catchment(0, n=n, radius=n * 30.0 / 64), 4.0,
-                                    mesh_form_params(form), dev)
-        grid, state = shard_pytree(grid, mesh), shard_pytree(state, mesh)
-        g, e = (_mesh_run(lambda: TSt.compute_period_stats(grid, params, state,
-                                                           MESH_GRAPH_PERIOD),
-                          eager, on_card) for eager in (False, True))
-        (go, gs), (eo, es) = g["out"], e["out"]
-        gh, eh = gather_pytree(go.h, "cpu"), gather_pytree(eo.h, "cpu")
-        gm, em = float(go.balance_whole.mbr), float(eo.balance_whole.mbr)
-        ratio = g["reads"] / max(e["reads"], 1)
-        print(f"# 3x {form} {MESH_GRAPH_PERIOD} s on 2 x 2 blocks of a {n} box ({card}): "
-              f"graph stats "
-              f"{tuple(gs)} MBR {gm} wall {g['wall_s']} s host reads {g['reads']} "
-              f"launches {g['launches']} graph launches {g['drivers']['launches']} capture "
-              f"{g['drivers']['capture_s']} s peak {g['peak_gib']} GiB; eager stats "
-              f"{tuple(es)} MBR {em} wall {e['wall_s']} s host reads {e['reads']} launches "
-              f"{e['launches']} peak {e['peak_gib']} GiB; reads graph / eager {ratio}; heads "
-              f"bit-equal {torch.equal(gh, eh)}", flush=True)
-        check(tuple(gs) == tuple(es) and gm == em and g["launches"] == e["launches"],
-              f"3x {form} on blocks: graph {gs} {gm} {g['launches']}, eager {es} {em} "
-              f"{e['launches']}")
-        check(torch.equal(gh, eh), f"3x {form} on blocks: heads "
-                                   f"{float((gh - eh).abs().max())} m apart")
-        if form == "bundle" and on_card:
-            check(g["launches"] > 0, "3x bundle on blocks: no bundle launch")
-        if on_card:
-            check(g["drivers"]["graph_periods"] == 1 and e["drivers"]["eager_periods"] == 1,
-                  f"3x {form} on blocks: drivers {g['drivers']} / {e['drivers']}")
-            check(ratio <= 0.05, f"3x {form} on blocks: graph reads {g['reads']} > 5 % of "
-                                 f"eager {e['reads']}")
-            check(g["peak_gib"] <= 2.0 * e["peak_gib"],
-                  f"3x {form} on blocks: graph peak {g['peak_gib']} > 2 x {e['peak_gib']}")
-        if form != "bundle":
-            out[form] = dict(stats=tuple(gs), graph_reads=g["reads"], eager_reads=e["reads"],
-                             graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
-                             graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
-                             capture_s=g["drivers"]["capture_s"],
-                             graph_launches=g["drivers"]["launches"])
-            del grid, state, g, e
-            continue
-        with device_loop.stream_rounds():
-            r = _mesh_run(lambda: TSt.compute_period_stats(
-                remesh(grid, split), mesh_form_params(form, split), remesh(state, split),
-                MESH_GRAPH_PERIOD), False, on_card)
-        ro, rs = r["out"]
-        rh = gather_pytree(ro.h, "cpu")
-        print(f"# 3x {form} on the same blocks in 4 machines, each on its own stream "
-              f"(stream_rounds; {card}): stats {tuple(rs)} MBR {float(ro.balance_whole.mbr)} "
-              f"wall {r['wall_s']} s host reads {r['reads']} graph launches "
-              f"{r['drivers']['launches']} rounds {r['drivers']['rounds']} launches "
-              f"{r['launches']}; heads bit-equal to the graph hour {torch.equal(rh, gh)}",
-              flush=True)
-        check(tuple(rs) == tuple(gs) and float(ro.balance_whole.mbr) == gm
-              and r["launches"] == g["launches"] and torch.equal(rh, gh)
-              and r["drivers"]["rounds_periods"] == 1,
-              f"3x {form} in 4 machines on streams: {rs} {float(ro.balance_whole.mbr)} "
-              f"{r['launches']} against the graph hour's {gs} {gm} {g['launches']}")
-        out[form] = dict(stats=tuple(gs), graph_reads=g["reads"], eager_reads=e["reads"],
-                         graph_wall_s=g["wall_s"], eager_wall_s=e["wall_s"],
-                         graph_peak_gib=g["peak_gib"], eager_peak_gib=e["peak_gib"],
-                         capture_s=g["drivers"]["capture_s"],
-                         graph_launches=g["drivers"]["launches"],
-                         stream_rounds_wall_s=r["wall_s"], stream_rounds=r["drivers"]["rounds"])
-        del grid, state, g, e, r
     whole = mesh_form_params("coupled")
     params = mesh_form_params("coupled", mesh)
     inputs = build_coupled_problem(valley_box(MESH_GRAPH_VALLEY), 10.0, whole, dev)
     blocked = [shard_pytree(x, mesh) for x in inputs]
     g, e = (_mesh_run(lambda: CP.compute_period_coupled(blocked[0], params, *blocked[1:],
-                                                        MESH_GRAPH_COUPLED_PERIOD), eager,
+                                                        MESH_GRAPH_PERIOD), eager,
                           on_card)
             for eager in (False, True))
     (gw, gt), (ew, et) = ([gather_pytree(x, "cpu") for x in r["out"]] for r in (g, e))
@@ -3660,7 +3667,7 @@ def mesh_graph_vs_eager(card: str, dev="cuda") -> dict:
     embr = (float(ew.balance_whole.mbr), coupled_heat_mbr(inputs[0].to("cpu"), whole, ew, et))
     ratio = g["reads"] / max(e["reads"], 1)
     same = torch.equal(gw.h, ew.h) and torch.equal(gt.t, et.t)
-    print(f"# 3x coupled {MESH_GRAPH_COUPLED_PERIOD} s on 2 x 2 blocks of the {MESH_GRAPH_VALLEY} "
+    print(f"# 3x coupled {MESH_GRAPH_PERIOD} s on 2 x 2 blocks of the {MESH_GRAPH_VALLEY} "
           f"valley ({card}): "
           f"graph counts {g['counts']} MBRs {gmbr} wall {g['wall_s']} s host reads "
           f"{g['reads']} graph launches {g['drivers']['launches']} capture "
@@ -3729,17 +3736,26 @@ def mesh_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None) -> di
     loops = mesh_loops(seed, dev, n)
     lap("loops")
     mesh = virtual_mesh(4, dev)
+    refs = dict(refs or {})
+    for form in MESH_FORMS:
+        if form not in refs:
+            refs[form] = one_device_hour(form, seed, dev, n)
+    lap("one-device hours")
+    split = machines_hours(refs, card, dev)
+    lap("machines (a process of their own)")
     hours = {}
     for form in MESH_FORMS:
-        ref = refs[form] if refs else one_device_hour(form, seed, dev, n)
-        lap(f"{form} one-device hour")
-        hours[form] = mesh_hour(form, card, dev, ref, mesh, MESH_MACHINES[form])
+        hours[form] = mesh_hour(form, card, dev, refs[form], mesh)
+        for machines, r in split[form].items():
+            check_machines_hour(form, card, machines, r, hours[form])
+            r.pop("h")
+        hours[form]["machines"] = split[form]
         hours[form].pop("h")
         lap(f"{form} partitioned")
     scaling = scaling_bench.scaling(n, n, 4, dev)
     print(json.dumps(scaling), flush=True)
     lap("scaling")
-    ref = refs["coupled"] if refs else one_device_coupled_hour(seed, dev, n)
+    ref = refs["coupled"] if "coupled" in refs else one_device_coupled_hour(seed, dev, n)
     lap("coupled one-device hour")
     hours["coupled"] = mesh_coupled_hour(card, dev, ref, mesh)
     del ref
@@ -4075,6 +4091,9 @@ def bench_phases(seed: int, card: str, dev="cuda", n: int = 768, refs=None,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--machines-hours", metavar="DIR",
+                    help="run only 3v's hours in machines on the inputs saved in DIR "
+                         "(the script starts this process itself)")
     args = ap.parse_args()
 
     import torch
@@ -4096,6 +4115,9 @@ def main() -> int:
           "the port imported JAX or the JAX package")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.machines_hours:
+        machines_hours_run(args.machines_hours, card_line(), "cuda")
+        return 0
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t_start = time.time()
@@ -4393,13 +4415,19 @@ def main() -> int:
         "launches_mesh_hours": {k: h["graph_launches"] for k, h in vp["hours"].items()},
         "capture_s_mesh_hours": {k: h["capture_s"] for k, h in vp["hours"].items()},
         # 3v's hours on the same 2 x 2 blocks split into machines, run by the
-        # rounds driver (c3d_switch_build's segment graphs, c3d_rounds): its
-        # launches are batches of UNITS_PER_LAUNCH rounds
+        # rounds driver (c3d_switch_build's segment graphs, c3d_rounds) in a
+        # process of their own: its launches are batches of at most
+        # UNITS_PER_LAUNCH rounds
         "launches_mesh_machines_hours": {
             f"{k} {''.join(map(str, m))}": r["graph_launches"]
             for k, h in vp["hours"].items() for m, r in h.get("machines", {}).items()},
         "rounds_mesh_machines_hours": {
             f"{k} {''.join(map(str, m))}": r["rounds"]
+            for k, h in vp["hours"].items() for m, r in h.get("machines", {}).items()},
+        # the rounds enqueued in them (a batch stops once machine 0's code,
+        # copied to the host every POLL_EVERY rounds, reads no segment)
+        "rounds_enqueued_mesh_machines_hours": {
+            f"{k} {''.join(map(str, m))}": r["rounds_enqueued"]
             for k, h in vp["hours"].items() for m, r in h.get("machines", {}).items()},
         "launches_bench_mesh_leg": wp["mesh"]["graph_launches"],
         # launches of the fixed points' machines: hour 13's hydrall_hour
@@ -4475,7 +4503,8 @@ def main() -> int:
               f"peak_gib={h['peak_gib']}" + "".join(
                   f", machines {''.join(map(str, m))}: wall_s={r['wall_s']} "
                   f"host_reads={r['host_reads']} graph_launches={r['graph_launches']} "
-                  f"rounds={r['rounds']} capture_s={r['capture_s']} peak_gib={r['peak_gib']}"
+                  f"rounds={r['rounds']} rounds_enqueued={r['rounds_enqueued']} "
+                  f"capture_s={r['capture_s']} peak_gib={r['peak_gib']}"
                   for m, r in h.get("machines", {}).items())
               for form, h in vp["hours"].items()) + "; 3x on 2 x 2 blocks " + "; ".join(
               f"{form} reads {g['graph_reads']} / {g['eager_reads']} walls "

@@ -26,22 +26,16 @@
 //
 //   set_switch(h_s, *segment) -> SWITCH(h_s){case c: segment c}
 //
-// Machines on several cards: c3d_rounds enqueues the rounds from the host:
-// in each, every machine's graph on its own stream, then each machine's
-// copies of the other machines' posts into its own board, ordered by
-// events between the streams (a copy waits for the segment that wrote its
-// source; a machine's next segment waits until every other machine has
-// copied from it). Machines that all lie on one card: c3d_rounds_build
-// joins their rounds into one graph, whose edges give the same order:
-//
-//   outer graph:  reset(count) -> WHILE(h_w)
-//   WHILE body:   for each machine g: set_switch(h_g, *segment_g) -> SWITCH(h_g)
-//                 -> the board copies (each after every machine's SWITCH)
-//                 -> set_while(h_w, *phase_0 != done && ++count < limit)
-//
-// so one launch runs up to `limit` rounds, the machines' segments side by
-// side. Either way the order between machines, and between cards, is
-// CUDA's own: no kernel waits on memory that another machine writes.
+// c3d_rounds enqueues the rounds from the host: in each, every machine's
+// graph on its own stream, then each machine's copies of the other
+// machines' posts into its own board, ordered by events between the
+// streams (a copy waits for the segment that wrote its source; a machine's
+// next segment waits until every other machine has copied from it). So the
+// order between machines, on one card or several, is CUDA's own: no kernel
+// waits on memory that another machine writes. A machine's switch kernel
+// counts the rounds in which it ran a segment; every few rounds machine 0's
+// code is copied to the host, and the host stops enqueuing once a copy that
+// has landed reads "no segment" (it never waits for one).
 //
 // SWITCH nodes need CUDA 12.8; every unit graph must hold only kernel,
 // memcpy and memset nodes on device memory (what PyTorch captures). Each C
@@ -49,11 +43,13 @@
 
 #include <cuda_runtime.h>
 
+// `ran` (may be null) counts the launches that selected a case
 __global__ void set_switch_kernel(cudaGraphConditionalHandle handle, const long long* phase,
-                                  long long n_cases) {
+                                  long long n_cases, long long* ran) {
   const long long p = *phase;
-  cudaGraphSetConditional(handle, (p >= 0 && p < n_cases) ? static_cast<unsigned>(p)
-                                                          : static_cast<unsigned>(n_cases));
+  const bool run = p >= 0 && p < n_cases;
+  if (run && ran) *ran += 1;
+  cudaGraphSetConditional(handle, run ? static_cast<unsigned>(p) : static_cast<unsigned>(n_cases));
 }
 
 __global__ void set_while_kernel(cudaGraphConditionalHandle handle, const long long* phase,
@@ -135,7 +131,8 @@ extern "C" int c3d_machine_build(int n_cases, void* const* unit_graphs, void* ph
 
   cudaGraphConditionalHandle h_switch;
   C3D_TRY(cudaGraphConditionalHandleCreate(&h_switch, body, 0, 0));
-  void* switch_args[] = {&h_switch, &phase_p, &cases};
+  long long* no_count = nullptr;
+  void* switch_args[] = {&h_switch, &phase_p, &cases, &no_count};
   cudaGraphNode_t set;
   C3D_TRY(add_kernel(&set, body, nullptr, 0, reinterpret_cast<void*>(set_switch_kernel),
                      switch_args));
@@ -174,18 +171,20 @@ extern "C" int c3d_machine_destroy(void* exec) {
 // Builds one machine's segment graph of the rounds driver: `n_cases`
 // segment codes, code c running seg_graphs[c] (cloned as a child graph);
 // the segment the device int64 at `code` names runs, and any other value
-// selects none. Built on the current device (the machine's card).
-extern "C" int c3d_switch_build(int n_cases, void* const* seg_graphs, void* code,
+// selects none; the device int64 at `ran` counts the launches that ran a
+// segment. Built on the current device (the machine's card).
+extern "C" int c3d_switch_build(int n_cases, void* const* seg_graphs, void* code, void* ran,
                                 void** exec_out) {
-  if (n_cases < 1 || !seg_graphs || !code || !exec_out)
+  if (n_cases < 1 || !seg_graphs || !code || !ran || !exec_out)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGraph_t outer = nullptr;
   C3D_TRY(cudaGraphCreate(&outer, 0));
   const long long* code_p = static_cast<const long long*>(code);
+  long long* ran_p = static_cast<long long*>(ran);
   long long cases = n_cases;
   cudaGraphConditionalHandle h_switch;
   C3D_TRY(cudaGraphConditionalHandleCreate(&h_switch, outer, 0, 0));
-  void* switch_args[] = {&h_switch, &code_p, &cases};
+  void* switch_args[] = {&h_switch, &code_p, &cases, &ran_p};
   cudaGraphNode_t set;
   C3D_TRY(add_kernel(&set, outer, nullptr, 0, reinterpret_cast<void*>(set_switch_kernel),
                      switch_args));
@@ -199,81 +198,6 @@ extern "C" int c3d_switch_build(int n_cases, void* const* seg_graphs, void* code
     C3D_TRY(cudaGraphAddChildGraphNode(&child, cases_body[c], nullptr, 0,
                                        static_cast<cudaGraph_t>(seg_graphs[c])));
   }
-  cudaGraphExec_t exec = nullptr;
-  C3D_TRY(cudaGraphInstantiate(&exec, outer, 0));
-  cudaGraphDestroy(outer);
-  *exec_out = static_cast<void*>(exec);
-  return static_cast<int>(cudaSuccess);
-}
-
-// Builds the rounds of `n_machines` machines on the current card as one
-// executable graph (see the top of this file): machine g has n_cases[g]
-// segment codes, its graphs the next n_cases[g] entries of seg_graphs
-// (cloned as child graphs) and its code the device int64 at codes[g]; copy
-// k moves copy_bytes[k] from copy_src[k] to copy_dst[k] after every
-// machine's segment; the loop ends when the int64 at `phase` (machine 0's)
-// reads `done`, or after `limit` rounds, counted in the device int `count`.
-extern "C" int c3d_rounds_build(int n_machines, const int* n_cases, void* const* seg_graphs,
-                                void* const* codes, int n_copies, void* const* copy_dst,
-                                void* const* copy_src, const long long* copy_bytes,
-                                void* phase, long long done, void* count, int limit,
-                                void** exec_out) {
-  if (n_machines < 1 || limit < 1 || !n_cases || !seg_graphs || !codes || !phase || !count ||
-      !exec_out)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaGraph_t outer = nullptr;
-  C3D_TRY(cudaGraphCreate(&outer, 0));
-  int* count_i = static_cast<int*>(count);
-  const long long* phase_p = static_cast<const long long*>(phase);
-
-  cudaGraphNode_t reset;
-  void* reset_args[] = {&count_i};
-  C3D_TRY(add_kernel(&reset, outer, nullptr, 0, reinterpret_cast<void*>(reset_kernel),
-                     reset_args));
-  cudaGraphConditionalHandle h_while;
-  C3D_TRY(cudaGraphConditionalHandleCreate(&h_while, outer, 1, cudaGraphCondAssignDefault));
-  cudaGraphNode_t loop;
-  cudaGraph_t* loop_body = nullptr;
-  C3D_TRY(add_conditional(&loop, outer, &reset, 1, h_while, cudaGraphCondTypeWhile, 1,
-                          &loop_body));
-  cudaGraph_t body = loop_body[0];
-
-  cudaGraphNode_t switches[64];
-  if (n_machines > 64) C3D_TRY(cudaErrorInvalidValue);
-  int first = 0;
-  for (int g = 0; g < n_machines; ++g) {
-    cudaGraphConditionalHandle h_switch;
-    C3D_TRY(cudaGraphConditionalHandleCreate(&h_switch, body, 0, 0));
-    const long long* code_p = static_cast<const long long*>(codes[g]);
-    long long cases = n_cases[g];
-    void* switch_args[] = {&h_switch, &code_p, &cases};
-    cudaGraphNode_t set;
-    C3D_TRY(add_kernel(&set, body, nullptr, 0, reinterpret_cast<void*>(set_switch_kernel),
-                       switch_args));
-    cudaGraph_t* cases_body = nullptr;
-    C3D_TRY(add_conditional(&switches[g], body, &set, 1, h_switch, cudaGraphCondTypeSwitch,
-                            static_cast<unsigned>(n_cases[g]), &cases_body));
-    for (int c = 0; c < n_cases[g]; ++c) {
-      if (!seg_graphs[first + c]) continue;
-      cudaGraphNode_t child;
-      C3D_TRY(cudaGraphAddChildGraphNode(&child, cases_body[c], nullptr, 0,
-                                         static_cast<cudaGraph_t>(seg_graphs[first + c])));
-    }
-    first += n_cases[g];
-  }
-  // the copies after every machine's segment, the loop's test after them
-  cudaGraphNode_t copies[4096];
-  if (n_copies > 4096) C3D_TRY(cudaErrorInvalidValue);
-  for (int k = 0; k < n_copies; ++k)
-    C3D_TRY(cudaGraphAddMemcpyNode1D(&copies[k], body, switches, n_machines, copy_dst[k],
-                                     copy_src[k], static_cast<size_t>(copy_bytes[k]),
-                                     cudaMemcpyDeviceToDevice));
-  void* while_args[] = {&h_while, &phase_p, &done, &count_i, &limit};
-  cudaGraphNode_t tail;
-  C3D_TRY(add_kernel(&tail, body, n_copies ? copies : switches,
-                     n_copies ? n_copies : n_machines,
-                     reinterpret_cast<void*>(set_while_kernel), while_args));
-
   cudaGraphExec_t exec = nullptr;
   C3D_TRY(cudaGraphInstantiate(&exec, outer, 0));
   cudaGraphDestroy(outer);
@@ -318,33 +242,45 @@ extern "C" int c3d_peer(int device, int peer) {
   return static_cast<int>(err);
 }
 
-// Enqueues `n_rounds` rounds of `n_machines` machines, machine g on card
-// devices[g] with its segment graph execs[g] and its stream streams[g]:
+// Enqueues up to `n_rounds` rounds of `n_machines` machines, machine g on
+// card devices[g] with its segment graph execs[g] and its stream
+// streams[g]:
 //
 //   for each g: wait free[h] for h != g; launch execs[g]; record done[g]
 //   for each g: wait done[h] for h != g; its copies; record free[g]
 //
 // copy k (copy_group[k] = g, enqueued on g's stream) moves copy_bytes[k]
 // from copy_src[k] to copy_dst[k] (cudaMemcpyDefault: peer to peer where
-// enabled, else through the host). Then, on machine 0's stream after every
-// machine's last round, each machine's status (status_bytes from
-// status_src[g]) is copied to status_dst[g] for the host to read once.
-// The host thread's current device is restored.
+// enabled, else through the host). After every `poll_every`-th round
+// machine 0's stream copies the int64 at `poll_src` (its segment code) to
+// the next of the `n_polls` pinned host slots at `poll_host` and records
+// the next of `poll_events` (on card devices[0]); before each round the host
+// looks at the copies that have landed (cudaEventQuery, no wait) and stops
+// enqueuing once one reads a negative code (machine 0 runs no segment any
+// more). Then, on machine 0's stream after every machine's last round, the
+// `n_gather` copies (gather_bytes[k] from gather_src[k] to gather_dst[k],
+// the machines' status for the host to read once). Writes the rounds
+// enqueued to *enqueued. The host thread's current device is restored.
 extern "C" int c3d_rounds(int n_rounds, int n_machines, const int* devices,
                           void* const* execs, void* const* streams, void* const* done,
                           void* const* free_, int n_copies, const int* copy_group,
                           void* const* copy_dst, void* const* copy_src,
-                          const long long* copy_bytes, void* const* status_dst,
-                          void* const* status_src, long long status_bytes) {
+                          const long long* copy_bytes, int poll_every, int n_polls,
+                          const void* poll_src, void* poll_host, void* const* poll_events,
+                          int n_gather, void* const* gather_dst, void* const* gather_src,
+                          const long long* gather_bytes, int* enqueued) {
   int prev = 0;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const volatile long long* polled = static_cast<const volatile long long*>(poll_host);
+  int posted = 0, seen = 0, r = 0;
+  bool ended = false;
 #define C3D_RTRY(expr)                   \
   do {                                   \
     err = (expr);                        \
     if (err != cudaSuccess) goto out;    \
   } while (0)
-  for (int r = 0; r < n_rounds; ++r) {
+  for (; r < n_rounds && !ended; ++r) {
     for (int g = 0; g < n_machines; ++g) {
       cudaStream_t s = static_cast<cudaStream_t>(streams[g]);
       C3D_RTRY(cudaSetDevice(devices[g]));
@@ -364,17 +300,39 @@ extern "C" int c3d_rounds(int n_rounds, int n_machines, const int* devices,
                                    cudaMemcpyDefault, s));
       C3D_RTRY(cudaEventRecord(static_cast<cudaEvent_t>(free_[g]), s));
     }
+    if (poll_every > 0 && (r + 1) % poll_every == 0 && posted < n_polls) {
+      cudaStream_t s0 = static_cast<cudaStream_t>(streams[0]);
+      C3D_RTRY(cudaSetDevice(devices[0]));
+      C3D_RTRY(cudaMemcpyAsync(const_cast<long long*>(polled) + posted, poll_src,
+                               sizeof(long long), cudaMemcpyDefault, s0));
+      C3D_RTRY(cudaEventRecord(static_cast<cudaEvent_t>(poll_events[posted]), s0));
+      ++posted;
+    }
+    while (seen < posted) {
+      const cudaError_t q = cudaEventQuery(static_cast<cudaEvent_t>(poll_events[seen]));
+      if (q == cudaErrorNotReady) {
+        cudaGetLastError();  // not an error: the copy has not landed yet
+        break;
+      }
+      C3D_RTRY(q);
+      if (polled[seen] < 0) {
+        ended = true;
+        break;
+      }
+      ++seen;
+    }
   }
   {
     cudaStream_t s0 = static_cast<cudaStream_t>(streams[0]);
     C3D_RTRY(cudaSetDevice(devices[0]));
     for (int h = 1; h < n_machines; ++h)
       C3D_RTRY(cudaStreamWaitEvent(s0, static_cast<cudaEvent_t>(free_[h]), 0));
-    for (int g = 0; g < n_machines; ++g)
-      C3D_RTRY(cudaMemcpyAsync(status_dst[g], status_src[g], static_cast<size_t>(status_bytes),
+    for (int k = 0; k < n_gather; ++k)
+      C3D_RTRY(cudaMemcpyAsync(gather_dst[k], gather_src[k], static_cast<size_t>(gather_bytes[k]),
                                cudaMemcpyDefault, s0));
   }
 out:
+  *enqueued = r;
 #undef C3D_RTRY
   cudaSetDevice(prev);
   return static_cast<int>(err);

@@ -33,19 +33,19 @@ This module runs the units.
   segment a *round*, and between rounds each machine copies the others'
   posts into its own board. On the card each segment is a CUDA graph
   captured on the machine's own stream and pool, and a SWITCH on a code on
-  the machine's card selects its segment. Machines on several cards: one
-  graph a machine, and ``csrc/graph_machine.cu``'s ``c3d_rounds`` enqueues
-  up to :data:`UNITS_PER_LAUNCH` rounds at a time from the host (each
-  machine's graph on its own stream, then the copies, ordered by CUDA
-  events between the streams: a copy waits for the segment that wrote its
-  source, the next segment for every copy out of its board). Machines that
-  all lie on one card: ``c3d_rounds_build`` joins them into one graph, a
-  WHILE over a round (every machine's SWITCH side by side, then the
-  copies), its edges the order, up to :data:`UNITS_PER_LAUNCH` rounds a
-  launch (:func:`stream_rounds` asks for the several cards' way there, to
-  check it on one card). No kernel waits on memory another machine writes.
-  The host reads the machines' status once per batch of rounds. On the CPU
-  the machines are threads that meet at the same rounds.
+  the machine's card selects its segment, one graph a machine.
+  ``csrc/graph_machine.cu``'s ``c3d_rounds`` enqueues up to
+  :data:`UNITS_PER_LAUNCH` rounds at a time from the host, on one card or
+  several alike (each machine's graph on its own stream, then the copies,
+  ordered by CUDA events between the streams: a copy waits for the segment
+  that wrote its source, the next segment for every copy out of its
+  board). No kernel waits on memory another machine writes. Every
+  :data:`POLL_EVERY` rounds machine 0's segment code is copied to pinned
+  host memory, and the host stops enqueuing once a copy that has landed
+  says no segment is left (it never waits for one: it looks between
+  rounds). The host reads the machines' status once per batch of rounds.
+  On the CPU the machines are threads that meet at the same rounds, and
+  a batch ends when machine 0 has no segment left.
 - **The eager driver** runs the same units in Python. It reads the
   machine's int carries after each unit that decides its next phase from
   data (an assembly's Courant test, an iteration's stop, a balance, an
@@ -95,11 +95,13 @@ from criteria3d_tpu_torch.device import host_array, tallies_on_device
 from criteria3d_tpu_torch.parallel.sharding import Join, joining, machine_groups
 from criteria3d_tpu_torch.utils import buildcache
 
-__all__ = ["UNITS_PER_LAUNCH", "MAX_MACHINES", "Slots", "run_period", "driver_for",
-           "forced_eager", "stream_rounds", "counts", "reset_counts", "clear",
+__all__ = ["UNITS_PER_LAUNCH", "POLL_EVERY", "MAX_MACHINES", "Slots", "run_period",
+           "driver_for", "forced_eager", "counts", "reset_counts", "clear",
            "build_library", "SOURCE"]
 
 UNITS_PER_LAUNCH = 1024
+# the rounds between two looks at machine 0's segment code (rounds driver)
+POLL_EVERY = 16
 # the kept graph machines (see the module docstring for their memory)
 MAX_MACHINES = 8
 
@@ -110,12 +112,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _force_eager = [False]
-_stream_rounds = [False]
 _cache: collections.OrderedDict = collections.OrderedDict()   # key -> _GraphMachine
 _pools: dict = {}     # (card, k) -> the graph memory pool the kept machines' k-th share
 _COUNT_NAMES = ("graph_periods", "eager_periods", "graph_fixed_points",
                 "eager_fixed_points", "launches", "eager_units", "eager_reads",
-                "captures", "capture_s", "rounds_periods", "rounds")
+                "captures", "capture_s", "rounds_periods", "rounds", "rounds_enqueued")
 _counts = dict.fromkeys(_COUNT_NAMES, 0)
 
 
@@ -143,7 +144,9 @@ def reset_counts() -> None:
 def counts() -> dict:
     """Since the last :func:`reset_counts`: periods (and steps) and fixed
     points run by each driver, the graph driver's launches (the rounds
-    driver's batches of rounds among them), the rounds run, the eager
+    driver's batches of rounds among them), the rounds driver's rounds
+    (those in which the machines ran a segment) and rounds enqueued (those
+    and the empty ones enqueued before the host saw the end), the eager
     driver's units and host reads, the captures made and their seconds,
     plus ``units_per_launch`` and the machines kept now."""
     return dict(_counts, units_per_launch=UNITS_PER_LAUNCH, kept=len(_cache))
@@ -158,19 +161,6 @@ def forced_eager():
         yield
     finally:
         _force_eager[0] = False
-
-
-@contextlib.contextmanager
-def stream_rounds():
-    """Within the block, machines that all lie on one card run their rounds
-    as machines on several cards do: each on its own stream, the rounds
-    enqueued from the host with events between the streams (the card's
-    check of that path)."""
-    _stream_rounds[0] = True
-    try:
-        yield
-    finally:
-        _stream_rounds[0] = False
 
 
 def _card(d: torch.device) -> int:
@@ -219,7 +209,7 @@ def _library() -> ctypes.CDLL:
     lib.c3d_machine_launch.restype = I
     lib.c3d_machine_destroy.argtypes = [P]
     lib.c3d_machine_destroy.restype = I
-    lib.c3d_switch_build.argtypes = [I, P, P, P]
+    lib.c3d_switch_build.argtypes = [I, P, P, P, P]
     lib.c3d_switch_build.restype = I
     lib.c3d_event_create.argtypes = [I, P]
     lib.c3d_event_create.restype = I
@@ -227,10 +217,9 @@ def _library() -> ctypes.CDLL:
     lib.c3d_event_destroy.restype = I
     lib.c3d_peer.argtypes = [I, I]
     lib.c3d_peer.restype = I
-    lib.c3d_rounds.argtypes = [I, I, P, P, P, P, P, I, P, P, P, P, P, P, LL]
+    lib.c3d_rounds.argtypes = [I, I, P, P, P, P, P, I, P, P, P, P, I, I, P, P, P, I, P, P,
+                               P, P]
     lib.c3d_rounds.restype = I
-    lib.c3d_rounds_build.argtypes = [I, P, P, P, I, P, P, P, P, LL, P, I, P]
-    lib.c3d_rounds_build.restype = I
     return lib
 
 
@@ -368,6 +357,8 @@ class _SegmentCapture:
     def __init__(self, machine, pool):
         self.machine, self.pool = machine, pool
         self.seg = torch.zeros((), dtype=torch.int64, device=machine.home)
+        # the launches of the machine's graph that ran a segment
+        self.ran = torch.zeros((), dtype=torch.int64, device=machine.home)
         n_phases = max(machine.units()) + 1
         self.table = torch.full((n_phases,), -1, dtype=torch.int64, device=machine.home)
         self.first, self.graphs = {}, []
@@ -411,12 +402,11 @@ class _SegmentCapture:
 
 
 class _Rounds:
-    """The machines of one mesh run side by side in rounds on the card:
-    each machine's units captured as segments on its own stream and pool.
-    On one card (unless :func:`stream_rounds`) one graph runs the rounds
-    (``c3d_rounds_build``); else each machine gets a graph that selects its
-    segment by a SWITCH on its code (``c3d_switch_build``) and the host
-    enqueues the rounds (``c3d_rounds``)."""
+    """The machines of one mesh run side by side in rounds on the card or
+    cards: each machine's units captured as segments on its own stream and
+    pool, and a graph a machine that selects its segment by a SWITCH on
+    its code (``c3d_switch_build``); the host enqueues the rounds
+    (``c3d_rounds``)."""
 
     def __init__(self, machines, joins):
         # the joins' boards stay alive with the machine: the rounds copy
@@ -432,6 +422,7 @@ class _Rounds:
         for a in devices:          # the copies between cards peer to peer where they can
             for b in devices:
                 _peer_access(a, b)
+        P = ctypes.c_void_p
         for g, (m, join) in enumerate(zip(machines, joins)):
             dev = m.home
             m.prepare_capture()
@@ -449,99 +440,86 @@ class _Rounds:
             cap.done()
             self.streams.append(stream)
             self.caps.append(cap)
+            raw = (P * len(cap.graphs))(*[gr.raw_cuda_graph() for gr in cap.graphs])
+            exec_ = P()
+            with torch.cuda.device(dev):
+                _check(self.lib.c3d_switch_build(len(cap.graphs), raw, cap.seg.data_ptr(),
+                                                 cap.ran.data_ptr(), ctypes.byref(exec_)),
+                       "building a machine's segment graph (SWITCH nodes need CUDA 12.8)")
+            self.execs.append(exec_)
         G = len(machines)
         home = machines[0].home
+        n_polls = UNITS_PER_LAUNCH // POLL_EVERY
+        # each machine's done and free events, then the polls' on machine 0's card
+        for card in [_card(d) for d in devices for _ in range(2)] + [_card(home)] * n_polls:
+            ev = P()
+            _check(self.lib.c3d_event_create(card, ctypes.byref(ev)), "creating an event")
+            self.events.append(ev)
+        # machine 0's segment code after every POLL_EVERY-th round of a batch
+        self.polled = torch.zeros(n_polls, dtype=torch.int64, pin_memory=True)
         # the copies of every round: machine g pulls each other machine's
         # rows of the boards into its own
         copies = [(g, h) for g in range(G) for h in range(G) if h != g]
         rec = joins[0].record
-        P = ctypes.c_void_p
-        dst = (P * len(copies))(*[joins[g].board.data_ptr() + joins[g].rows[h][0] * rec
-                                  for g, h in copies])
-        src = (P * len(copies))(*[joins[h].board.data_ptr() + joins[h].rows[h][0] * rec
-                                  for g, h in copies])
-        size = (ctypes.c_longlong * len(copies))(*[
-            (joins[h].rows[h][1] - joins[h].rows[h][0]) * rec for g, h in copies])
-        self.one_graph = len(cards) == 1 and not _stream_rounds[0]
-        if self.one_graph:
-            graphs = [gr.raw_cuda_graph() for cap in self.caps for gr in cap.graphs]
-            self.count = torch.zeros(1, dtype=torch.int32, device=home)
-            exec_ = P()
-            with torch.cuda.device(home):
-                _check(self.lib.c3d_rounds_build(
-                    G, (ctypes.c_int * G)(*[len(cap.graphs) for cap in self.caps]),
-                    (P * len(graphs))(*graphs), (P * G)(*[c.seg.data_ptr() for c in self.caps]),
-                    len(copies), dst, src, size, machines[0].status.data_ptr(),
-                    machines[0].DONE, self.count.data_ptr(), UNITS_PER_LAUNCH,
-                    ctypes.byref(exec_)),
-                    "building the rounds' graph (SWITCH and WHILE nodes need CUDA 12.8)")
-            self.execs.append(exec_)
-        else:
-            for m, cap in zip(machines, self.caps):
-                raw = (P * len(cap.graphs))(*[gr.raw_cuda_graph() for gr in cap.graphs])
-                exec_ = P()
-                with torch.cuda.device(m.home):
-                    _check(self.lib.c3d_switch_build(len(cap.graphs), raw, cap.seg.data_ptr(),
-                                                     ctypes.byref(exec_)),
-                           "building a machine's segment graph (SWITCH nodes need CUDA 12.8)")
-                self.execs.append(exec_)
-                for _ in range(2):
-                    ev = P()
-                    _check(self.lib.c3d_event_create(_card(m.home), ctypes.byref(ev)),
-                           "creating an event")
-                    self.events.append(ev)
-            self.gathered = torch.zeros((G, len(machines[0].status)), dtype=torch.int64,
-                                        device=home)
-            self.args = (
-                UNITS_PER_LAUNCH, G, (ctypes.c_int * G)(*[_card(d) for d in devices]),
-                (P * G)(*[e.value for e in self.execs]),
-                (P * G)(*[s.cuda_stream for s in self.streams]),
-                (P * G)(*[self.events[2 * g].value for g in range(G)]),
-                (P * G)(*[self.events[2 * g + 1].value for g in range(G)]),
-                len(copies), (ctypes.c_int * len(copies))(*[g for g, _ in copies]),
-                dst, src, size, (P * G)(*[self.gathered[g].data_ptr() for g in range(G)]),
-                (P * G)(*[m.status.data_ptr() for m in machines]),
-                len(machines[0].status) * 8)
+        S = len(machines[0].status)
+        # each machine's status, segment code and segments run, read once a batch
+        self.gathered = torch.zeros((G, S + 2), dtype=torch.int64, device=home)
+        gather = [(self.gathered[g].data_ptr() + 8 * k, src.data_ptr(), 8 * n)
+                  for g, (m, cap) in enumerate(zip(machines, self.caps))
+                  for k, src, n in ((0, m.status, S), (S, cap.seg, 1), (S + 1, cap.ran, 1))]
+        self.enqueued = ctypes.c_int(0)
+        LLs = ctypes.c_longlong
+        self.args = (
+            UNITS_PER_LAUNCH, G, (ctypes.c_int * G)(*[_card(d) for d in devices]),
+            (P * G)(*[e.value for e in self.execs]),
+            (P * G)(*[s.cuda_stream for s in self.streams]),
+            (P * G)(*[self.events[2 * g].value for g in range(G)]),
+            (P * G)(*[self.events[2 * g + 1].value for g in range(G)]),
+            len(copies), (ctypes.c_int * len(copies))(*[g for g, _ in copies]),
+            (P * len(copies))(*[joins[g].board.data_ptr() + joins[g].rows[h][0] * rec
+                                for g, h in copies]),
+            (P * len(copies))(*[joins[h].board.data_ptr() + joins[h].rows[h][0] * rec
+                                for g, h in copies]),
+            (LLs * len(copies))(*[(joins[h].rows[h][1] - joins[h].rows[h][0]) * rec
+                                  for g, h in copies]),
+            POLL_EVERY, n_polls, self.caps[0].seg.data_ptr(), self.polled.data_ptr(),
+            (P * n_polls)(*[e.value for e in self.events[2 * G:]]),
+            len(gather), (P * len(gather))(*[d for d, _, _ in gather]),
+            (P * len(gather))(*[s for _, s, _ in gather]),
+            (LLs * len(gather))(*[n for _, _, n in gather]), ctypes.byref(self.enqueued))
         for d in cards:
             torch.cuda.synchronize(d)
         self.capture_s = time.perf_counter() - t0
 
-    def _launch(self):
-        """One batch of rounds: the machines' status rows, read once, and
-        the rounds run."""
-        ms = self.machines
-        home = ms[0].home
-        if self.one_graph:
-            stream = torch.cuda.current_stream(home)
-            _check(self.lib.c3d_machine_launch(self.execs[0], stream.cuda_stream),
-                   "a launch of the rounds")
-            read = host_array(torch.cat([m.status for m in ms]
-                                        + [self.count.to(torch.int64)]))
-            return read[:-1].reshape(len(ms), -1), int(read[-1])
-        _check(self.lib.c3d_rounds(*self.args), "a batch of rounds")
-        torch.cuda.current_stream(home).wait_stream(self.streams[0])
-        return host_array(self.gathered), UNITS_PER_LAUNCH
-
     def run(self):
         ms = self.machines
+        S = len(ms[0].status)
         for m, cap, stream in zip(ms, self.caps, self.streams):
             cap.seg.copy_(cap.table[m.first_phase])
-            if not self.one_graph:
-                stream.wait_stream(torch.cuda.current_stream(m.home))
+            cap.ran.zero_()
+            stream.wait_stream(torch.cuda.current_stream(m.home))
+        home = ms[0].home
+        ran = 0
         while True:
-            rows, rounds = self._launch()
+            _check(self.lib.c3d_rounds(*self.args), "a batch of rounds")
+            torch.cuda.current_stream(home).wait_stream(self.streams[0])
+            rows = host_array(self.gathered)
             _counts["launches"] += 1
-            _counts["rounds"] += rounds
-            done = rows[:, 0] == ms[0].DONE
-            if done.all():
+            _counts["rounds_enqueued"] += self.enqueued.value
+            _counts["rounds"] += int(rows[0, S + 1]) - ran
+            ran = int(rows[0, S + 1])
+            ended = rows[:, S] < 0
+            if ended.all():
                 break
-            if done.any():
-                raise RuntimeError("the rounds driver's machines disagree: phases "
-                                   f"{rows[:, 0].tolist()}")
-        if not self.one_graph:
-            for m, stream in zip(ms, self.streams):
-                torch.cuda.current_stream(m.home).wait_stream(stream)
-        status = _fold(ms, rows)
+            if ended.any():
+                raise RuntimeError("the rounds driver's machines disagree: segment codes "
+                                   f"{rows[:, S].tolist()}")
+        for m, stream in zip(ms, self.streams):
+            torch.cuda.current_stream(m.home).wait_stream(stream)
+        if not (rows[:, 0] == ms[0].DONE).all():
+            raise RuntimeError("the rounds driver's machines stopped at phases "
+                               f"{rows[:, 0].tolist()}, not DONE")
+        status = _fold(ms, rows)[:S]
         _add_tallies(ms[0], status)
         return status
 
@@ -562,22 +540,27 @@ def _run_rounds_threads(machines, joins):
     stops at each join (a segment's end). A round lets every machine run
     one segment, one machine after the other (no two threads hold Python
     at once), then the main thread makes every machine's copies of the
-    others' posts; it reads the status once per batch of
-    :data:`UNITS_PER_LAUNCH` rounds, as the card's driver does."""
+    others' posts. A batch ends after :data:`UNITS_PER_LAUNCH` rounds or
+    when machine 0 has no segment left (a unit's last segment ran and the
+    phase it set has no unit: the card's code -1), and the status is read
+    once a batch, as the card's driver does."""
     G = len(machines)
     go = [threading.Semaphore(0) for _ in range(G)]
     ended = threading.Semaphore(0)
     flags = dict(stop=False)
     errors = [None] * G
     where = [None] * G
+    # whether the machine's last segment ended a unit and left no segment
+    last = [False] * G
 
     def worker(g):
         m, join = machines[g], joins[g]
         units = m.units()
         step = [None, 0]
 
-        def cut():
+        def cut(ends_unit=False):
             where[g] = tuple(step)
+            last[g] = ends_unit and int(m.i.phase) == m.DONE
             step[1] += 1
             ended.release()
             go[g].acquire()
@@ -595,7 +578,7 @@ def _run_rounds_threads(machines, joins):
                         units[phase][1]()
                         if g == 0:
                             _counts["eager_units"] += 1
-                    cut()
+                    cut(ends_unit=True)
         except _Stop:
             pass
         except BaseException as e:     # noqa: BLE001 - handed to the main thread
@@ -624,14 +607,19 @@ def _run_rounds_threads(machines, joins):
                         if h != g:
                             lo, hi = joins[h].rows[h]
                             joins[g].board[lo:hi].copy_(joins[h].board[lo:hi])
-                _counts["rounds"] += 1
+                _counts["rounds_enqueued"] += 1
+                if where[0][0] != machines[0].DONE:
+                    _counts["rounds"] += 1
+                if last[0]:
+                    break
             _counts["launches"] += 1
             rows = host_array(torch.stack([m.status for m in machines]))
-            done = rows[:, 0] == machines[0].DONE
-            if done.any() and not done.all():
-                raise RuntimeError("the rounds driver's machines disagree: phases "
-                                   f"{rows[:, 0].tolist()}")
-            flags["stop"] = bool(done.all())
+            if any(last) and not all(last):
+                raise RuntimeError(f"the rounds driver's machines disagree: ended {last}")
+            flags["stop"] = all(last)
+        if not (rows[:, 0] == machines[0].DONE).all():
+            raise RuntimeError("the rounds driver's machines stopped at phases "
+                               f"{rows[:, 0].tolist()}, not DONE")
     finally:
         flags["stop"] = True
         for g in range(G):
@@ -691,7 +679,6 @@ def run_period(key, build, load, device: torch.device, mesh=None,
             for m in machines:
                 load(m)
             return machines, _run_rounds_threads(machines, joins)
-        key = (key, _stream_rounds[0])
         gm = _cache.get(key)
         if gm is None:
             while len(_cache) >= MAX_MACHINES:

@@ -915,21 +915,20 @@ def test_graph_driver_on_blocks_matches_eager(form):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("streams", [False, True], ids=["one_graph", "streams"])
 @pytest.mark.parametrize("form,machines", [("bundle", (0, 1, 2, 3)), ("bundle", (0, 0, 1, 1)),
                                            ("cg_line", (0, 1, 2, 3)), ("f64", (0, 1, 2, 3))],
                          ids=["bundle-4", "bundle-2", "cg_line-4", "f64-4"])
-def test_machines_on_one_card_match_one_machine(form, machines, streams):
+def test_machines_on_one_card_match_one_machine(form, machines):
     """The water hour of a 64-box catchment on 2 x 2 blocks of the card
     split into 4 (or 2) machines, run in rounds twice (the second on the
-    kept machines) — in one graph, or (``stream_rounds``) each machine on
-    its own stream with the rounds enqueued from the host, as on several
-    cards — against one machine over the same blocks graph-driven: the
-    same stats, MBR and bundle launches, heads bit-equal; one capture;
-    host reads one a batch of rounds."""
+    kept machines), each machine on its own stream with the rounds
+    enqueued from the host, as on several cards, against one machine over
+    the same blocks graph-driven: the same stats, MBR and bundle launches,
+    heads bit-equal; one capture; host reads one a batch of rounds, as
+    many batches as the rounds run need (a batch ends early once the last
+    segment has run)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
-    import contextlib
     from criteria3d_tpu_torch import compute_period_stats
     from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh, remesh,
                                                         shard_pytree)
@@ -946,8 +945,7 @@ def test_machines_on_one_card_match_one_machine(form, machines, streams):
         params = dataclasses.replace(GRAPH_FORMS[form](), mesh=mesh)
         g, s = remesh(grid, mesh), remesh(state, mesh)
         return [compute_period_stats(g, params, s, 3600.0) for _ in range(n)]
-    with device_loop.stream_rounds() if streams else contextlib.nullcontext():
-        r = _driven(lambda: hour(split, 2), False)
+    r = _driven(lambda: hour(split, 2), False)
     o = _driven(lambda: hour(one, 1), False)
     oo, os_ = o[0][0]
     assert r[2] == 2 * o[2] and (o[2] > 0) == (form == "bundle")
@@ -957,6 +955,9 @@ def test_machines_on_one_card_match_one_machine(form, machines, streams):
         assert torch.equal(gather_pytree(ro).h, gather_pytree(oo).h)
     assert r[4]["rounds_periods"] == 2 and r[4]["captures"] == 1
     assert r[1] == r[4]["launches"] >= 2, (r[1], r[4])
+    per_hour = r[4]["rounds"] // 2
+    assert r[4]["launches"] == 2 * -(-per_hour // device_loop.UNITS_PER_LAUNCH), r[4]
+    assert per_hour <= r[4]["rounds_enqueued"] // 2 < per_hour + device_loop.UNITS_PER_LAUNCH
 
 
 @pytest.mark.cuda

@@ -96,8 +96,10 @@ def test_machines_bit_equal_to_one_machine(valley, form, shape, machines):
     against one machine over the same blocks (the eager driver, as the
     mesh's period ran before the split): stats, heads, dt, every balance
     and the bundle launches equal, bit for bit. The rounds driver reads
-    the host once a batch of UNITS_PER_LAUNCH rounds, and nothing else in
-    the period reads it."""
+    the host once a batch of at most UNITS_PER_LAUNCH rounds, a batch
+    ending early once machine 0 has no segment left, and nothing else in
+    the period reads it; the rounds counted are those that ran a segment,
+    as many for 2 as for 4 machines."""
     one = period(valley, form, shape)
     split = period(valley, form, shape, machines)
     assert one["driver"] == "eager" and split["driver"] == "rounds"
@@ -114,7 +116,11 @@ def test_machines_bit_equal_to_one_machine(valley, form, shape, machines):
                                getattr(getattr(b, bal), f.name)), (bal, f.name)
     assert split["launches"] == one["launches"]
     assert split["reads"] == split["counts"]["launches"] >= 1
-    assert split["counts"]["rounds"] == split["counts"]["launches"] * DL.UNITS_PER_LAUNCH
+    rounds = split["counts"]["rounds"]
+    assert split["counts"]["launches"] == -(-rounds // DL.UNITS_PER_LAUNCH)
+    assert split["counts"]["rounds_enqueued"] == rounds
+    other = next(m for s, m in GROUPINGS if s == shape and m != machines)
+    assert period(valley, form, shape, other)["counts"]["rounds"] == rounds
 
 
 @pytest.mark.parametrize("form", list(FORMS))
