@@ -183,16 +183,14 @@ def sample(run, dev: torch.device, max_runs: int, long_s: float | None = None):
     return runs, statistics.median(runs), out
 
 
-def prepare_driver(grid, params: SolverParameters, state, zero_period=None,
-                   kind: str = "water") -> dict:
+def prepare_driver(grid, params: SolverParameters, state, zero_period=None) -> dict:
     """Ahead of a leg's timed runs: a zero-length period (``zero_period()``,
     else a water period of ``state``), in which the graph or rounds driver
     builds and captures the machine (the eager driver runs no step).
-    Returns the leg's driver (of a ``kind`` machine: "water" or "coupled"),
-    why it is eager (or ""), the units per launch and the capture
-    seconds."""
+    Returns the leg's driver, why it is eager (or ""), the units per launch
+    and the capture seconds."""
     home = grid.mesh.home if isinstance(grid, Blocked) else grid.device
-    driver, why = device_loop.driver_for(home, params.mesh, kind)
+    driver, why = device_loop.driver_for(home, params.mesh)
     before = device_loop.counts()["capture_s"]
     if zero_period is None:
         compute_period_stats(grid, params, state, 0.0)
@@ -305,7 +303,7 @@ def coupled_leg(grid: Grid, params: SolverParameters, env=os.environ,
     hparams, hgrid, water0, heat0, boundary = inputs
     sync(dev)
     driver = prepare_driver(hgrid, hparams, water0, lambda: C.compute_period_coupled(
-        hgrid, hparams, water0, heat0, boundary, 0.0), kind="coupled")
+        hgrid, hparams, water0, heat0, boundary, 0.0))
 
     def run():
         C.reset_counts()

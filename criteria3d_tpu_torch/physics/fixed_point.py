@@ -140,6 +140,5 @@ def run(kind: str, body, inputs: dict, carries: dict, consts: dict, max_iter: in
     m, status = device_loop.run_period(
         _key(kind, inputs, carries, consts, max_iter, first_it),
         lambda: FixedPoint(body, inputs, carries, consts, max_iter, first_it),
-        lambda m: m.load(inputs, carries), device, what="fixed_points",
-        kind="fixed_point")
+        lambda m: m.load(inputs, carries), device, what="fixed_points")
     return {k: v.clone() for k, v in m.s.items()}, int(status[1])

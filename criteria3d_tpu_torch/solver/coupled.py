@@ -20,9 +20,11 @@ sub-step's system, a sweep, the sub-step's end, the chunk's end, the step's
 end, the period's water balance). Every carry of the nest is a buffer or a
 0-d slot on the device (the dts in float64 with JAX's operations in JAX's
 order), so solver/device_loop.py drives it like the water machine: as CUDA
-graphs on one card, whole or in blocks, unit by unit from Python on the CPU
-and a mesh over several cards (a host read after each unit that decides
-from data). The heat hooks of the water
+graphs on one card, whole or in blocks; in rounds on a mesh whose blocks
+several machines run (one a card, or ``make_mesh``'s ``machines``), each
+machine over its part of the blocks; unit by unit from Python on the CPU
+(a host read after each unit that decides from data). The heat hooks of
+the water
 step read the machine's buffers (the step's temperatures, conductances and
 frozen flux); the HeatBoundary and the heat state are copied into buffers
 each period. The counts of a run are in :func:`counts` (reset them with
@@ -35,6 +37,11 @@ hooks are per-block closures over each block's buffers, the heat functions
 run per block with their sums and maxima combined on ``mesh.home``
 (solver/heat.py) and the heat sweeps refresh x's rings every ``RING``
 sweeps and at a solve's end, in a unit the phase guards. ``gather_pytree`` joins the result.
+Split into machines, each combines every block's partials in the mesh's
+row-major order from its ``sharding.Join`` board, so the result is
+bit-equal to one machine's; a chunk's Courant maximum and flow sum, and a
+sub-step's two storage sums, share a join (one round each), and every
+heat sweep keeps its own max-norm join (JAX's per-sweep stop test).
 """
 
 from __future__ import annotations
@@ -47,11 +54,12 @@ from criteria3d_tpu_torch.core.grid import Grid
 from criteria3d_tpu_torch.core.state import (BalanceData, SolverParameters,
                                              WaterState)
 from criteria3d_tpu_torch.device import host_read
-from criteria3d_tpu_torch.parallel.sharding import Blocked, blocks_of, bmap, exchange
+from criteria3d_tpu_torch.parallel.sharding import (Blocked, blocks_of, bmap, combine,
+                                                    exchange, part)
 from criteria3d_tpu_torch.solver import device_loop
 from criteria3d_tpu_torch.solver import heat as H
 from criteria3d_tpu_torch.solver.step import (DONE, START, _check_blocks, _clone,
-                                              _empty, _home, _Machine,
+                                              _empty, _home, _Machine, _merged,
                                               check_supported, shapes_of)
 
 __all__ = ["compute_step_coupled", "compute_period_coupled", "counts",
@@ -330,12 +338,15 @@ class _CoupledMachine(_Machine):
         g, p, i, r = self.grid, self.params, self.i, self.r
         with torch.profiler.record_function(H.HEAT_ASSEMBLE_RANGE):
             chunk_max = torch.minimum(r.dt_pref, r.dt - r.t_sum)
-            flow, chunk, _ = H.boundary_heat(g, p, self.heat, self.boundary, self.water,
-                                             chunk_max, r.dt, self.conduct,
-                                             self.evap_rate)
+            flow, courant, _ = H.boundary_heat_parts(g, p, self.heat, self.boundary,
+                                                     self.water, chunk_max, r.dt,
+                                                     self.conduct, self.evap_rate)
             _put(self.flow, flow)
-            r.chunk.copy_(chunk)
-            r.flow_sum.copy_(H._masked_sum(self.heat_mask, self.flow))
+            # the Courant maximum and the flow's sum in one join
+            _, flow_sum, courant_max = combine(
+                sums=(H.masked_parts(self.heat_mask, self.flow),), maxes=(courant,))
+            r.chunk.copy_(H.chunk_dt(p, courant_max, chunk_max))
+            r.flow_sum.copy_(flow_sum)
             cache = H.energy_invariants(g, p, self.water, r.chunk, r.dt)
             if self.frozen:
                 _put(self.fz, H.chunk_frozen_system(g, p, self.T, self.water, r.chunk,
@@ -454,17 +465,20 @@ class _CoupledMachine(_Machine):
 def _run(grid, params: SolverParameters, water: WaterState, heat: H.HeatState,
          boundary: H.HeatBoundary, period: float, one_step: bool, max_substeps: int):
     """The coupled machine driven over one period (or step); its counts
-    added to :func:`counts`. Returns the machine."""
+    added to :func:`counts`. Returns the machine (under the rounds driver
+    the machines' parts merged, ``step._merged``)."""
     check_supported(params)
     # what a kept graph machine was captured for: the kind, the grid, the
     # parameters, the mode, the chunk cap and the inputs' shapes
     key = ("coupled", id(grid), params, one_step, max_substeps, shapes_of(water),
            shapes_of(heat), shapes_of(boundary))
     m, status = device_loop.run_period(
-        key, lambda: _CoupledMachine(grid, params, water, heat, boundary, one_step,
-                                     max_substeps),
-        lambda m: m.load(water, heat, boundary, period), _home(grid), params.mesh,
-        kind="coupled")
+        key, lambda blocks=None: _CoupledMachine(
+            part(grid, blocks), params, part(water, blocks), part(heat, blocks),
+            part(boundary, blocks), one_step, max_substeps),
+        lambda m: m.load(water, heat, boundary, period), _home(grid), params.mesh)
+    if isinstance(m, list):
+        m = _merged(m)
     cnt, idx = compute_step_coupled.counts, m.i.index
     for name, slot in (("steps", "steps"), ("attempts", "attempts"),
                        ("approximations", "approximations"),

@@ -22,14 +22,15 @@ This module runs the units.
   the next run of the same key (the kind of machine, grid, parameters and
   shapes), at most :data:`MAX_MACHINES` of them, the least recently run
   dropped first; a run's inputs are copied into the machine's buffers.
-- **The rounds driver** (a water period on a mesh whose blocks several
-  machines run: one per card of a mesh over several cards, or the explicit
-  grouping of ``make_mesh``'s ``machines``, which may put one card's blocks
-  into several). Each machine holds its blocks' part of every buffer and
-  its own scalars on its own device, and the machines meet at every join
-  (a sum, a maximum, a ring refresh: ``sharding.Join``), where each posts
-  its blocks' partials and ring strips and reads every other machine's. A
-  unit is thus cut at its joins into *segments*; every machine runs one
+- **The rounds driver** (a water or coupled period on a mesh whose blocks
+  several machines run: one per card of a mesh over several cards, or the
+  explicit grouping of ``make_mesh``'s ``machines``, which may put one
+  card's blocks into several). Each machine holds its blocks' part of
+  every buffer and its own scalars on its own device, and the machines
+  meet at every join (a sum, a maximum, a ring refresh:
+  ``sharding.Join``), where each posts its blocks' partials and ring
+  strips and reads every other machine's. A unit is thus cut at its joins
+  into *segments*; every machine runs one
   segment a *round*, and between rounds each machine copies the others'
   posts into its own board. On the card each segment is a CUDA graph
   captured on the machine's own stream and pool, and a SWITCH on a code on
@@ -50,10 +51,9 @@ This module runs the units.
   machine's int carries after each unit that decides its next phase from
   data (an assembly's Courant test, an iteration's stop, a balance, an
   attempt's end); after the others it takes the next phase from the
-  machine's ``follows()`` without a read. It serves the CPU and the coupled
-  period on a mesh over several cards (its rounds are still to come);
-  :func:`forced_eager` asks for it on the card (to compare the drivers: it
-  then runs one machine over all the blocks).
+  machine's ``follows()`` without a read. It serves the CPU's one-machine
+  runs; :func:`forced_eager` asks for it on the card (to compare the
+  drivers: it then runs one machine over all the blocks).
 
 There is no fallback between them: where :func:`driver_for` names the graph
 or rounds driver it runs or raises (a failed capture or join, a host
@@ -74,8 +74,9 @@ units (CG iterations, sweeps or bundles, and the step's own units), so it
 takes 2-3 launches and as many host reads, and a launch of CG-line units
 (~2 ms each on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md §5) returns to
 the host within ~2 s; the coupled storm hour, with its 5,513 heat sweeps,
-takes 8 launches; a fixed point of up to 4,096 iterations, 4 a unit,
-takes one.
+takes 8 launches (in rounds, 4 machines: 16,192 rounds, one a join and
+one a unit's end, in 16 batches); a fixed point of up to 4,096
+iterations, 4 a unit, takes one.
 """
 
 from __future__ import annotations
@@ -170,25 +171,21 @@ def _card(d: torch.device) -> int:
     return torch.cuda.current_device() if torch.cuda.is_available() else 0
 
 
-def driver_for(device: torch.device, mesh, kind: str = "water") -> tuple[str, str]:
-    """The driver of a machine of ``kind`` ("water", "coupled" or
-    "fixed_point") on ``device`` (over ``mesh``) and why: ``("rounds", "")``
-    for a water period (or step) on a mesh whose blocks several machines
-    run (:func:`~criteria3d_tpu_torch.parallel.sharding.machine_groups`: a
+def driver_for(device: torch.device, mesh) -> tuple[str, str]:
+    """The driver of a machine on ``device`` (over ``mesh``) and why:
+    ``("rounds", "")`` for a water or coupled period (or step) on a mesh
+    whose blocks several machines run
+    (:func:`~criteria3d_tpu_torch.parallel.sharding.machine_groups`: a
     mesh over several cards, or an explicit grouping), on the card or the
-    CPU; ``("graph", "")`` on a CUDA device, for a whole box or a mesh whose
-    blocks all lie on ``device``'s card (the coupled period one machine
-    whatever the grouping); else ``("eager", why)``."""
+    CPU; ``("graph", "")`` on a CUDA device, for a whole box or a mesh of
+    one machine (its blocks all on ``device``'s card); else ``("eager",
+    why)``."""
     if _force_eager[0]:
         return "eager", "asked for (device_loop.forced_eager)"
-    if kind == "water" and mesh is not None and len(machine_groups(mesh)) > 1:
+    if mesh is not None and len(machine_groups(mesh)) > 1:
         return "rounds", ""
     if device.type != "cuda":
         return "eager", f"a {device.type} device: CUDA graphs run on the card only"
-    if mesh is not None and any(d.type != "cuda" or _card(d) != _card(device)
-                                for d in mesh.devices.flat):
-        return "eager", ("the coupled period on a mesh over several cards: its heat "
-                         "units are not yet cut at their joins into per-card rounds")
     return "graph", ""
 
 
@@ -319,8 +316,10 @@ def clear() -> None:
 def _fold(machines, rows: np.ndarray) -> np.ndarray:
     """The status of machines run side by side (``rows``, one a machine):
     the first machine's, the counts kept on the cards summed over the
-    machines (each counts its own blocks' launches). Machines that
-    disagree on anything else raise."""
+    machines (each counts its own blocks' launches; what happens once for
+    the whole mesh, a restore or a heat sweep, only the machine holding
+    block (0, 0) counts). Machines that disagree on anything else
+    (the period's stats, chunks, sub-steps) raise."""
     tally = [k for _, _, k in machines[0].tallies()]
     rest = [k for k in range(rows.shape[1]) if k not in tally]
     if not (rows[:, rest] == rows[0, rest]).all():
@@ -662,7 +661,7 @@ def _build_rounds(build, mesh):
 
 
 def run_period(key, build, load, device: torch.device, mesh=None,
-               what: str = "periods", kind: str = "water"):
+               what: str = "periods"):
     """Run one period (or step, or fixed point: ``what`` names the count
     it adds to) of a machine to DONE and return ``(machine, status)``:
     ``build()`` makes the machine (under the graph driver only when ``key``
@@ -671,7 +670,7 @@ def run_period(key, build, load, device: torch.device, mesh=None,
     the mesh's blocks ``blocks`` (one a ``machine_groups`` entry; it names
     the field its joins exchange with ``join_like()``), ``load`` runs on
     each, and the machine returned is the list of them."""
-    driver, _ = driver_for(device, mesh, kind)
+    driver, _ = driver_for(device, mesh)
     if driver == "rounds":
         _counts["rounds_periods"] += 1
         if device.type != "cuda":

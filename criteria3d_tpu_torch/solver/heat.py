@@ -70,8 +70,9 @@ from criteria3d_tpu_torch.ops import mul0 as _mul0
 from criteria3d_tpu_torch.ops import rdiv as _rdiv
 from criteria3d_tpu_torch.ops import sq as _sq
 from criteria3d_tpu_torch.parallel.sharding import (block_max, block_sum,
-                                                    blocks_of, bmap, exchange,
-                                                    first_block, owned, unzip)
+                                                    blocks_of, bmap, combine,
+                                                    exchange, first_block,
+                                                    holds_home, owned, unzip)
 from criteria3d_tpu_torch.physics.meteo import (
     P0, pressure_from_altitude, saturation_vapor_pressure,
     vapor_concentration_from_pressure)
@@ -86,7 +87,8 @@ __all__ = ["HeatState", "HeatBoundary", "heat_capacity",
            "heat_storage", "update_boundary_heat", "heat_surface_water_sink",
            "thermal_water_flux", "surface_conductances",
            "chunk_frozen_system", "heat_substep_frozen", "energy_invariants",
-           "heat_jacobi_solve", "boundary_heat", "chunk_dt", "heat_system",
+           "heat_jacobi_solve", "boundary_heat", "boundary_heat_parts",
+           "masked_parts", "chunk_dt", "heat_system",
            "fold_dt", "heat_sweep", "sweep_goes_on", "sweep_budget",
            "heat_tolerance", "substep_balance", "substep_end", "accept_substep",
            "HEAT_ASSEMBLE_RANGE", "HEAT_SOLVE_RANGE"]
@@ -114,12 +116,17 @@ def _heat_mask(grid: Grid) -> torch.Tensor:
     return W._set0(grid.mask, False)
 
 
+def masked_parts(mask, field):
+    """The partials of :func:`_masked_sum`: each block's sum of ``field``
+    over the owned cells of ``mask`` (one sum on a whole box)."""
+    ring = _ring(field)
+    return bmap(lambda m, f: owned(torch.where(m, f, 0.0), ring).sum(), mask, field)
+
+
 def _masked_sum(mask, field):
     """The sum of ``field`` over the cells of ``mask``: per block over its
     owned cells, added on ``mesh.home`` (one sum on a whole box)."""
-    ring = _ring(field)
-    return block_sum(bmap(lambda m, f: owned(torch.where(m, f, 0.0), ring).sum(),
-                          mask, field))
+    return block_sum(masked_parts(mask, field))
 
 
 # ----------------------------------------------------------------------
@@ -724,16 +731,26 @@ def boundary_heat(grid: Grid, params: SolverParameters, heat: HeatState,
     [s] are numbers or 0-d tensors. ``conductances`` is the step's frozen
     (aero_k, soil_k) pair, ``evap_rate`` the water step's last HeatSurface
     boundary rate. On a mesh the flow and the dict are Blocked."""
+    flow, courant, fluxes = boundary_heat_parts(grid, params, heat, boundary, water,
+                                                dt_max, dt_water, conductances, evap_rate)
+    return flow, chunk_dt(params, block_max(courant), dt_max), fluxes
+
+
+def boundary_heat_parts(grid: Grid, params: SolverParameters, heat: HeatState,
+                        boundary: HeatBoundary, water: WaterState, dt_max,
+                        dt_water=None, conductances=None, evap_rate=None):
+    """:func:`boundary_heat` before its join: ``(heat_flow, courant,
+    fluxes_dict)``, ``courant`` the blocks' owned-cell Courant maxima (the
+    whole box's maximum without a mesh), whose maximum :func:`chunk_dt`
+    reads; a caller joins it with other partials (solver/coupled.py's
+    chunk, with the flow's sum)."""
     dt_water = dt_max if dt_water is None else dt_water
     ring = _ring(grid)
-
-    flow, courant, fluxes = unzip(bmap(
+    return unzip(bmap(
         lambda g, hs, bd, w, cd, er: _boundary_heat_block(
             g, params, hs, bd, w, dt_max, dt_water, cd, er, ring),
         grid, blocks_of(heat), blocks_of(boundary), blocks_of(water),
         conductances, evap_rate))
-    courant_max = block_max(courant)
-    return flow, chunk_dt(params, courant_max, dt_max), fluxes
 
 
 def chunk_dt(params: SolverParameters, courant_max: torch.Tensor, dt_max):
@@ -944,7 +961,7 @@ def _storage_from_invariants(grid: Grid, params: SolverParameters,
     """Heat storage [J] from hoisted invariants: the sensible part in
     float64, the small vapor part evaluated in float32 and summed in
     float64, as in JAX; on a mesh each part a sum of per-block float64
-    partials over owned cells."""
+    partials over owned cells, both parts in one join."""
     ring = _ring(t_new)
 
     def parts(inv, t_new, heat_mask):
@@ -961,7 +978,7 @@ def _storage_from_invariants(grid: Grid, params: SolverParameters,
             out.append(owned(torch.where(heat_mask, e32 * vfac.to(torch.float32), 0.0),
                              ring).sum(dtype=torch.float64))
         return tuple(out)
-    sums = [block_sum(p) for p in unzip(bmap(parts, inv, t_new, heat_mask))]
+    _, *sums = combine(sums=unzip(bmap(parts, inv, t_new, heat_mask)))
     return sums[0] if len(sums) == 1 else sums[0] + sums[1]
 
 
@@ -1002,7 +1019,8 @@ def heat_sweep(system, x):
     max-norm of the update in the system's dtype on the home device (on a
     mesh the maximum of the blocks' owned-cell maxima; the caller refreshes
     the rings). Counted in ``heat_jacobi_solve.sweeps`` (``device.tally``:
-    on the card under a CUDA graph, a count on the card)."""
+    on the card under a CUDA graph, a count on the card; on a mesh run by
+    several machines, by the machine holding block (0, 0))."""
     ring = _ring(x)
 
     def sweep(b_p, c_up, c_down, c_lat, mask, x):
@@ -1015,7 +1033,8 @@ def heat_sweep(system, x):
 
     x_new, part = unzip(bmap(sweep, *system, x))
     norm = block_max(part)
-    tally(heat_jacobi_solve, "sweeps", norm.device)
+    if holds_home(x):
+        tally(heat_jacobi_solve, "sweeps", norm.device)
     return x_new, norm
 
 

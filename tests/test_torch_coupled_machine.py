@@ -230,23 +230,21 @@ def test_forced_branches_match_jax(branch):
 
 
 def test_driver_off_the_card_and_on_a_mesh():
-    """The coupled period takes the eager driver on the CPU and on a mesh
-    over several cards, the graph driver on a mesh of one card's blocks
-    (``driver_for`` names each), and the machine on a (1, 1) CPU mesh (one
+    """The coupled period takes the eager driver on the CPU, the graph
+    driver on a mesh of one card's blocks and the rounds driver on a mesh
+    over several cards (``driver_for`` names each), and the machine on a
+    (1, 1) CPU mesh (one
     block with its 8-cell ring; tests/test_torch_sharding_heat.py runs four
     meshes of more blocks on a larger box) gives the whole box's counts,
     host reads, h and T to the bit."""
     from criteria3d_tpu_torch.device import host_read
     _, tp, _, port, _, _ = jax_inputs("fast_frozen")
-    assert device_loop.driver_for(torch.device("cpu"), None, "coupled")[0] == "eager"
+    assert device_loop.driver_for(torch.device("cpu"), None)[0] == "eager"
     mesh = make_mesh(1, devices=[torch.device("cpu")])
-    assert device_loop.driver_for(torch.device("cpu"), mesh, "coupled")[0] == "eager"
+    assert device_loop.driver_for(torch.device("cpu"), mesh)[0] == "eager"
     cuda0, cuda1 = torch.device("cuda", 0), torch.device("cuda", 1)
-    assert device_loop.driver_for(cuda0, make_mesh(4, devices=[cuda0] * 4),
-                                  "coupled") == ("graph", "")
-    driver, why = device_loop.driver_for(cuda0, make_mesh(2, devices=[cuda0, cuda1]),
-                                         "coupled")
-    assert driver == "eager" and "several cards" in why
+    assert device_loop.driver_for(cuda0, make_mesh(4, devices=[cuda0] * 4)) == ("graph", "")
+    assert device_loop.driver_for(cuda0, make_mesh(2, devices=[cuda0, cuda1])) == ("rounds", "")
     runs = []
     for m in (None, mesh):
         inputs = port if m is None else [shard_pytree(x, m) for x in port]

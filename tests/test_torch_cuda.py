@@ -2,8 +2,10 @@
 tiled bundled-Jacobi design against the per-sweep one, the mesh loop and
 the partitioned water and coupled hours on blocks of the card against one
 device, the water and coupled periods' CUDA graphs against their eager
-driver (whole and on blocks of the card), the fixed points of HYDRALL and
-the vine graph-driven against eager-driven, small hours of
+driver (whole and on blocks of the card), the water and coupled periods
+on one card's blocks split into machines (rounds) against one machine,
+the fixed points of HYDRALL and the vine graph-driven against
+eager-driven, small hours of
 the float64, CG and coupled water + heat paths, the model cycle's physics
 maps and hours, and a project's hours from files, on the card against the
 CPU path. Every test here carries the ``cuda`` marker and skips where
@@ -1027,6 +1029,53 @@ def test_graph_driver_coupled_hour_on_blocks_matches_eager():
     assert g[4]["graph_periods"] == 2 and g[4]["captures"] == 1
     assert e[4]["eager_periods"] == 1 and g[1] * 10 <= e[1], (g[1], e[1])
     assert g[5] <= 2.0 * e[5], (g[5], e[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,machines", [("frozen", (0, 1, 2, 3)), ("frozen", (0, 0, 1, 1)),
+                                           ("bundle", (0, 1, 2, 3))],
+                         ids=["frozen-4", "frozen-2", "bundle-4"])
+def test_coupled_machines_on_one_card_match_one_machine(form, machines):
+    """The coupled storm hour of a 32 valley (cell 10 m) on 2 x 2 blocks of
+    the card split into 4 (or 2) machines, run in rounds (each machine on
+    its own stream), against one machine over the same blocks graph-driven:
+    every count (the heat sweeps counted once, not once a machine), the
+    bundle launches and both balances equal, h and T bit-equal; one
+    capture; host reads one a batch of rounds, as many batches as the
+    rounds run need."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs run only on the card")
+    from criteria3d_tpu_torch.parallel.sharding import (gather_pytree, make_mesh, remesh,
+                                                        shard_pytree)
+    from criteria3d_tpu_torch.problems import build_coupled_problem
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    n = 32
+    rows, cols = np.mgrid[0:n, 0:n]
+    dem = 100.0 + (n - 1 - rows) * 0.5 + np.abs(cols - n // 2) * 0.8
+    one = _card_mesh()
+    split = make_mesh(4, devices=[torch.device("cuda")] * 4, machines=machines)
+    make = COUPLED_GRAPH_FORMS[form]
+    blocked = [shard_pytree(t, one)
+               for t in build_coupled_problem(dem, 10.0, make(), "cuda")]
+    assert device_loop.driver_for(split.home, split) == ("rounds", "")
+
+    def hour(mesh):
+        b = [remesh(t, mesh) for t in blocked]
+        return CP.compute_period_coupled(b[0], make(mesh=mesh), *b[1:], 3600.0)
+    r = _driven(lambda: hour(split), False)
+    o = _driven(lambda: hour(one), False)
+    assert r[3] == o[3] and o[3]["heat_sweeps"] > 0, (r[3], o[3])
+    assert r[2] == o[2] and (o[2] > 0) == (form == "bundle")
+    (rw, rh), (ow, oh) = r[0], o[0]
+    for a, b in ((rw.balance_whole.mbr, ow.balance_whole.mbr), (rh.mbr, oh.mbr),
+                 (rh.sink_whole, oh.sink_whole)):
+        assert torch.equal(a, b)
+    assert torch.equal(gather_pytree(rw).h, gather_pytree(ow).h)
+    assert torch.equal(gather_pytree(rh).t, gather_pytree(oh).t)
+    assert r[4]["rounds_periods"] == 1 and r[4]["captures"] == 1
+    rounds = r[4]["rounds"]
+    assert r[1] == r[4]["launches"] == -(-rounds // device_loop.UNITS_PER_LAUNCH), r[4]
 
 
 @pytest.mark.cuda

@@ -204,10 +204,10 @@ def test_decimal_floor_dt_matches_jax():
 def test_drivers_and_no_graph_off_the_card():
     """Which driver runs where: the graph on a CUDA device, whole or on a
     mesh whose blocks all lie on its card (the water and the coupled period
-    alike: the heat hooks no longer decide it); a water period on a mesh
-    over two distinct cards the rounds driver (one machine a card); the
-    coupled period there, the CPU and forced_eager (on the card too) take
-    the eager one, each with its reason."""
+    alike: the heat hooks no longer decide it); a water or coupled period on
+    a mesh over two distinct cards the rounds driver (one machine a card);
+    the CPU and forced_eager (on the card too) take the eager one, the CPU
+    with its reason."""
     cuda, cuda0, cuda1 = torch.device("cuda"), torch.device("cuda", 0), torch.device("cuda", 1)
     one_card = make_mesh(4, devices=[cuda0] * 4)
     two_cards = make_mesh(2, devices=[cuda0, cuda1])
@@ -215,12 +215,10 @@ def test_drivers_and_no_graph_off_the_card():
     assert device_loop.driver_for(cuda0, one_card) == ("graph", "")
     assert device_loop.driver_for(cuda0, make_mesh(1, devices=[cuda0])) == ("graph", "")
     assert device_loop.driver_for(cuda0, two_cards) == ("rounds", "")
-    for dev, mesh, word, kind in (
-            (torch.device("cpu"), None, "cpu", "water"),
-            (torch.device("cpu"), make_mesh(2, devices=["cpu"] * 2), "cpu", "water"),
-            (cuda0, two_cards, "several cards", "coupled")):
-        driver, why = device_loop.driver_for(dev, mesh, kind)
-        assert driver == "eager" and word in why
+    for dev, mesh in ((torch.device("cpu"), None),
+                      (torch.device("cpu"), make_mesh(2, devices=["cpu"] * 2))):
+        driver, why = device_loop.driver_for(dev, mesh)
+        assert driver == "eager" and "cpu" in why
     with device_loop.forced_eager():
         assert device_loop.driver_for(cuda, None)[0] == "eager"
         assert device_loop.driver_for(cuda0, one_card)[0] == "eager"

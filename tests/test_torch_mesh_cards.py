@@ -234,25 +234,21 @@ def test_a_failed_machine_raises_and_no_machine_waits():
 
 
 def test_driver_for_and_machine_groups():
-    """driver_for names the rounds driver for a water period on a mesh
-    over several cards or with an explicit grouping, the eager driver with
-    its reason for the coupled period over several cards, and the graph
-    driver for one card's mesh; the default grouping is one machine per
-    device; a machine over two devices, and remesh onto other devices,
-    raise."""
+    """driver_for names the rounds driver for a water or coupled period on
+    a mesh over several cards or with an explicit grouping, and the graph
+    driver for one card's mesh of one machine; the default grouping is one
+    machine per device; a machine over two devices, and remesh onto other
+    devices, raise."""
     cards = [torch.device("cuda", i) for i in range(4)]
     over = TS.make_mesh(4, devices=cards)
     assert TS.machine_groups(over) == [((0, 0),), ((0, 1),), ((1, 0),), ((1, 1),)]
     assert DL.driver_for(cards[0], over) == ("rounds", "")
-    driver, why = DL.driver_for(cards[0], over, "coupled")
-    assert driver == "eager" and "several cards" in why
     one = TS.make_mesh(4, devices=[cards[0]] * 4)
     assert TS.machine_groups(one) == [((0, 0), (0, 1), (1, 0), (1, 1))]
     assert DL.driver_for(cards[0], one) == ("graph", "")
     grouped = TS.make_mesh(4, devices=[cards[0]] * 4, machines=[0, 1, 1, 0])
     assert TS.machine_groups(grouped) == [((0, 0), (1, 1)), ((0, 1), (1, 0))]
     assert DL.driver_for(cards[0], grouped) == ("rounds", "")
-    assert DL.driver_for(cards[0], grouped, "coupled") == ("graph", "")
     with DL.forced_eager():
         assert DL.driver_for(cards[0], over)[0] == "eager"
     with pytest.raises(ValueError, match="several devices"):
