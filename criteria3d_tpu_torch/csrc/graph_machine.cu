@@ -37,29 +37,129 @@
 // code is copied to the host, and the host stops enqueuing once a copy that
 // has landed reads "no segment" (it never waits for one).
 //
+// The unit clock: a machine may carry one int64 buffer on the card, which
+// the machine graph's three one-thread kernels fill while its `on` flag
+// (an int32, the low word of slot 0) is set, from the card's %globaltimer
+// [ns]. reset_kernel stamps the launch's start; set_switch_kernel, once
+// it has read the phase, the unit's start; set_while_kernel the unit's end
+// (the unit's count and ns added to its phase's, its event written to the
+// ring) and, when the loop stops, the launch's end. The slots (CLK_*
+// below, then the tables; solver/device_loop.py reads the same layout):
+// the flag, the running unit's phase (-1: none), its start, the running
+// launch's start, the launches ended, the events written, the launches'
+// ns summed, the anchor's reading (c3d_clock_anchor); then n_cases counts,
+// n_cases ns, n_launches launch starts and as many ends (launch k in slot
+// k % n_launches), and n_events events (phase, start, end, launch), event
+// e in slot e % n_events, so the events written less n_events are the
+// ring's drops. The clock adds no node, kernel or launch; off, each of the
+// three kernels reads the flag and nothing else.
+//
 // SWITCH nodes need CUDA 12.8; every unit graph must hold only kernel,
 // memcpy and memset nodes on device memory (what PyTorch captures). Each C
 // entry point returns a cudaError_t (0 = success).
 
 #include <cuda_runtime.h>
 
+enum : int {
+  CLK_ON = 0,
+  CLK_PHASE = 1,
+  CLK_UNIT_T0 = 2,
+  CLK_LAUNCH_T0 = 3,
+  CLK_LAUNCHES = 4,
+  CLK_EVENTS = 5,
+  CLK_LAUNCH_NS = 6,
+  CLK_ANCHOR = 7,
+  CLK_HEAD = 8
+};
+
+// a machine's clock as its kernels take it (c null: no clock)
+struct UnitClock {
+  long long* c;
+  long long done;
+  int n_cases, n_launches, n_events;
+};
+
+static __device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
+}
+
+static __device__ __forceinline__ bool clock_on(const UnitClock& k) {
+  return k.c && *reinterpret_cast<const int*>(k.c + CLK_ON) != 0;
+}
+
+// Each kernel reads the clock's flag before it writes anything, so that
+// the read overlaps its other reads: with the clock off it then costs no
+// latency of its own.
+
 // `ran` (may be null) counts the launches that selected a case
 __global__ void set_switch_kernel(cudaGraphConditionalHandle handle, const long long* phase,
-                                  long long n_cases, long long* ran) {
+                                  long long n_cases, long long* ran, UnitClock clk) {
+  const bool on = clock_on(clk);
   const long long p = *phase;
   const bool run = p >= 0 && p < n_cases;
   if (run && ran) *ran += 1;
+  if (on) {
+    clk.c[CLK_PHASE] = (run && p != clk.done) ? p : -1;
+    clk.c[CLK_UNIT_T0] = global_ns();
+  }
   cudaGraphSetConditional(handle, run ? static_cast<unsigned>(p) : static_cast<unsigned>(n_cases));
 }
 
 __global__ void set_while_kernel(cudaGraphConditionalHandle handle, const long long* phase,
-                                 long long done, int* count, int limit) {
+                                 long long done, int* count, int limit, UnitClock clk) {
+  const bool on = clock_on(clk);
   const int n = *count + 1;
+  const bool more = *phase != done && n < limit;
   *count = n;
-  cudaGraphSetConditional(handle, (*phase != done && n < limit) ? 1u : 0u);
+  if (on) {
+    long long* c = clk.c;
+    const long long t = global_ns();
+    const long long p = c[CLK_PHASE];
+    const long long launch = c[CLK_LAUNCHES];
+    if (p >= 0) {
+      const long long t0 = c[CLK_UNIT_T0];
+      c[CLK_HEAD + p] += 1;
+      c[CLK_HEAD + clk.n_cases + p] += t - t0;
+      const long long e = c[CLK_EVENTS];
+      long long* ev = c + CLK_HEAD + 2 * clk.n_cases + 2 * clk.n_launches + 4 * (e % clk.n_events);
+      ev[0] = p;
+      ev[1] = t0;
+      ev[2] = t;
+      ev[3] = launch;
+      c[CLK_EVENTS] = e + 1;
+    }
+    if (!more) {
+      c[CLK_HEAD + 2 * clk.n_cases + clk.n_launches + launch % clk.n_launches] = t;
+      c[CLK_LAUNCH_NS] += t - c[CLK_LAUNCH_T0];
+      c[CLK_LAUNCHES] = launch + 1;
+    }
+  }
+  cudaGraphSetConditional(handle, more ? 1u : 0u);
 }
 
-__global__ void reset_kernel(int* passes) { *passes = 0; }
+__global__ void reset_kernel(int* passes, UnitClock clk) {
+  const bool on = clock_on(clk);
+  *passes = 0;
+  if (on) {
+    long long* c = clk.c;
+    const long long t = global_ns();
+    c[CLK_LAUNCH_T0] = t;
+    c[CLK_HEAD + 2 * clk.n_cases + c[CLK_LAUNCHES] % clk.n_launches] = t;
+  }
+}
+
+// One reading of %globaltimer into *out: launched eagerly at a period's
+// start under torch.profiler, it ties the clock's readings to the
+// profiler's timeline (the profiler's start of this kernel less the
+// reading), to within the kernel's duration.
+extern "C" __global__ void c3d_clock_anchor(long long* out) { *out = global_ns(); }
+
+extern "C" int c3d_clock_anchor_launch(void* out, void* stream) {
+  c3d_clock_anchor<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<long long*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
 
 namespace {
 
@@ -103,20 +203,25 @@ cudaError_t add_conditional(cudaGraphNode_t* node, cudaGraph_t graph, const cuda
 // Builds and instantiates the machine graph: `n_cases` phase codes 0 ..
 // n_cases - 1, code c running unit_graphs[c] (a cudaGraph_t, cloned as a
 // child graph; NULL for a code with no unit). `count` is a device int the
-// loop counts units in, `limit` the most units one launch runs. Writes the
+// loop counts units in, `limit` the most units one launch runs. `clock`
+// (may be null) is the machine's unit clock, with room for `n_launches`
+// launch spans and `n_events` events (its layout above). Writes the
 // executable graph to *exec_out.
 extern "C" int c3d_machine_build(int n_cases, void* const* unit_graphs, void* phase,
-                                 long long done, void* count, int limit, void** exec_out) {
-  if (n_cases < 1 || limit < 1 || !unit_graphs || !phase || !count || !exec_out)
+                                 long long done, void* count, int limit, void* clock,
+                                 int n_launches, int n_events, void** exec_out) {
+  if (n_cases < 1 || limit < 1 || !unit_graphs || !phase || !count || !exec_out ||
+      (clock && (n_launches < 1 || n_events < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaGraph_t outer = nullptr;
   C3D_TRY(cudaGraphCreate(&outer, 0));
   int* count_i = static_cast<int*>(count);
   const long long* phase_p = static_cast<const long long*>(phase);
   long long cases = n_cases;
+  UnitClock clk = {static_cast<long long*>(clock), done, n_cases, n_launches, n_events};
 
   cudaGraphNode_t reset;
-  void* reset_args[] = {&count_i};
+  void* reset_args[] = {&count_i, &clk};
   C3D_TRY(add_kernel(&reset, outer, nullptr, 0, reinterpret_cast<void*>(reset_kernel),
                      reset_args));
 
@@ -132,7 +237,7 @@ extern "C" int c3d_machine_build(int n_cases, void* const* unit_graphs, void* ph
   cudaGraphConditionalHandle h_switch;
   C3D_TRY(cudaGraphConditionalHandleCreate(&h_switch, body, 0, 0));
   long long* no_count = nullptr;
-  void* switch_args[] = {&h_switch, &phase_p, &cases, &no_count};
+  void* switch_args[] = {&h_switch, &phase_p, &cases, &no_count, &clk};
   cudaGraphNode_t set;
   C3D_TRY(add_kernel(&set, body, nullptr, 0, reinterpret_cast<void*>(set_switch_kernel),
                      switch_args));
@@ -146,7 +251,7 @@ extern "C" int c3d_machine_build(int n_cases, void* const* unit_graphs, void* ph
     C3D_TRY(cudaGraphAddChildGraphNode(&child, cases_body[c], nullptr, 0,
                                        static_cast<cudaGraph_t>(unit_graphs[c])));
   }
-  void* while_args[] = {&h_while, &phase_p, &done, &count_i, &limit};
+  void* while_args[] = {&h_while, &phase_p, &done, &count_i, &limit, &clk};
   cudaGraphNode_t tail;
   C3D_TRY(add_kernel(&tail, body, &branch, 1, reinterpret_cast<void*>(set_while_kernel),
                      while_args));
@@ -182,9 +287,10 @@ extern "C" int c3d_switch_build(int n_cases, void* const* seg_graphs, void* code
   const long long* code_p = static_cast<const long long*>(code);
   long long* ran_p = static_cast<long long*>(ran);
   long long cases = n_cases;
+  UnitClock no_clock = {nullptr, 0, 0, 0, 0};
   cudaGraphConditionalHandle h_switch;
   C3D_TRY(cudaGraphConditionalHandleCreate(&h_switch, outer, 0, 0));
-  void* switch_args[] = {&h_switch, &code_p, &cases, &ran_p};
+  void* switch_args[] = {&h_switch, &code_p, &cases, &ran_p, &no_clock};
   cudaGraphNode_t set;
   C3D_TRY(add_kernel(&set, outer, nullptr, 0, reinterpret_cast<void*>(set_switch_kernel),
                      switch_args));

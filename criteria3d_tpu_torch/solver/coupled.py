@@ -489,6 +489,7 @@ def _run(grid, params: SolverParameters, water: WaterState, heat: H.HeatState,
     return m
 
 
+@device_loop.period_span()
 def compute_step_coupled(grid: Grid, params: SolverParameters,
                          water: WaterState, heat_state: H.HeatState,
                          boundary: H.HeatBoundary, max_time_step,
@@ -513,6 +514,7 @@ def compute_step_coupled(grid: Grid, params: SolverParameters,
 compute_step_coupled.counts = dict.fromkeys(_COUNT_NAMES, 0)
 
 
+@device_loop.period_span()
 def compute_period_coupled(grid: Grid, params: SolverParameters,
                            water: WaterState, heat_state: H.HeatState,
                            boundary: H.HeatBoundary, period,

@@ -55,6 +55,20 @@ This module runs the units.
   runs; :func:`forced_eager` asks for it on the card (to compare the
   drivers: it then runs one machine over all the blocks).
 
+**The unit clock** (:func:`unit_clock`, off unless a block asks for it)
+splits a period's wall into the seconds of each unit and of each launch.
+The graph driver's machine carries a clock buffer on the card that the
+machine graph's own one-thread kernels fill from ``%globaltimer``
+(``csrc/graph_machine.cu``); the eager driver times each unit on the host,
+synchronising first on the card. Either is read once, at the period's end,
+into a :class:`PeriodClock`; :data:`UNIT_LAYERS` sends each unit to its
+layer. The drivers open ``torch.profiler`` ranges once per period
+(``c3d.period``) and launch (``c3d.driver.*``), never once per unit, and
+under the profiler a period with the clock on starts with an anchor that
+ties the clock's readings to the profiler's timeline
+(``utils/telemetry.trace`` draws the units as a track of their own). The
+rounds driver is not clocked.
+
 There is no fallback between them: where :func:`driver_for` names the graph
 or rounds driver it runs or raises (a failed capture or join, a host
 synchronisation inside a unit, a toolkit without CUDA 12.8's SWITCH
@@ -84,6 +98,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import os
 import threading
@@ -91,6 +106,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from criteria3d_tpu_torch.device import host_array, tallies_on_device
 from criteria3d_tpu_torch.parallel.sharding import Join, joining, machine_groups
@@ -98,7 +114,8 @@ from criteria3d_tpu_torch.utils import buildcache
 
 __all__ = ["UNITS_PER_LAUNCH", "POLL_EVERY", "MAX_MACHINES", "Slots", "run_period",
            "driver_for", "forced_eager", "counts", "reset_counts", "clear",
-           "build_library", "SOURCE"]
+           "build_library", "SOURCE", "unit_clock", "UnitClock", "PeriodClock",
+           "UNIT_LAYERS", "LAYERS", "layer_of", "ANCHOR", "period_span"]
 
 UNITS_PER_LAUNCH = 1024
 # the rounds between two looks at machine 0's segment code (rounds driver)
@@ -112,7 +129,39 @@ BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+# the unit clock's buffer (csrc/graph_machine.cu's CLK_* slots, then its
+# tables): the header's slots, and the launch spans and unit events a
+# period keeps (the ring of events holds a coupled storm hour's ~8,000
+# units; the buffer stays under 0.6 MB a machine)
+CLOCK_HEAD = 8
+CLOCK_LAUNCHES = 64
+CLOCK_EVENTS = 16384
+_CLK_LAUNCHES, _CLK_EVENTS, _CLK_LAUNCH_NS, _CLK_ANCHOR = 4, 5, 6, 7
+# the name of the anchor: the card's one-thread kernel, or the eager
+# driver's host range
+ANCHOR = "c3d_clock_anchor"
+
+# each unit of the water and coupled machines (solver/step.py's _Machine,
+# solver/coupled.py's _CoupledMachine) in its layer; every other unit is
+# the period solver's
+UNIT_LAYERS = {"assemble": "water assembly",
+               "solve_init": "inner solve", "solve": "inner solve",
+               "solve_end": "inner solve", "x_exchange": "inner solve",
+               "sweep": "heat solve", "h_exchange": "heat solve",
+               "chunk": "heat assembly", "rebuild": "heat assembly",
+               "substep": "heat assembly"}
+LAYERS = ("water assembly", "inner solve", "heat solve", "heat assembly", "period solver")
+
+
+def layer_of(unit: str) -> str:
+    """The layer of the unit named ``unit`` (:data:`UNIT_LAYERS`)."""
+    return UNIT_LAYERS.get(unit, "period solver")
+
+
 _force_eager = [False]
+_clocks: list = []    # the open unit clocks (unit_clock)
+_serial = [0]         # the periods run, the last one's serial number
+_in_period = [False]  # whether a period's range is open (period_span)
 _cache: collections.OrderedDict = collections.OrderedDict()   # key -> _GraphMachine
 _pools: dict = {}     # (card, k) -> the graph memory pool the kept machines' k-th share
 _COUNT_NAMES = ("graph_periods", "eager_periods", "graph_fixed_points",
@@ -164,6 +213,119 @@ def forced_eager():
         _force_eager[0] = False
 
 
+@dataclasses.dataclass
+class PeriodClock:
+    """One period's unit clock. ``serial`` is the period's number (its
+    ``c3d.period`` range's), ``driver`` the driver that ran it and
+    ``clock`` the timeline of its nanoseconds: ``"device"``
+    (``%globaltimer``) or ``"host"`` (``time.perf_counter_ns``).
+    ``units``: {unit name: (count, seconds)} of every unit of the machine;
+    ``launch_s`` the launches' spans summed and ``n_launches`` their
+    number; ``launches`` the ``(start, end)`` [ns] of the last
+    :data:`CLOCK_LAUNCHES` of them; ``events`` an ``(n, 4)`` array of the
+    last :data:`CLOCK_EVENTS` units run, oldest first: phase code, start,
+    end [ns] and launch (counted from 0), ``dropped`` the older ones the
+    ring lost; ``names`` {phase code: unit name}; ``anchor_ns`` the
+    anchor's reading when the period ran under ``torch.profiler``, else
+    None. The eager driver's one launch is its whole drive."""
+    serial: int
+    driver: str
+    clock: str
+    units: dict
+    launch_s: float
+    n_launches: int
+    launches: list
+    events: np.ndarray
+    dropped: int
+    names: dict
+    anchor_ns: int | None
+
+    @property
+    def units_s(self) -> float:
+        """The units' seconds summed."""
+        return sum(s for _, s in self.units.values())
+
+    @property
+    def control_s(self) -> float:
+        """The launches' self time: their spans less their units (on the
+        card the switch and while kernels and the conditional nodes; the
+        eager driver's reads and dispatch)."""
+        return self.launch_s - self.units_s
+
+
+class UnitClock:
+    """What :func:`unit_clock` yields: ``periods``, one
+    :class:`PeriodClock` for each period the graph or eager driver ran
+    inside the block."""
+
+    def __init__(self):
+        self.periods: list = []
+
+    def units(self) -> dict:
+        """{unit name: (count, seconds)} over the periods."""
+        out = {}
+        for p in self.periods:
+            for name, (n, sec) in p.units.items():
+                c, t = out.get(name, (0, 0.0))
+                out[name] = (c + n, t + sec)
+        return out
+
+    def layers(self) -> dict:
+        """{layer: seconds} over the periods, every one of :data:`LAYERS`."""
+        out = dict.fromkeys(LAYERS, 0.0)
+        for name, (_, sec) in self.units().items():
+            out[layer_of(name)] += sec
+        return out
+
+    @property
+    def launch_s(self) -> float:
+        return sum(p.launch_s for p in self.periods)
+
+    @property
+    def control_s(self) -> float:
+        return sum(p.control_s for p in self.periods)
+
+
+@contextlib.contextmanager
+def unit_clock():
+    """Within the block every period of a graph-driven or eager-driven
+    machine runs with its unit clock on (module docstring) and adds a
+    :class:`PeriodClock` to the :class:`UnitClock` yielded. Switching the
+    clock on or off captures nothing again; outside every such block the
+    clock reads nothing."""
+    clock = UnitClock()
+    _clocks.append(clock)
+    try:
+        yield clock
+    finally:
+        _clocks.remove(clock)
+
+
+@contextlib.contextmanager
+def period_span():
+    """The ``c3d.period`` range of one period, and its serial number. A
+    period's entry point (solver/step.py, solver/coupled.py) opens it
+    around all of its host work, so that what it does before and after
+    the drive lies in it too; :func:`run_period` opens one itself where
+    none is open. Inside an open one it opens nothing (also a
+    decorator)."""
+    if _in_period[0]:
+        yield
+        return
+    _serial[0] += 1
+    _in_period[0] = True
+    try:
+        with record_function("c3d.period"):
+            yield
+    finally:
+        _in_period[0] = False
+
+
+def _add_period(record: PeriodClock) -> None:
+    for clock in _clocks:
+        clock.periods.append(record)
+
+
 def _card(d: torch.device) -> int:
     """A CUDA device's index (the current card for ``cuda``)."""
     if d.index is not None:
@@ -200,8 +362,10 @@ def build_library(verbose: bool = False) -> str:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build_library())
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.c3d_machine_build.argtypes = [I, P, P, LL, P, I, P]
+    lib.c3d_machine_build.argtypes = [I, P, P, LL, P, I, P, I, I, P]
     lib.c3d_machine_build.restype = I
+    lib.c3d_clock_anchor_launch.argtypes = [P, P]
+    lib.c3d_clock_anchor_launch.restype = I
     lib.c3d_machine_launch.argtypes = [P, P]
     lib.c3d_machine_launch.restype = I
     lib.c3d_machine_destroy.argtypes = [P]
@@ -274,29 +438,76 @@ class _GraphMachine:
             *[self.graphs[c].raw_cuda_graph() if c in self.graphs else None
               for c in range(n_cases)])
         self.count = torch.zeros(1, dtype=torch.int32, device=device)
+        # the unit clock (off): its buffer, and the header and tables a
+        # period with the clock on starts from (the flag set, the rest 0)
+        self.n_cases = n_cases
+        tables = CLOCK_HEAD + 2 * n_cases + 2 * CLOCK_LAUNCHES
+        self.clock = torch.zeros(tables + 4 * CLOCK_EVENTS, dtype=torch.int64, device=device)
+        self.clock_start = torch.zeros(tables, dtype=torch.int64, device=device)
+        self.clock_start[0] = 1
+        self.clock_on = False
         exec_ = ctypes.c_void_p()
         with torch.cuda.device(device):
             _check(self.lib.c3d_machine_build(
                 n_cases, raw, machine.status[0].data_ptr(), machine.DONE,
-                self.count.data_ptr(), UNITS_PER_LAUNCH, ctypes.byref(exec_)),
+                self.count.data_ptr(), UNITS_PER_LAUNCH, self.clock.data_ptr(),
+                CLOCK_LAUNCHES, CLOCK_EVENTS, ctypes.byref(exec_)),
                 "building the graph (SWITCH and WHILE nodes need CUDA 12.8)")
         self.exec = exec_
         torch.cuda.synchronize(device)
         self.capture_s = time.perf_counter() - t0
 
-    def run(self):
+    def run(self, serial: int):
         """Launch until the phase reads DONE; the status read after the last
-        launch, with the counts kept on the card folded into the host's."""
+        launch, with the counts kept on the card folded into the host's.
+        With a unit clock open the machine's clock runs and is read once
+        after that status read."""
         m = self.machine
         stream = torch.cuda.current_stream(m.home).cuda_stream
+        on = bool(_clocks)
+        anchored = on and torch.autograd._profiler_enabled()
+        if on:
+            self.clock[:len(self.clock_start)].copy_(self.clock_start)
+            if anchored:
+                _check(self.lib.c3d_clock_anchor_launch(
+                    self.clock[_CLK_ANCHOR].data_ptr(), stream), "the clock's anchor")
+        elif self.clock_on:
+            self.clock[0].zero_()
+        self.clock_on = on
         while True:
-            _check(self.lib.c3d_machine_launch(self.exec, stream), "a launch")
+            with record_function("c3d.driver.launch"):
+                _check(self.lib.c3d_machine_launch(self.exec, stream), "a launch")
             _counts["launches"] += 1
-            status = host_array(m.status)
+            with record_function("c3d.driver.status_read"):
+                status = host_array(m.status)
             if status[0] == m.DONE:
                 break
         _add_tallies(m, status)
+        if on:
+            _add_period(self._read_clock(serial, anchored))
         return status
+
+    def _read_clock(self, serial: int, profiled: bool) -> PeriodClock:
+        """The period's clock, read from the card in one copy (not a
+        decision: ``host_read.count`` does not count it)."""
+        raw = self.clock.cpu().numpy()
+        n, L, R = self.n_cases, CLOCK_LAUNCHES, CLOCK_EVENTS
+        counts, ns = raw[CLOCK_HEAD:CLOCK_HEAD + n], raw[CLOCK_HEAD + n:CLOCK_HEAD + 2 * n]
+        names = {code: name for code, (name, _) in self.machine.units().items()}
+        launches_at = CLOCK_HEAD + 2 * n
+        n_launches = int(raw[_CLK_LAUNCHES])
+        kept = np.arange(max(0, n_launches - L), n_launches) % L
+        launches = list(zip(raw[launches_at + kept].tolist(),
+                            raw[launches_at + L + kept].tolist()))
+        n_events = int(raw[_CLK_EVENTS])
+        ring = raw[launches_at + 2 * L:].reshape(R, 4)
+        events = ring[np.arange(max(0, n_events - R), n_events) % R]
+        return PeriodClock(
+            serial=serial, driver="graph", clock="device",
+            units={name: (int(counts[c]), int(ns[c]) * 1e-9) for c, name in names.items()},
+            launch_s=int(raw[_CLK_LAUNCH_NS]) * 1e-9, n_launches=n_launches,
+            launches=launches, events=events, dropped=max(0, n_events - R), names=names,
+            anchor_ns=int(raw[_CLK_ANCHOR]) if profiled else None)
 
     def close(self) -> None:
         if self.exec is not None:
@@ -500,9 +711,11 @@ class _Rounds:
         home = ms[0].home
         ran = 0
         while True:
-            _check(self.lib.c3d_rounds(*self.args), "a batch of rounds")
+            with record_function("c3d.driver.launch"):
+                _check(self.lib.c3d_rounds(*self.args), "a batch of rounds")
             torch.cuda.current_stream(home).wait_stream(self.streams[0])
-            rows = host_array(self.gathered)
+            with record_function("c3d.driver.status_read"):
+                rows = host_array(self.gathered)
             _counts["launches"] += 1
             _counts["rounds_enqueued"] += self.enqueued.value
             _counts["rounds"] += int(rows[0, S + 1]) - ran
@@ -635,8 +848,49 @@ def _read_ints(machine):
     return host_array(machine.i.buffer)
 
 
-def _run_eager(machine):
+class _EagerClock:
+    """The eager driver's unit clock: the host's ``perf_counter_ns``
+    around each unit (on the card synchronised before and after it), one
+    launch over the whole drive, and under torch.profiler the anchor, a
+    host range of its own around one reading."""
+
+    def __init__(self, machine):
+        self.machine = machine
+        self.cuda = machine.home.type == "cuda"
+        self.anchor = None
+        if torch.autograd._profiler_enabled():
+            with record_function(ANCHOR):
+                self.anchor = time.perf_counter_ns()
+        self.events = []
+        self.t0 = self._now()
+
+    def _now(self) -> int:
+        if self.cuda:
+            torch.cuda.synchronize(self.machine.home)
+        return time.perf_counter_ns()
+
+    def run(self, code: int, unit) -> None:
+        t0 = self._now()
+        unit()
+        self.events.append((code, t0, self._now(), 0))
+
+    def period(self, serial: int) -> PeriodClock:
+        t1 = self._now()
+        names = {code: name for code, (name, _) in self.machine.units().items()}
+        events = np.array(self.events, dtype=np.int64).reshape(-1, 4)
+        units = {}
+        for code, name in names.items():
+            mine = events[events[:, 0] == code]
+            units[name] = (len(mine), int((mine[:, 2] - mine[:, 1]).sum()) * 1e-9)
+        return PeriodClock(serial=serial, driver="eager", clock="host", units=units,
+                           launch_s=(t1 - self.t0) * 1e-9, n_launches=1,
+                           launches=[(self.t0, t1)], events=events, dropped=0,
+                           names=names, anchor_ns=self.anchor)
+
+
+def _run_eager(machine, serial: int):
     units, follows = machine.units(), machine.follows()
+    clock = _EagerClock(machine) if _clocks else None
     phase, ints = machine.first_phase, None
     while True:
         # after a decision from data, and at the end (the run's counts)
@@ -644,8 +898,13 @@ def _run_eager(machine):
             ints = _read_ints(machine)
             phase = int(ints[0])
             if phase == machine.DONE:
+                if clock is not None:
+                    _add_period(clock.period(serial))
                 return ints[:len(machine.status)]
-        units[phase][1]()
+        if clock is None:
+            units[phase][1]()
+        else:
+            clock.run(phase, units[phase][1])
         _counts["eager_units"] += 1
         nxt = follows.get(phase)
         phase = (None if nxt is None else nxt if isinstance(nxt, int)
@@ -669,41 +928,57 @@ def run_period(key, build, load, device: torch.device, mesh=None,
     buffers. Under the rounds driver ``build(blocks)`` makes the machine of
     the mesh's blocks ``blocks`` (one a ``machine_groups`` entry; it names
     the field its joins exchange with ``join_like()``), ``load`` runs on
-    each, and the machine returned is the list of them."""
+    each, and the machine returned is the list of them. The period runs
+    inside a ``c3d.period`` range (:func:`period_span`), its capture,
+    loads and launches (the eager driver's whole drive) inside
+    ``c3d.driver.capture``, ``c3d.driver.load`` and
+    ``c3d.driver.launch``."""
     driver, _ = driver_for(device, mesh)
-    if driver == "rounds":
-        _counts["rounds_periods"] += 1
-        if device.type != "cuda":
-            machines, joins = _build_rounds(build, mesh)
-            for m in machines:
-                load(m)
-            return machines, _run_rounds_threads(machines, joins)
+    with period_span():
+        if driver == "rounds":
+            return _run_rounds_period(key, build, load, device, mesh)
+        if driver == "eager":
+            machine = build()
+            with record_function("c3d.driver.load"):
+                load(machine)
+            _counts[f"eager_{what}"] += 1
+            with record_function("c3d.driver.launch"):
+                return machine, _run_eager(machine, _serial[0])
         gm = _cache.get(key)
         if gm is None:
             while len(_cache) >= MAX_MACHINES:
                 _cache.popitem(last=False)[1].close()
-            gm = _Rounds(*_build_rounds(build, mesh))
+            with record_function("c3d.driver.capture"):
+                gm = _GraphMachine(build())
             _counts["captures"] += 1
             _counts["capture_s"] += gm.capture_s
             _cache[key] = gm
         _cache.move_to_end(key)
-        for m in gm.machines:
+        with record_function("c3d.driver.load"):
+            load(gm.machine)
+        _counts[f"graph_{what}"] += 1
+        return gm.machine, gm.run(_serial[0])
+
+
+def _run_rounds_period(key, build, load, device: torch.device, mesh):
+    """:func:`run_period` under the rounds driver."""
+    _counts["rounds_periods"] += 1
+    if device.type != "cuda":
+        machines, joins = _build_rounds(build, mesh)
+        for m in machines:
             load(m)
-        return gm.machines, gm.run()
-    if driver == "eager":
-        machine = build()
-        load(machine)
-        _counts[f"eager_{what}"] += 1
-        return machine, _run_eager(machine)
+        return machines, _run_rounds_threads(machines, joins)
     gm = _cache.get(key)
     if gm is None:
         while len(_cache) >= MAX_MACHINES:
             _cache.popitem(last=False)[1].close()
-        gm = _GraphMachine(build())
+        with record_function("c3d.driver.capture"):
+            gm = _Rounds(*_build_rounds(build, mesh))
         _counts["captures"] += 1
         _counts["capture_s"] += gm.capture_s
         _cache[key] = gm
     _cache.move_to_end(key)
-    load(gm.machine)
-    _counts[f"graph_{what}"] += 1
-    return gm.machine, gm.run()
+    with record_function("c3d.driver.load"):
+        for m in gm.machines:
+            load(m)
+    return gm.machines, gm.run()

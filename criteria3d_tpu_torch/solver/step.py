@@ -1057,6 +1057,7 @@ def shapes_of(state) -> tuple:
     return tuple(shape(getattr(state, f.name)) for f in dataclasses.fields(state))
 
 
+@device_loop.period_span()
 def _compute_step(grid: Grid, params: SolverParameters, state: WaterState,
                   max_time_step: float, extra_flux_fn=None,
                   boundary_flux_fn=None):
@@ -1090,6 +1091,7 @@ def compute_step(grid: Grid, params: SolverParameters, state: WaterState,
     return st, dt
 
 
+@device_loop.period_span()
 def compute_period_stats(grid: Grid, params: SolverParameters,
                          state: WaterState, period_seconds,
                          start_seconds=0.0):

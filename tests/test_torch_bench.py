@@ -30,9 +30,8 @@ from criteria3d_tpu.solver import heat as JH
 from criteria3d_tpu.solver.coupled import compute_period_coupled as j_period_coupled
 from criteria3d_tpu.solver.step import compute_period_stats as j_period_stats
 from criteria3d_tpu.solver.step import initialize_balance as j_initialize_balance
-from criteria3d_tpu_torch import bench, problems, profile_breakdown, trace_coupled
+from criteria3d_tpu_torch import bench, problems, trace_coupled
 from criteria3d_tpu_torch.io.esri import RasterHeader, write_flt
-from criteria3d_tpu_torch.solver.step import compute_period_stats
 from criteria3d_tpu_torch.utils.profiling import roll_up
 
 torch.set_num_threads(1)
@@ -370,22 +369,10 @@ def test_roll_up_by_hand():
 
 
 def test_profile_and_trace_run_on_the_cpu():
-    """profile_breakdown and trace_coupled on a 16 box on the CPU: the
-    profile's counters are the port's own CG-line hour's, its shares sum to
-    1 and it gives no device rate; the trace's counts are the coupled
-    step's and, with no device activity on the CPU, its layers and busy
-    time are 0."""
+    """trace_coupled on a 16 box on the CPU: the trace's counts are the
+    coupled step's and, with no device activity on the CPU, its layers and
+    busy time are 0."""
     d = dem_of(16)
-    prof = profile_breakdown.profile(1, "cpu", d)
-    g = bench.build_grid(1, "cpu", d)
-    p = bench.storm_params({})
-    _, stats = compute_period_stats(g, p, problems.storm_state(g, p), 3600.0)
-    assert prof["hour_stats"] == list(stats)
-    assert (prof["assemblies"], prof["balances"], prof["cg_iters"]) == (
-        stats[2], stats[1], stats[3])
-    assert prof["share_assembly"] + prof["share_cg_iters"] + prof["share_balance"] == \
-        pytest.approx(1.0)
-    assert "sweep_hbm_share" not in prof and prof["platform"] == "cpu"
     tr = trace_coupled.trace(1, "cpu", d)
     assert tr["counts"]["heat_sweeps"] > 0 and tr["host_reads"] > 0
     assert tr["busy_s"] == 0.0 and sum(tr["layers"].values()) == 0.0
@@ -397,16 +384,15 @@ def test_profile_and_trace_run_on_the_cpu():
 # ----------------------------------------------------------------------
 
 def test_entry_points_refuse_without_a_card(monkeypatch, capsys):
-    """Without a card bench, profile_breakdown and trace_coupled exit
-    non-zero with resolve_device's message and run no leg on the CPU."""
+    """Without a card bench and trace_coupled exit non-zero with
+    resolve_device's message and run no leg on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
     def refuse(*args, **kw):
         raise AssertionError("a leg ran without a card")
-    for mod, name in ((bench, "bench"), (bench, "build_grid"), (profile_breakdown, "profile"),
-                      (trace_coupled, "trace")):
+    for mod, name in ((bench, "bench"), (bench, "build_grid"), (trace_coupled, "trace")):
         monkeypatch.setattr(mod, name, refuse)
     monkeypatch.setattr(sys, "argv", ["x"])
-    for mod in (bench, profile_breakdown, trace_coupled):
+    for mod in (bench, trace_coupled):
         assert mod.main() == 2
         assert "no CUDA device" in capsys.readouterr().err
