@@ -8,7 +8,7 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 Phases (any failed check exits non-zero before the last line):
 
 1. card and build: prints the card's name and power limit, builds the CUDA
-   library from ``criteria3d_tpu_torch/csrc``;
+   libraries from ``criteria3d_tpu_torch/csrc``;
 2. kernel against plain version: the CUDA ``jacobi_bundle`` (the tiled
    design) against ``jacobi_bundle_reference`` on seeded float32 inputs, at
    the main-path shape (7, 768, 768), at (5, 37, 45), at a box smaller than
@@ -17,6 +17,15 @@ Phases (any failed check exits non-zero before the last line):
    main-path shape; and against the per-sweep design
    ``jacobi_bundle_per_sweep`` at the main-path shape (x and norm
    bit-equal);
+2b. the water assembly's kernel pair (``csrc/assemble_fast.cu``, the
+   ``assemble_fast`` of every float32 Picard iteration) against its plain
+   chain ``assemble_fast_reference`` on the same card tensors, at phase
+   3's storm state of the 768 box (``problems.storm_state``, the cells'),
+   unchanged and one seeded step on, at approx 0 and 1 with the step given
+   as a number and as 0-d tensors on the card: b, c_up, c_down, c_lat,
+   diag, the Courant number, the water flow, the rate and k bit-equal, one
+   launch a call; then the pair and the chain alone (CUDA events) and the
+   bound of the bytes they must move;
 3. the main path: one simulated hour of a 20 mm/h storm on a synthetic
    catchment at the scale of the Ravone benchmark (768 x 768 box of 4 m
    cells, a disc of 420,836 valid cells, 7 layers, 2,945,852 nodes) under
@@ -37,7 +46,9 @@ Phases (any failed check exits non-zero before the last line):
    vertical-line preconditioner) on the same storm hour through the port
    bench's storm leg (one run, graph-driven): stats ((45, 52, 164, 528) at
    ``--seed 0``), MBR (|MBR| < 2e-3), the wall, host syncs, peak memory;
-   no ``jacobi_bundle`` launch, every output on the card; then 3x's eager
+   no ``jacobi_bundle`` launch, every output on the card; under the unit
+   clock, so that the assembly's kernel pairs (counted from 0 just before
+   the hour) equal its ``assemble`` units plus restores; then 3x's eager
    profiled hour and checks;
 3c. the float64 parity path ``SolverParameters()`` (per-sweep float64
    Jacobi, tolerance 1e-10) on the same storm hour at full size, once
@@ -64,7 +75,7 @@ Phases (any failed check exits non-zero before the last line):
    both MBRs equal, h and T bit-equal, the graph hour's host reads at most
    5 % of the eager hour's, its peak at most 2 x; checks every output on
    the card, |water MBR| < 2e-3, a finite heat MBR and heat-node
-   temperatures finite within [200, 330] K;
+   temperatures finite within [200, 330] K; its kernel pairs, as 3b's;
 3f. small coupled hours of a 6 x 6 heat column on the card against the
    port's CPU path, float64 with vapor and ``fast_f32`` frozen with vapor:
    the same water steps and heat sub-steps, T within 1e-6 K / 1e-3 K,
@@ -290,7 +301,9 @@ Phases (any failed check exits non-zero before the last line):
    partitioned hours, their batches and rounds in machines (the coupled
    hours' too), 3w's mesh leg and the fixed points of 3m's and 3o's
    compared calls, its control time per unit against the eager driver's
-   host read, the capture seconds;
+   host read, the capture seconds; and the water assembly's pair: its
+   launches in 3b's and 3e's hours, 2b's error, its ms alone and per unit
+   in those hours, the chain's ms, the bound of its bytes;
 5. the card's line, then the last line: ``{"ok": true, "device": {...}}``.
 
 The profiled hours split device time by layer: the kernels launched inside
@@ -378,6 +391,102 @@ def compare_bundle(shape, seed: int, halo: int = 0):
     print(f"# jacobi_bundle vs plain at {shape}, halo {halo} ({JB.tiled_variant(*inputs)} "
           f"kernel): max_abs_err={err} norm_rel={rel}", flush=True)
     return err, rel, inputs
+
+
+ASSEMBLY_OUTPUTS = ("b", "c_up", "c_down", "c_lat", "diag", "courant", "water_flow",
+                    "rate", "k")
+
+
+def _assembly_fields(result) -> dict:
+    system, water_flow, rate, k = result
+    return dict(b=system.b, c_up=system.c_up, c_down=system.c_down, c_lat=system.c_lat,
+                diag=system.diag, courant=system.courant, water_flow=water_flow, rate=rate,
+                k=k)
+
+
+def compare_assembly(grid, params, seed: int) -> dict:
+    """Phase 2b: ``assemble_fast``'s kernel pair against its plain chain
+    (``assemble_fast_reference``) on the same card tensors at the storm
+    state of ``grid`` (``problems.storm_state``): psi_old the state's psi,
+    psi that or one seeded step on (soil and surface moving, so the secant,
+    runoff and infiltration branches run), at approx 0 and 1, the step a
+    number and 0-d tensors on the card. Every output bit-equal and one
+    launch a call; then the pair alone and the chain alone [ms] and the
+    bound of the bytes the roofline counts (each input read once, each
+    output written once). Returns what it measured."""
+    import torch
+    from criteria3d_tpu_torch import problems
+    from criteria3d_tpu_torch.bench_jacobi import cuda_ms
+    from criteria3d_tpu_torch.solver import water as W
+    state = problems.storm_state(grid, params)
+    sd = params.sweep_dtype
+    psi_old = torch.where(grid.mask, state.h - grid.z, 0.0).to(sd)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    moved = psi_old + torch.randn(psi_old.shape, generator=gen, device="cuda",
+                                  dtype=sd) * 0.01 * grid.mask
+    dt_t = torch.tensor(300.0, dtype=torch.float64, device="cuda")
+    err, differing, calls = 0.0, 0, 0
+    for psi in (psi_old, moved):
+        se = W.compute_se_psi(grid, params, psi)
+        for approx, dt in ((0, 300.0), (1, 300.0),
+                           (torch.tensor(0, device="cuda"), dt_t),
+                           (torch.tensor(1, device="cuda"), dt_t)):
+            a = (grid, params, psi, psi_old, se, state.sink_source, state.pond, approx, dt)
+            before = W.assemble_fast.launches
+            kern = _assembly_fields(W.assemble_fast(*a))
+            check(W.assemble_fast.launches == before + 1,
+                  "2b: an assemble_fast call did not count one kernel pair")
+            chain = _assembly_fields(W.assemble_fast_reference(*a))
+            torch.cuda.synchronize()
+            for name in ASSEMBLY_OUTPUTS:
+                x, y = kern[name], chain[name]
+                check(x.dtype == y.dtype and x.shape == y.shape,
+                      f"2b: {name} is {x.dtype} {tuple(x.shape)}, the chain's "
+                      f"{y.dtype} {tuple(y.shape)}")
+                bits = torch.int64 if x.dtype == torch.float64 else torch.int32
+                differing += int((x.view(bits) != y.view(bits)).sum())
+                err = max(err, float((x.double() - y.double()).abs().max()))
+            calls += 1
+    check(differing == 0, f"2b: the kernel pair differs from the chain in {differing} "
+                          f"values (max abs err {err})")
+    se = W.compute_se_psi(grid, params, psi_old)
+    a = (grid, params, psi_old, psi_old, se, state.sink_source, state.pond, 0, 300.0)
+    ms = cuda_ms(lambda: W.assemble_fast(*a), reps=20)
+    plain_ms = cuda_ms(lambda: W.assemble_fast_reference(*a), reps=5, batches=3)
+    g32 = grid.astype(sd)
+    reads = [psi_old, psi_old, se, state.sink_source, state.pond, g32.volume, g32.bsize,
+             g32.bslope, g32.roughness, g32.lat_dist3d, g32.dz_lat, g32.lat_area,
+             g32.vert_dist, g32.lat_dist2d, grid.btype, grid.mask, grid.vert_dist]
+    reads += [getattr(g32.soil, n) for n in ("vg_alpha", "vg_n", "vg_m", "vg_he", "vg_sc",
+                                             "theta_s", "theta_r", "k_sat", "mualem_l",
+                                             "mualem_den")]
+    writes = [t for n, t in kern.items() if n != "courant"]
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    bytes_read, bytes_written = nbytes(reads), nbytes(writes)
+    bound_ms = (bytes_read + bytes_written) / HBM_BYTES_PER_S * 1e3
+    print(f"# assemble_fast kernel pair vs chain at {tuple(psi_old.shape)}: {calls} calls, "
+          f"every output bit-equal (max abs err {err}, Courant "
+          f"{float(kern['courant'])}); alone {ms} ms, the chain {plain_ms} ms, bound "
+          f"{bound_ms} ms ({bytes_read} B read, {bytes_written} B written)", flush=True)
+    return dict(max_abs_err=err, differing=differing, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bytes_read=bytes_read, bytes_written=bytes_written)
+
+
+def assembly_launches(label, leg: dict, clock) -> dict:
+    """The assembly's kernel pairs in a bench leg's one run (counted from
+    0 just before it) against the ``assemble`` units the unit clock counted
+    and the restores: equal to their sum. Returns the counts and the
+    in-hour ms per unit."""
+    units, seconds = clock.units().get("assemble", (0, 0.0))
+    launches, restores = leg["assemble_launches"], leg["restores"]
+    print(f"# {label}: {launches} assemble_fast kernel pairs, {units} assemble units "
+          f"({seconds / max(units, 1) * 1e3} ms a unit), {restores} restores", flush=True)
+    check(units > 0, f"{label}: the unit clock counted no assemble unit")
+    check(launches == units + restores,
+          f"{label}: {launches} assembly kernel pairs, not {units} units + {restores} "
+          "restores")
+    return dict(launches=launches, units=units, restores=restores,
+                ms_per_unit=seconds / units * 1e3)
 
 
 def tensors_of(obj):
@@ -571,7 +680,8 @@ def coupled_hour(label, grid, params):
                 t_max=t_max, cold_share=cold, h=w.h.to("cpu"), t=h.t.to("cpu"),
                 inputs=cp["inputs"], launches=cp["launches"], driver=cp["driver"],
                 why=cp["why"], capture_s=cp["capture_s"],
-                graph_launches=cp["graph_launches"])
+                graph_launches=cp["graph_launches"],
+                assemble_launches=cp["assemble_launches"], restores=cp["restores"])
 
 
 def eager_coupled(trace: dict, grid, params) -> dict:
@@ -4239,6 +4349,7 @@ def main() -> int:
         from criteria3d_tpu_torch import SolverParameters
         from criteria3d_tpu_torch.bench_jacobi import cuda_ms
         from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+        from criteria3d_tpu_torch.solver import assemble_kernel as AK
         from criteria3d_tpu_torch.solver import device_loop
         from criteria3d_tpu_torch.solver import jacobi_bundle as JB
     except ImportError as e:
@@ -4259,9 +4370,10 @@ def main() -> int:
     # ---- 1. build ---------------------------------------------------------
     # one nvcc for each source, started together
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(lambda build: build(verbose=True),
-                             (JB.build_library, device_loop.build_library)))
+                             (JB.build_library, device_loop.build_library,
+                              AK.build_library)))
     print(f"# built {libs} in {time.time() - t0:.1f} s", flush=True)
 
     # ---- 2. kernel against plain version, on the card --------------------
@@ -4297,6 +4409,8 @@ def main() -> int:
     check(grid.n_surface_nodes == 420836, "synthetic catchment size changed")
     for name, t in list(tensors_of(grid)) + list(tensors_of(state0)):
         check(t.device.type == "cuda", f"{name} is on {t.device}, not on the card")
+    # 2b: the water assembly's kernel pair against its chain at this box
+    asm = compare_assembly(grid, SolverParameters.fast_f32(), args.seed)
 
     # one run, graph-driven (the capture before it): the script stays near
     # 600 s. The storm leg sets the counts of the bundle kernel and the
@@ -4342,7 +4456,9 @@ def main() -> int:
     check(p_cg.inner_solver == "cg" and p_cg.cg_precond == "line" and not p_cg.use_pallas,
           f"fast_f32() is not CG line: {p_cg}")
     check(bench.storm_params({}) == p_cg, "the bench's storm leg is not fast_f32()")
-    sl = storm_hour("CG line hour", grid, p_cg, 1)
+    with device_loop.unit_clock() as clock:
+        sl = storm_hour("CG line hour", grid, p_cg, 1)
+    asm["hours"] = {"cg_line": assembly_launches("CG line hour", sl, clock)}
     out, stats_cg, syncs_cg, mbr_cg = sl["out"], sl["stats"], sl["host_reads"], sl["mbr"]
     wall_cg, launches_cg = sl["wall_s"], sl["launches"]
     check(launches_cg == 0, f"the CG hour launched {launches_cg} jacobi_bundle kernels")
@@ -4387,7 +4503,9 @@ def main() -> int:
     # ---- 3e. the coupled water + heat storm hour --------------------------
     from criteria3d_tpu_torch import trace_coupled
     from criteria3d_tpu_torch.problems import catchment_grid
-    cp = coupled_hour("coupled hour", catchment_grid(dem, 4.0, "cuda"), p_cg)
+    with device_loop.unit_clock() as clock:
+        cp = coupled_hour("coupled hour", catchment_grid(dem, 4.0, "cuda"), p_cg)
+    asm["hours"]["coupled"] = assembly_launches("coupled hour", cp, clock)
     check(cp["graph_launches"] > 0, "the coupled hour launched no graph machine")
     hparams, hgrid = cp["inputs"][:2]
     coupled_inputs = [x.to("cpu") for x in cp["inputs"][1:]]
@@ -4599,6 +4717,32 @@ def main() -> int:
         "units_per_launch": device_loop.UNITS_PER_LAUNCH,
         "capture_s": graph_main["capture_s"],
         "capture_s_coupled": cp["capture_s"],
+    })
+    kernels.append({
+        "name": "assemble_fast",
+        "route": "cuda",
+        "source": "criteria3d_tpu_torch/csrc/assemble_fast.cu",
+        # no TPU kernel: XLA fused the plain jnp function
+        "replaces": "none: XLA's fusion of criteria3d_tpu/solver/water.py assemble_fast",
+        # kernel pairs in 3b's CG-line hour (the water cell's) and 3e's
+        # coupled hour, each counted from 0 just before it: one an
+        # assemble unit plus one a restore
+        "launches": asm["hours"]["cg_line"]["launches"],
+        "launches_coupled_hour": asm["hours"]["coupled"]["launches"],
+        "assemble_units": {k: h["units"] for k, h in asm["hours"].items()},
+        "restores": {k: h["restores"] for k, h in asm["hours"].items()},
+        # 2b: the pair against the chain at the storm box, bit for bit
+        "max_abs_err": asm["max_abs_err"],
+        "differing_values": asm["differing"],
+        "ms": asm["ms"],
+        "ms_in_hour": asm["hours"]["cg_line"]["ms_per_unit"],
+        "ms_in_coupled_hour": asm["hours"]["coupled"]["ms_per_unit"],
+        "plain_ms": asm["plain_ms"],
+        "bound_ms": asm["bound_ms"],
+        "bound_by": "bytes",
+        "bytes_read": asm["bytes_read"],
+        "bytes_written": asm["bytes_written"],
+        "library_ms": None,
     })
     print(f"# per simulated hour ({card}): bundle stats={list(stats)} mbr={mbr} "
           f"wall_s={wall} host_syncs={syncs}; CG line stats={list(stats_cg)} "

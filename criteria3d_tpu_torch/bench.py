@@ -67,7 +67,8 @@ from criteria3d_tpu_torch.solver import coupled as C
 from criteria3d_tpu_torch.solver import device_loop
 from criteria3d_tpu_torch.solver import heat as H
 from criteria3d_tpu_torch.solver import jacobi_bundle as JB
-from criteria3d_tpu_torch.solver.step import compute_period_stats
+from criteria3d_tpu_torch.solver import water as W
+from criteria3d_tpu_torch.solver.step import compute_period_stats, restore_best_step
 
 __all__ = ["RAVONE", "Dem", "reference_wall_s", "load_dem", "coarsen_dem",
            "build_grid", "storm_params", "sync", "sample", "storm_leg", "day_leg",
@@ -201,14 +202,28 @@ def prepare_driver(grid, params: SolverParameters, state, zero_period=None) -> d
                 capture_s=device_loop.counts()["capture_s"] - before)
 
 
-def _hour(grid, params, state):
-    """One hour with the host-read and launch counts and the drivers'
-    counts set to 0 before it: ``(state, stats, host reads, launches,
-    whole-period MBR, the graph driver's launches)``; the MBR's read is
-    the fence."""
+def _reset_counts() -> None:
+    """The host-read, launch and restore counts and the drivers' counts set
+    to 0, before a leg's run (after it, ``assemble_fast.launches`` and
+    ``restore_best_step.count`` are that run's: :func:`_assembly_counts`)."""
     host_read.count = 0
     JB.jacobi_bundle.launches = 0
+    W.assemble_fast.launches = 0
+    restore_best_step.count = 0
     device_loop.reset_counts()
+
+
+def _assembly_counts() -> dict:
+    """The last run's assembly kernel pairs and restores."""
+    return dict(assemble_launches=W.assemble_fast.launches,
+                restores=restore_best_step.count)
+
+
+def _hour(grid, params, state):
+    """One hour with the counts set to 0 before it (:func:`_reset_counts`):
+    ``(state, stats, host reads, launches, whole-period MBR, the graph
+    driver's launches)``; the MBR's read is the fence."""
+    _reset_counts()
     out, stats = compute_period_stats(grid, params, state, 3600.0)
     mbr = float(out.balance_whole.mbr)
     return (out, tuple(stats), host_read.count, JB.jacobi_bundle.launches, mbr,
@@ -218,8 +233,9 @@ def _hour(grid, params, state):
 def storm_leg(grid: Grid, params: SolverParameters, max_runs: int = 5) -> dict:
     """The storm hour from the storm's initial state, sampled as ``bench.py``
     samples it (up to ``max_runs`` runs): walls, median, and the last run's
-    stats, MBR, host reads, bundle launches, graph launches and final state
-    (``out``), the leg's peak memory and driver (:func:`prepare_driver`)."""
+    stats, MBR, host reads, bundle launches, graph launches, assembly
+    launches and restores, and final state (``out``), the leg's peak memory
+    and driver (:func:`prepare_driver`)."""
     dev = grid.device
     _reset_peak(dev)
     state0 = problems.storm_state(grid, params)
@@ -228,7 +244,7 @@ def storm_leg(grid: Grid, params: SolverParameters, max_runs: int = 5) -> dict:
         lambda: _hour(grid, params, state0), dev, max_runs, 60.0)
     return dict(runs_s=runs, wall_s=wall, stats=stats, mbr=mbr, host_reads=reads,
                 launches=launches, graph_launches=graph_launches,
-                peak_gib=_peak_gib(dev), out=out, **driver)
+                peak_gib=_peak_gib(dev), out=out, **_assembly_counts(), **driver)
 
 
 def day_leg(grid: Grid, params: SolverParameters, hours: int = 24,
@@ -294,7 +310,8 @@ def coupled_leg(grid: Grid, params: SolverParameters, env=os.environ,
     """The coupled storm hour of :func:`coupled_setup` on ``grid``; up to
     ``max_runs`` runs. Returns walls, median, the last run's counts
     (``coupled.counts()``), host reads, bundle launches, the graph driver's
-    launches, water and heat MBR and final ``(water, heat)``, the inputs
+    launches, assembly launches and restores, water and heat MBR and final
+    ``(water, heat)``, the inputs
     (``inputs``: hparams, hgrid, water, heat, boundary), the leg's peak
     memory and driver (:func:`prepare_driver`)."""
     dev = grid.device
@@ -307,9 +324,7 @@ def coupled_leg(grid: Grid, params: SolverParameters, env=os.environ,
 
     def run():
         C.reset_counts()
-        host_read.count = 0
-        JB.jacobi_bundle.launches = 0
-        device_loop.reset_counts()
+        _reset_counts()
         w, h = C.compute_period_coupled(hgrid, hparams, water0, heat0, boundary, 3600.0)
         heat_mbr = coupled_heat_mbr(hgrid, hparams, w, h)
         return (w, h, C.counts(), host_read.count, JB.jacobi_bundle.launches,
@@ -320,7 +335,7 @@ def coupled_leg(grid: Grid, params: SolverParameters, env=os.environ,
     return dict(runs_s=runs, wall_s=wall, counts=counts, host_reads=reads,
                 launches=launches, graph_launches=graph_launches, mbr=mbr,
                 heat_mbr=heat_mbr, out=(w, h), inputs=inputs, peak_gib=_peak_gib(dev),
-                **driver)
+                **_assembly_counts(), **driver)
 
 
 def mesh_leg(grid: Grid) -> dict:

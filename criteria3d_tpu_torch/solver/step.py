@@ -72,6 +72,7 @@ from criteria3d_tpu_torch.solver import water as W
 from criteria3d_tpu_torch.solver.jacobi_bundle import (SWEEPS_PER_BUNDLE,
                                                        jacobi_bundle, mesh_bundle,
                                                        sweep_test)
+from criteria3d_tpu_torch.solver.assemble_kernel import _library as _assemble_library
 from criteria3d_tpu_torch.solver.jacobi_bundle import _library as _bundle_library
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
 
@@ -445,28 +446,37 @@ def _balance(grid, params: SolverParameters, h, se, water_flow,
 
 
 def _assemble(g: Grid, params: SolverParameters, h, h_old, se, sink_source,
-              pond, approx, dt, extra_flux_fn, boundary_flux_fn):
+              pond, approx, dt, extra_flux_fn, boundary_flux_fn, out=None):
     """One block's (system, water_flow, boundary_rate, k) of a Picard
     iteration: the fused float32 psi-form pass on the fast path, else
-    capacity + boundary flows + assemble_system, each with the hooks."""
+    capacity + boundary flows + assemble_system, each with the hooks;
+    in ``out`` (``assemble_fast``'s) when given: the card's kernels write
+    into it, any other result is copied there."""
     if _is_fast(params):
         # one fused float32 psi-form pass (capacity + boundary + stencil)
-        return W.assemble_fast(g, params, h, h_old, se, sink_source, pond,
-                               approx, dt, extra_flux_fn=extra_flux_fn,
-                               boundary_flux_fn=boundary_flux_fn)
-    capacity, k = W.compute_capacity(g, params, h, h_old, se)
-    flow, rate = W.update_boundary_water(g, params, h, h_old, k, sink_source,
-                                         pond, dt)
-    if boundary_flux_fn is not None or extra_flux_fn is not None:
-        psi64 = h - g.z
-    if boundary_flux_fn is not None:
-        br = boundary_flux_fn(psi64, dt)
-        flow = flow + br
-        rate = rate + br
-    flow_rhs = flow if extra_flux_fn is None else flow + extra_flux_fn(psi64, k)
-    system = W.assemble_system(g, params, h, h_old, k, flow_rhs, capacity,
-                               pond, approx, dt)
-    return system, flow, rate, k
+        result = W.assemble_fast(g, params, h, h_old, se, sink_source, pond,
+                                 approx, dt, extra_flux_fn=extra_flux_fn,
+                                 boundary_flux_fn=boundary_flux_fn, out=out)
+    else:
+        capacity, k = W.compute_capacity(g, params, h, h_old, se)
+        flow, rate = W.update_boundary_water(g, params, h, h_old, k, sink_source,
+                                             pond, dt)
+        if boundary_flux_fn is not None or extra_flux_fn is not None:
+            psi64 = h - g.z
+        if boundary_flux_fn is not None:
+            br = boundary_flux_fn(psi64, dt)
+            flow = flow + br
+            rate = rate + br
+        flow_rhs = flow if extra_flux_fn is None else flow + extra_flux_fn(psi64, k)
+        system = W.assemble_system(g, params, h, h_old, k, flow_rhs, capacity,
+                                   pond, approx, dt)
+        result = system, flow, rate, k
+    if out is None or result[3] is out[3]:
+        return result
+    system = result[0]
+    for dst, src in zip((*out[0][:5], *out[1:]), (*system[:5], *result[1:])):
+        dst.copy_(src)
+    return out[0]._replace(courant=system.courant), *out[1:]
 
 
 def _link_flows(grid: Grid, params: SolverParameters, h_n: torch.Tensor,
@@ -506,7 +516,7 @@ def _link_flows(grid: Grid, params: SolverParameters, h_n: torch.Tensor,
 # int64 scalars: the status (the phase, the period's stats and the counts
 # kept on the card), what a driver reads, then the others
 _STATUS = ("phase", "steps", "attempts", "approximations", "sweeps", "launches",
-           "restores")
+           "restores", "assemble_launches")
 _INTS = (
     # the attempt (_ApproxCarry) and the inner solve
     "approx", "result", "n_sweeps", "it", "max_iter", "done", "diverged",
@@ -659,12 +669,15 @@ class _Machine:
         """(function, attribute, status slot) of the counts a capture keeps
         on the card."""
         return [(jacobi_bundle, "launches", self.i.index["launches"]),
-                (restore_best_step, "count", self.i.index["restores"])]
+                (restore_best_step, "count", self.i.index["restores"]),
+                (W.assemble_fast, "launches", self.i.index["assemble_launches"])]
 
     def prepare_capture(self) -> None:
-        """What must exist before a capture: the kernel library, loaded."""
+        """What must exist before a capture: the kernel libraries, loaded."""
         if self.bundle:
             _bundle_library()
+        if self.fast:
+            _assemble_library()
 
     def join_like(self):
         """A block of the one field the machine's joins exchange (x, and
@@ -759,17 +772,13 @@ class _Machine:
         carry, as every branch after it takes them."""
         g, p, i, r = self.grid, self.params, self.i, self.r
         with torch.profiler.record_function(ASSEMBLE_RANGE):
-            system, flow, rate, k = unzip(bmap(
-                lambda g, h, ho, se, sk, pd, xf, bf: _assemble(
-                    g, p, h, ho, se, sk, pd, i.approx, r.dt, xf, bf),
+            courant = bmap(
+                lambda g, h, ho, se, sk, pd, xf, bf, sy, fl, rt, k: _assemble(
+                    g, p, h, ho, se, sk, pd, i.approx, r.dt, xf, bf,
+                    out=(sy, fl, rt, k))[0].courant,
                 g, self.c_h, self._h_old(), self.c_se, self.sink_source, self.pond,
-                self.xf, self.bf))
-            bmap(lambda dst, src: [d.copy_(s) for d, s in zip(dst[:5], src[:5])],
-                 self.system, system)
-            _copy(self.c_k, k)
-            _copy(self.c_flow, flow)
-            _copy(self.c_rate, rate)
-        r.courant.copy_(block_max(bmap(lambda sy: sy.courant, system)))
+                self.xf, self.bf, self.system, self.c_flow, self.c_rate, self.c_k)
+        r.courant.copy_(block_max(courant))
         fail = (r.courant >= 1.01) & (r.dt > p.delta_t_min)
         i.phase.copy_(torch.where(fail, COURANT_CUT, SOLVE_INIT))
 

@@ -4,7 +4,8 @@ PyTorch counterpart of ``criteria3d_tpu/solver/water.py``
 (agrolib/soilFluxes3D/water.cpp as dense (L, R, C) stencil passes): the
 float64 parity path (``update_boundary_water``, ``compute_capacity``,
 ``assemble_system``, ``jacobi_sweep``, ``current_mass_balance``), the
-float32 psi-carry path (``assemble_fast`` and its psi-form helpers) and the
+float32 psi-carry path (``assemble_fast``, on the card a hand-written CUDA
+kernel pair, and its psi-form helpers) and the
 conjugate-gradient operators (``stencil_apply``,
 ``tridiag_vertical_solve``). Every function evaluates the same expressions
 in the same order and dtypes as its JAX twin. Two dtype rules of the JAX
@@ -44,14 +45,15 @@ from criteria3d_tpu_torch.core.soil import (compute_mean, dtheta_dh,
                                             mualem_conductivity, power,
                                             se_from_psi, theta_from_se)
 from criteria3d_tpu_torch.core.state import SolverParameters
-from criteria3d_tpu_torch.device import scalar
+from criteria3d_tpu_torch.device import scalar, tally
 from criteria3d_tpu_torch.parallel.sharding import owned
+from criteria3d_tpu_torch.solver import assemble_kernel as AK
 from criteria3d_tpu_torch.solver.shifts import LATERAL_OFFSETS, shift2d
 
 __all__ = [
     "LinearSystem", "compute_se", "water_content_sums", "total_water_content",
     "update_boundary_water", "compute_capacity", "assemble_system",
-    "assemble_fast", "compute_se_psi", "mass_balance_sums",
+    "assemble_fast", "assemble_fast_reference", "compute_se_psi", "mass_balance_sums",
     "mass_balance_sums_psi", "balance_from_sums", "current_mass_balance",
     "current_mass_balance_psi", "jacobi_sweep_sum", "jacobi_sweep_psi_sum",
     "jacobi_sweep", "jacobi_sweep_psi", "stencil_apply", "tridiag_vertical_solve",
@@ -469,7 +471,7 @@ def assemble_fast(grid: Grid, params: SolverParameters,
                   psi: torch.Tensor, psi_old: torch.Tensor,
                   se: torch.Tensor, sink_source: torch.Tensor,
                   pond: torch.Tensor, approx, dt,
-                  extra_flux_fn=None, boundary_flux_fn=None):
+                  extra_flux_fn=None, boundary_flux_fn=None, out=None):
     """Capacity + boundary flows + stencil assembly in ONE float32 pass,
     with the RHS in psi-form (criteria3d_tpu.solver.water.assemble_fast):
 
@@ -485,7 +487,39 @@ def assemble_fast(grid: Grid, params: SolverParameters,
     the boundary rate, so it enters the RHS and the balance;
     ``extra_flux_fn(psi, k)`` (the thermal water flows) enters the RHS
     only. Both are cast to the sweep dtype.
+
+    On CUDA tensors this launches the hand-written kernel pair of
+    ``csrc/assemble_fast.cu`` (solver/assemble_kernel.py), bit-equal to the
+    plain chain, and adds one to ``assemble_fast.launches`` (under a CUDA
+    graph's capture, to the graph's count on the card: ``device.tally``); an
+    input it does not take raises. On CPU tensors it runs the plain chain,
+    :func:`assemble_fast_reference`. ``out``, when given, is ``(system,
+    water_flow, boundary_rate, k)`` of float32 buffers (``system.courant``
+    unused) that the kernels write the results into and that are then
+    returned; the plain chain leaves it alone and returns new tensors.
     """
+    if psi.device.type != "cuda":
+        return assemble_fast_reference(grid, params, psi, psi_old, se, sink_source, pond,
+                                       approx, dt, extra_flux_fn, boundary_flux_fn)
+    arrays = None if out is None else (*out[0][:5], *out[1:])
+    b, c_up, c_down, c_lat, diag, courant, water_flow, rate, k = AK.assemble(
+        grid, params, psi, psi_old, se, sink_source, pond, approx, dt,
+        extra_flux_fn, boundary_flux_fn, arrays)
+    tally(assemble_fast, "launches", psi.device)
+    return LinearSystem(b, c_up, c_down, c_lat, diag, courant), water_flow, rate, k
+
+
+assemble_fast.launches = 0
+
+
+def assemble_fast_reference(grid: Grid, params: SolverParameters,
+                            psi: torch.Tensor, psi_old: torch.Tensor,
+                            se: torch.Tensor, sink_source: torch.Tensor,
+                            pond: torch.Tensor, approx, dt,
+                            extra_flux_fn=None, boundary_flux_fn=None):
+    """Plain PyTorch version of :func:`assemble_fast`, the same expressions
+    in the same order and dtypes as the JAX function: the CPU path, and what
+    the CUDA kernels are held to."""
     sd = params.sweep_dtype
     dev = psi.device
     mask = grid.mask

@@ -1217,3 +1217,223 @@ def test_fixed_points_graph_driven_match_eager(side, tmp_path):
     if side == "vine":
         assert max(int(s["iterations"]) for s in gs) > 100
         assert g[1] * 20 <= e[1], (g[1], e[1])
+
+
+# ----------------------------------------------------------------------
+# the water assembly's kernel pair (csrc/assemble_fast.cu) against the chain
+# ----------------------------------------------------------------------
+
+# case -> (parameter overrides, grid edits, hooks, how the call is made)
+ASSEMBLE_CASES = {
+    "storm768-approx0": dict(storm=True, approx=0),
+    "storm768-approx1": dict(storm=True, approx=1),
+    "vg-arithmetic": dict(params=dict(wrc_model=0, mean_type=0)),
+    "vg-geometric": dict(params=dict(wrc_model=0, mean_type=1)),
+    "vg-logarithmic": dict(params=dict(wrc_model=0, mean_type=2)),
+    "mvg-arithmetic": dict(params=dict(mean_type=0)),
+    "mvg-geometric": dict(params=dict(mean_type=1)),
+    "mvg-logarithmic": dict(params=dict(mean_type=2), approx=1),
+    "culvert-compat": dict(culvert=True),
+    "culvert-plain": dict(culvert=True, params=dict(culvert_reference_compat=False)),
+    "prescribed": dict(prescribed=True),
+    "courant-plain": dict(params=dict(courant_reference_compat=False)),
+    "hook-frozen": dict(hooks="frozen"),
+    "hook-closure": dict(hooks="closure"),
+    "blocks-2x2": dict(blocks=True, approx=1),
+    "graph-replay": dict(graph=True),
+    "hour-water": dict(hour="water"),
+    "hour-coupled": dict(hour="coupled"),
+}
+
+
+def _assemble_inputs(case, seed=7):
+    """The assembly's inputs on the card: the storm cell's catchment (768
+    box) at its initial storm state, or a 70-box catchment (not a multiple
+    of the kernel's tiles) in a seeded state that takes every branch:
+    ponded and dry surface cells, saturated and unchanged soil nodes, sinks
+    of both signs, and the case's culverts or prescribed nodes."""
+    from criteria3d_tpu_torch.core.soil import MeanType, WRCModel
+    from criteria3d_tpu_torch.problems import build_problem, synthetic_catchment
+    from criteria3d_tpu_torch.solver import water as TW
+    over = dict(case.get("params", {}))
+    if "wrc_model" in over:
+        over["wrc_model"] = WRCModel(over["wrc_model"])
+    if "mean_type" in over:
+        over["mean_type"] = MeanType(over["mean_type"])
+    params = SolverParameters.fast_f32(**over)
+    if case.get("storm"):
+        grid, state = build_problem(synthetic_catchment(0), 4.0, params, "cuda")
+        psi = torch.where(grid.mask, state.h - grid.z, 0.0).float()
+        return params, grid, psi, psi.clone(), TW.compute_se_psi(grid, params, psi), \
+            state.sink_source, state.pond
+    n = 70
+    grid, state = build_problem(synthetic_catchment(seed, n=n, radius=32.0), 4.0, params,
+                                "cuda")
+    rng = np.random.default_rng(seed)
+    valid = np.argwhere(grid.mask[0].cpu().numpy())
+    picks = [tuple(int(v) for v in valid[k]) for k in rng.choice(len(valid), 6, replace=False)]
+    if case.get("culvert"):
+        for (r, c), hh in zip(picks, (0.05, 0.1, 0.2, 0.4, 0.08, 0.15)):
+            grid = grid.set_culvert(r, c, roughness=0.013, slope=0.02, width=0.5, height=hh)
+    if case.get("prescribed"):
+        z = grid.z.cpu().numpy()
+        for k, (r, c) in enumerate(picks):
+            layer = 1 + k % (grid.n_layers - 1)
+            grid = grid.set_prescribed(layer, r, c, float(z[layer, r, c]) + (-2.0, 0.5)[k % 2])
+    shape = tuple(grid.mask.shape)
+    psi = rng.uniform(-3.0, 0.2, shape)
+    psi[0] = rng.uniform(-0.02, 0.06, shape[1:])
+    psi[psi > 0.1] = 0.0                                  # saturated soil
+    for (r, c), v in zip(picks, (0.5, 0.3, 0.12, 0.07, 0.02, 0.0)):
+        psi[0, r, c] = v                                  # culverts' levels
+    step = np.where(rng.random(shape) < 0.3, 0.0, rng.normal(0.0, 0.05, shape))
+    step[rng.random(shape) < 0.1] *= 1e-4                 # below the secant's resolution
+    mask = grid.mask.cpu().numpy()
+    f32 = lambda a: torch.tensor(np.where(mask, a, 0.0), dtype=torch.float32, device="cuda")
+    psi_t, psi_old = f32(psi), f32(psi + step)
+    sink = rng.uniform(-2e-5, 2e-5, shape)
+    sink[0] = rng.uniform(-2e-4, 1e-3, shape[1:])
+    pond = torch.tensor(rng.uniform(0.0, 0.004, shape[1:]), dtype=torch.float64, device="cuda")
+    return (params, grid, psi_t, psi_old, TW.compute_se_psi(grid, params, psi_t),
+            torch.tensor(sink, dtype=torch.float64, device="cuda"), pond)
+
+
+def _assemble_hooks(kind, grid):
+    """A frozen thermal flux (a buffer, as the coupled step's frozen mode
+    hands it), or closures that read psi and k and a boundary sink."""
+    if kind is None:
+        return {}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    if kind == "frozen":
+        buf = torch.randn(grid.mask.shape, generator=g, device="cuda",
+                          dtype=torch.float64) * 1e-6
+        return dict(extra_flux_fn=lambda psi, k: buf)
+    scale = torch.rand(grid.mask.shape, generator=g, device="cuda", dtype=torch.float64)
+    return dict(extra_flux_fn=lambda psi, k: (k.double() * 3.0 - psi.double() * 1e-7),
+                boundary_flux_fn=lambda psi, dt: -1e-6 * scale * torch.clamp_min(
+                    psi.double(), 0.0) / dt)
+
+
+def _same_bits(a, b, name):
+    assert a.dtype == b.dtype and a.shape == b.shape, name
+    view = torch.int64 if a.dtype == torch.float64 else torch.int32
+    diff = (a.view(view) != b.view(view)).sum().item()
+    assert diff == 0, f"{name}: {diff} values differ"
+
+
+def _assert_assembly_same(kern, chain):
+    (sk, wk, rk, kk), (sc, wc, rc, kc) = kern, chain
+    for f in ("b", "c_up", "c_down", "c_lat", "diag", "courant"):
+        _same_bits(getattr(sk, f), getattr(sc, f), f)
+    for name, x, y in (("water_flow", wk, wc), ("rate", rk, rc), ("k", kk, kc)):
+        _same_bits(x, y, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ASSEMBLE_CASES))
+def test_assemble_kernel_matches_chain(name):
+    """On the card: assemble_fast's kernel pair against its plain chain
+    (assemble_fast_reference) on the same CUDA tensors, bit for bit in b,
+    c_up, c_down, c_lat, diag, the Courant number, the water flow, the rate
+    and k, over the branches (both retention models, the three means,
+    culverts under both compat flags, prescribed nodes, the Courant
+    truncation off), the hooks, each grown block of a 2 x 2 partition, and
+    replays of a captured CUDA graph (counted on the card); one launch a
+    call. And the benchmark cells' graph-driven storm hours with the
+    kernels: the counts the chain gave, one launch per assemble unit and
+    restore."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc: the kernels run only on the card")
+    from criteria3d_tpu_torch.device import tallies_on_device
+    from criteria3d_tpu_torch.solver import water as TW
+    case = ASSEMBLE_CASES[name]
+    if case.get("hour"):
+        _storm_hour_counts(case["hour"])
+        return
+    params, grid, psi, psi_old, se, sink, pond = _assemble_inputs(case)
+    hooks = _assemble_hooks(case.get("hooks"), grid)
+    approx = case.get("approx", 0)
+    dt = torch.tensor(300.0, dtype=torch.float64, device="cuda")
+    approx_t = torch.tensor(approx, dtype=torch.int64, device="cuda")
+    before = TW.assemble_fast.launches
+    if case.get("blocks"):
+        from criteria3d_tpu_torch.parallel.sharding import shard_pytree
+        mesh = _card_mesh()
+        blocks = [shard_pytree(t, mesh).blocks for t in (grid, psi, psi_old, se, sink, pond)]
+        for idx in np.ndindex(blocks[0].shape):
+            g, *arrays = (b[idx] for b in blocks)
+            _assert_assembly_same(TW.assemble_fast(g, params, *arrays, approx_t, dt),
+                                  TW.assemble_fast_reference(g, params, *arrays, approx_t, dt))
+        assert TW.assemble_fast.launches == before + 4
+        return
+    if case.get("graph"):
+        out = TW.assemble_fast(grid, params, psi, psi_old, se, sink, pond, approx_t, dt)
+        out = (out[0]._replace(courant=None), *out[1:])
+        slot = torch.zeros((), dtype=torch.int64, device="cuda")
+        graph = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream), \
+                tallies_on_device({(TW.assemble_fast, "launches"): slot}):
+            graph.capture_begin()
+            got = TW.assemble_fast(grid, params, psi, psi_old, se, sink, pond, approx_t, dt,
+                                   out=out)
+            graph.capture_end()
+        torch.cuda.current_stream().wait_stream(stream)
+        rng = np.random.default_rng(11)
+        for k, a in enumerate((1, 0, 2)):
+            psi.add_(torch.tensor(rng.normal(0.0, 0.01, psi.shape), dtype=torch.float32,
+                                  device="cuda") * grid.mask)
+            approx_t.fill_(a)
+            dt.fill_(120.0 * (k + 1))
+            graph.replay()
+            torch.cuda.synchronize()
+            _assert_assembly_same(got, TW.assemble_fast_reference(
+                grid, params, psi, psi_old, se, sink, pond, approx_t, dt))
+        assert int(slot) == 3 and TW.assemble_fast.launches == before + 1
+        return
+    for a, d in ((approx, 300.0), (approx_t, dt)):
+        kern = TW.assemble_fast(grid, params, psi, psi_old, se, sink, pond, a, d, **hooks)
+        chain = TW.assemble_fast_reference(grid, params, psi, psi_old, se, sink, pond, a, d,
+                                           **hooks)
+        torch.cuda.synchronize()
+        _assert_assembly_same(kern, chain)
+    assert TW.assemble_fast.launches == before + 2
+    if name == "courant-plain":
+        assert float(chain[0].courant) > 0.0
+
+
+def _storm_hour_counts(cell):
+    """The benchmark cell's storm hour (the 768-box catchment, fast_f32,
+    graph-driven) with the assembly's kernels: the counts the eager chain
+    gave (water: 528 CG iterations, 164 assemblies; coupled: 477, 139 and
+    5,513 heat sweeps), and one kernel launch per assemble unit and
+    restore."""
+    from criteria3d_tpu_torch import compute_period_stats
+    from criteria3d_tpu_torch.problems import build_problem, coupled_storm, synthetic_catchment
+    from criteria3d_tpu_torch.solver import coupled as CP
+    from criteria3d_tpu_torch.solver import device_loop
+    from criteria3d_tpu_torch.solver import step as TSt
+    from criteria3d_tpu_torch.solver import water as TW
+    kw = dict(heat_vapor=True, heat_frozen_props=True) if cell == "coupled" else {}
+    params = SolverParameters.fast_f32(**kw)
+    grid, water = build_problem(synthetic_catchment(0), 4.0, params, "cuda")
+    before, restores = TW.assemble_fast.launches, TSt.restore_best_step.count
+    CP.reset_counts()
+    with device_loop.unit_clock() as clock:
+        if cell == "coupled":
+            grid, water, heat, boundary = coupled_storm(grid, params, water)
+            CP.compute_period_coupled(grid, params, water, heat, boundary, 3600.0)
+            cnt = CP.counts()
+            iters, sweeps = cnt["inner_iterations"], cnt["heat_sweeps"]
+        else:
+            _, stats = compute_period_stats(grid, params, water, 3600.0)
+            iters, sweeps = stats[3], None
+    torch.cuda.synchronize()
+    assembles = clock.units()["assemble"][0]
+    expected = {"water": (528, 164, None), "coupled": (477, 139, 5513)}[cell]
+    assert (iters, assembles, sweeps) == expected
+    assert TW.assemble_fast.launches - before == assembles + (
+        TSt.restore_best_step.count - restores)
+    device_loop.clear()

@@ -160,6 +160,142 @@ def test_assemble_fast_matches_jax(approx, culvert_compat):
     assert float(sys_j.courant) > 0
 
 
+# ----------------------------------------------------------------------
+# assemble_fast's CUDA kernel pair: what the CPU can check of its wrapper
+# ----------------------------------------------------------------------
+
+def _kernel_flags():
+    """The variant flags csrc/assemble_fast.cu reads, from its source."""
+    import re
+    from criteria3d_tpu_torch.solver import assemble_kernel as AK
+    src = open(AK.SOURCE).read()
+    return {name: int(v) for name, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+
+
+@pytest.mark.parametrize("wrc,mean", [(w, m) for w in ("VAN_GENUCHTEN", "MODIFIED_VAN_GENUCHTEN")
+                                      for m in ("ARITHMETIC", "GEOMETRIC", "LOGARITHMIC")])
+def test_assemble_kernel_variant_flags(wrc, mean):
+    """The pure map from (params, grid, hooks) to the kernels' variant, over
+    every combination of the other branches (both compat flags, prescribed
+    nodes, culverts, each hook): each field the branch it names, and the
+    flag bits the ones the CUDA source decodes, distinct for every
+    combination."""
+    import itertools
+    import types
+    from criteria3d_tpu_torch.core.soil import MeanType, WRCModel
+    from criteria3d_tpu_torch.solver import assemble_kernel as AK
+    k = _kernel_flags()
+    seen = set()
+    hook = lambda *a: None  # noqa: E731
+    for cc, uc, pres, culv, xf, bf in itertools.product((False, True), repeat=6):
+        params = T.SolverParameters.fast_f32(
+            wrc_model=WRCModel[wrc], mean_type=MeanType[mean],
+            courant_reference_compat=cc, culvert_reference_compat=uc)
+        grid = types.SimpleNamespace(has_prescribed=pres, has_culvert=culv)
+        v = AK.variant(params, grid, hook if xf else None, hook if bf else None)
+        assert v == AK.Variant(wrc == "MODIFIED_VAN_GENUCHTEN", int(MeanType[mean]), cc, uc,
+                               pres, culv, xf, bf)
+        bits = v.bits
+        assert bool(bits & k["kModifiedVG"]) == v.modified_vg
+        assert (bits >> k["kMeanShift"]) & 3 == v.mean
+        for flag, on in (("kCourantCompat", cc), ("kCulvertCompat", uc),
+                         ("kHasPrescribed", pres), ("kHasCulvert", culv), ("kExtraHook", xf)):
+            assert bool(bits & k[flag]) == on, flag
+        assert bits < 512   # no bit above the variant's nine
+        seen.add(bits)
+    assert len(seen) == 64
+
+
+@pytest.mark.parametrize("hooks", [False, True])
+def test_assemble_fast_on_cpu_runs_the_chain(hooks, monkeypatch):
+    """assemble_fast on CPU tensors never loads the kernels' library and
+    returns what the plain chain returns, bit for bit, in new tensors; it
+    counts no launch. The machine's assembly (step._assemble) copies that
+    result into the buffers ``out`` hands it."""
+    from criteria3d_tpu_torch.solver import assemble_kernel as AK
+    from criteria3d_tpu_torch.solver import step as TSt
+
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA library was asked for on the CPU path")
+    monkeypatch.setattr(AK, "_library", refuse)
+    monkeypatch.setattr(AK, "build_library", refuse)
+    _, tp, _, tg, psi, psi_old, sink, pond = seeded_case(seed=3)
+    args = (tg, tp, _t(psi), _t(psi_old), TW.compute_se_psi(tg, tp, _t(psi)), _t(sink),
+            _t(pond), 1, 300.0)
+    kw = {}
+    if hooks:
+        kw = dict(extra_flux_fn=lambda p, k: k.double() * 2.0,
+                  boundary_flux_fn=lambda p, dt: -1e-7 * torch.clamp_min(p.double(), 0.0))
+    before = TW.assemble_fast.launches
+    ref = TW.assemble_fast_reference(*args, **kw)
+    got = TW.assemble_fast(*args, **kw)
+    bufs = (TW.LinearSystem(*(torch.empty_like(t) for t in ref[0][:5]), None),
+            *(torch.empty_like(t) for t in ref[1:]))
+    into = TSt._assemble(*args, kw.get("extra_flux_fn"), kw.get("boundary_flux_fn"),
+                         out=bufs)
+    assert TW.assemble_fast.launches == before
+    assert all(a is b for a, b in zip((*into[0][:5], *into[1:]), (*bufs[0][:5], *bufs[1:])))
+    for res in (got, into):
+        for a, b in zip((*res[0], *res[1:]), (*ref[0], *ref[1:])):
+            assert a.dtype == b.dtype and torch.equal(a.view(-1).view(torch.uint8),
+                                                      b.view(-1).view(torch.uint8))
+
+
+def _bad_inputs(what):
+    _, tp, _, tg, psi, psi_old, sink, pond = seeded_case(seed=1)
+    a = dict(grid=tg, params=tp, psi=_t(psi), psi_old=_t(psi_old),
+             se=TW.compute_se_psi(tg, tp, _t(psi)), sink_source=_t(sink), pond=_t(pond))
+    L, R, C = psi.shape
+    box = torch.zeros((L, R, C), dtype=torch.float32)
+    out = [box.clone() for _ in range(8)]
+    out[3] = torch.zeros((8, L, R, C), dtype=torch.float32)
+    if what == "psi float64":
+        a["psi"] = a["psi"].double()
+    elif what == "se shape":
+        a["se"] = a["se"][:, :-1]
+    elif what == "psi_old not contiguous":
+        a["psi_old"] = a["psi_old"].transpose(1, 2).contiguous().transpose(1, 2)
+    elif what == "pond shape":
+        a["pond"] = a["pond"][None]
+    elif what == "sink int":
+        a["sink_source"] = a["sink_source"].long()
+    elif what == "pond float32":
+        a["pond"] = a["pond"].float()
+    elif what == "one layer":
+        a["psi"] = a["psi"][:1]
+    elif what == "float64 path":
+        a["params"] = T.SolverParameters()
+    elif what == "out c_lat shape":
+        out[3] = box
+    elif what == "out k not contiguous":
+        out[7] = box.transpose(1, 2).contiguous().transpose(1, 2)
+    elif what == "out rate float64":
+        out[6] = box.double()
+    return a, out
+
+
+@pytest.mark.parametrize("what,error", [
+    ("psi float64", TypeError), ("se shape", ValueError),
+    ("psi_old not contiguous", ValueError), ("pond shape", ValueError),
+    ("sink int", TypeError), ("pond float32", TypeError), ("one layer", ValueError), ("float64 path", TypeError),
+    ("out c_lat shape", ValueError), ("out k not contiguous", ValueError),
+    ("out rate float64", TypeError)])
+def test_assemble_kernel_checks_raise(what, error, monkeypatch):
+    """The kernels' wrapper checks every array's dtype, shape and layout and
+    raises on what the kernels do not take, before any launch (here on CPU
+    tensors); well-formed inputs pass the checks, and the CUDA entry then
+    refuses CPU tensors without loading the library."""
+    from criteria3d_tpu_torch.solver import assemble_kernel as AK
+    a, out = _bad_inputs(None)
+    AK.check_inputs(**a, out=out)
+    monkeypatch.setattr(AK, "_library", lambda: pytest.fail("library loaded"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        AK.assemble(**a, approx=0, dt=300.0)
+    a, out = _bad_inputs(what)
+    with pytest.raises(error, match="assemble_fast"):
+        AK.check_inputs(**a, out=out)
+
+
 def test_mass_balance_psi_matches_jax():
     jp, tp, jg, tg, psi, _, sink, _ = seeded_case(seed=1)
     se = JW.compute_se_psi(jg, jp, _j(psi))
