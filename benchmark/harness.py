@@ -62,16 +62,22 @@ def card_info() -> tuple[str, str]:
 
 class Run:
     """What the metric readers read: the window's hours and walls, set-up,
-    capture, peak memory, the system (for the per-layer calls), the
-    profiled stretch and the card's power limit."""
+    capture, each card's peak memory, the system (for the per-layer calls),
+    the profiled stretch and the card's power limit."""
 
     def __init__(self, cell, system, on_card: bool, power_limit: str):
         self.cell, self.system, self.on_card = cell, system, on_card
         self.power_limit = power_limit
         self.hours: list = []
         self.window_s = self.setup_s = self.capture_s = 0.0
-        self.peak_bytes = 0
+        # each card's peak over the window, in the order of system.devices
+        self.peaks: list = []
         self.profile = None
+
+    @property
+    def peak_bytes(self) -> int:
+        """The fullest card's peak over the window (0 off the card)."""
+        return max(self.peaks, default=0)
 
     def profiled(self) -> dict | None:
         """The profiled stretch (:func:`_profiled_stretch`), run once, on
@@ -101,7 +107,8 @@ class Run:
 
 
 def _hour_line(i: int, rec: dict) -> str:
-    extra = "".join(f" {k} {rec[k]}" for k in ("chunks", "substeps", "heat_sweeps") if k in rec)
+    extra = "".join(f" {k} {rec[k]}" for k in ("chunks", "substeps", "heat_sweeps", "rounds",
+                                               "rounds_enqueued") if k in rec)
     return (f"# hour {i}: wall {rec['wall_s']} s; MBR {rec['mbr']}; (steps, attempts, "
             f"approximations, inner iterations) {rec['stats']};{extra} host reads "
             f"{rec['host_reads']}; launches {rec['launches']}")
@@ -138,9 +145,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         del out
         n_warm += 1
         log("# warm-up " + _hour_line(n_warm, warm)[2:])
-    if on_card:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+    cards = [d for d in system.devices if d.type == "cuda"]
+    system.sync()
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     t0 = time.perf_counter()
     r.setup_s = time.time() - t_start
     while True:
@@ -151,13 +159,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
             break
         del out
     r.window_s = time.perf_counter() - t0
-    r.peak_bytes = torch.cuda.max_memory_allocated(device) if on_card else 0
+    r.peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
     found = forbidden_modules()
     if found:
         log(f"benchmark: forbidden modules loaded: {found}")
         return 4, None
     log(f"# window: {len(r.hours)} hours in {r.window_s} s; set-up {r.setup_s} s; "
-        f"capture {r.capture_s} s; peak {r.peak_bytes} B")
+        f"capture {r.capture_s} s; peak {r.peak_bytes} B (each card {r.peaks})")
     metrics = {}
     readers = [(m, spec.reader(m, root)) for m in (cell.per_layer if trace else cell.end_to_end)]
     # the profiler slows the CUDA calls after it: its readers come last
@@ -174,10 +182,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
                          "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
                          "count": cell.chips,
                          "memory_peak_bytes": r.peak_bytes}}
+    if system.mesh is not None:
+        result["device"]["memory_peak_bytes_per_card"] = r.peaks
     if trace and r.profiled() is not None:
         p = r.profile
-        result["device"].update(busy_s=sum(p["busy_s"].values()) / max(len(p["busy_s"]), 1),
-                                window_s=p["wall_s"])
+        # averaged over the cards the period runs on, a card the profiler
+        # saw nothing on counting 0
+        busy = [p["busy_s"].get(d.index, 0.0) for d in cards]
+        result["device"].update(busy_s=sum(busy) / len(busy), window_s=p["wall_s"])
         result["breakdown"] = {"device_ops": p["device_ops"], "idle_gaps": p["idle_gaps"]}
     program = system.outputs(out)
     del out
@@ -214,7 +226,8 @@ def _profiled_stretch(system) -> dict:
     log(f"# profiled stretch: wall {wall} s; reading the trace")
     p = read_profile(prof)
     p.update(wall_s=wall, hour=rec)
-    log(f"# profiled stretch: busy {p['busy_s']} s")
+    log(f"# profiled stretch: each card's busy {p['busy_s']} s of the same stretch's "
+        f"wall {wall} s")
     return p
 
 

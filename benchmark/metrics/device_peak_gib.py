@@ -1,5 +1,5 @@
-"""``torch.cuda.max_memory_allocated`` of the card over the window, reset
-at its start [GiB]; not measured off the card."""
+"""``torch.cuda.max_memory_allocated`` over the window, reset at its start,
+of the fullest card the cell runs on [GiB]; not measured off the card."""
 LAYER = None
 UNIT = "GiB"
 MOVES = None

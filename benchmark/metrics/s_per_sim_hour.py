@@ -1,5 +1,5 @@
-"""Wall seconds per simulated hour on one card: the window's wall over the
-hours it completed."""
+"""Wall seconds per simulated hour on the cell's cards: the window's wall
+over the hours it completed."""
 LAYER = None
 UNIT = "s/sim-h"
 MOVES = None

@@ -70,7 +70,7 @@ class Grid:
     prescribed_h: torch.Tensor     # (L,R,C) [m] total potential, Prescribed BC
 
     # --- per-node material properties ---
-    soil: SoilFields               # (L,R,C) dense soil parameters
+    soil: SoilFields               # (L,R,C) soil parameters, a view of (R,C)
     roughness: torch.Tensor        # (R,C) [s m-1/3] surface Manning roughness
     pond_max: torch.Tensor         # (R,C) [m] surface pond height
 
@@ -110,7 +110,7 @@ class Grid:
         if dtype not in self._casts:
             self._casts[dtype] = map_tensors(
                 self,
-                lambda t: t.to(dtype) if t.is_floating_point() else t)
+                lambda t: _cast(t, dtype) if t.is_floating_point() else t)
         return self._casts[dtype]
 
     # ------------------------------------------------------------------
@@ -206,8 +206,8 @@ class Grid:
             bslope[l][sel] = bslope2d[sel]
             bsize[l][sel] = cell_size * thicknesses[l]
 
-        # --- soil broadcast ---
-        soil = map_tensors(soil, lambda a: a.to(dev, dtype).expand(L, R, C).contiguous())
+        # --- soil broadcast: a view over the layers, one value a cell held ---
+        soil = map_tensors(soil, lambda a: a.to(dev, dtype).expand(L, R, C))
 
         rough2d = np.broadcast_to(np.asarray(roughness, dtype=np.float64), (R, C))
         pond2d = np.broadcast_to(np.asarray(pond_max, dtype=np.float64), (R, C))
@@ -226,7 +226,8 @@ class Grid:
             area=t(area),
             btype=torch.tensor(btype, device=dev),
             bslope=t(bslope), bsize=t(bsize),
-            prescribed_h=t(np.zeros((L, R, C))),
+            # read only where has_prescribed: a view of one zero
+            prescribed_h=torch.zeros((1, 1, 1), dtype=dtype, device=dev).expand(L, R, C),
             soil=soil,
             roughness=t(rough2d), pond_max=t(pond2d),
             culvert_w=t(np.zeros((R, C))), culvert_h=t(np.zeros((R, C))),
@@ -239,6 +240,14 @@ class Grid:
             n_surface_nodes=int(mask[0].sum()),
             layer_depth=tuple(depths), layer_thickness=tuple(thicknesses),
         )
+
+
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` in ``dtype``; a field broadcast over the layers (stride 0, the
+    soil) stays a view, its one layer cast."""
+    if t.dim() and t.stride(0) == 0:
+        return t[:1].to(dtype).expand(t.shape)
+    return t.to(dtype)
 
 
 # ----------------------------------------------------------------------

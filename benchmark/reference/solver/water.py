@@ -351,6 +351,7 @@ def assemble_fast(grid: Grid, params: SolverParameters,
         a = _set0(a_soil, a_surface)
         a_lat_list.append(torch.where(mask & nbr_ok, a, 0.0))
     a_lat = torch.stack(a_lat_list)
+    del a_lat_list
     courant = torch.clamp_min(torch.stack(cour_max).amax(), 0.0)
 
     # --- psi-form system + Jacobi preconditioning -----------------------

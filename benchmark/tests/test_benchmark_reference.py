@@ -84,11 +84,61 @@ def test_control_departs_from_the_reference(tmp_path, cell):
     assert g["storage_gap_m3"] > 0.0 and g["h_p99_m"] > 0.0
 
 
+@pytest.mark.parametrize("cell", ["water_storm", "coupled_storm"])
+def test_soil_as_a_view_changes_no_bit(tmp_path, monkeypatch, cell):
+    """The reference keeps its uniform soil as one value a cell, viewed
+    over the layers (and the unused prescribed heads as one zero): on a 20
+    box its hour, its control and its count of the heads' water equal, bit
+    for bit, those of the grid with every field held a node."""
+    from benchmark.reference.device import map_tensors
+    c = spec.cell(cell, small_copy(tmp_path, box=20))
+    dem = catchment_dem(c.config, 4)
+    built = storm.catchment_grid
+
+    def per_node(config, d, device):
+        g = built(config, d, device)
+        assert g.soil.k_sat.stride(0) == 0 and g.prescribed_h.stride(0) == 0
+        return dataclasses.replace(g, soil=map_tensors(g.soil, lambda t: t.contiguous()),
+                                   prescribed_h=g.prescribed_h.contiguous())
+
+    runs = []
+    for grid_of in (built, per_node):
+        monkeypatch.setattr(storm, "catchment_grid", grid_of)
+        ref = storm.run_period(c.config, c.traffic, dem, "cpu")
+        control = storm.run_period(c.config, c.traffic, dem, "cpu", lowered=True)
+        runs.append((ref, control, storm.storage_of(c.config, dem, "cpu", control["h"])))
+    (ref, control, held), (ref0, control0, held0) = runs
+    assert held == held0
+    for a, b in ((ref, ref0), (control, control0)):
+        assert a.keys() == b.keys()
+        for k in a:
+            same = torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] == b[k]
+            assert same, k
+
+
 def _broken(monkeypatch, fault: str):
     """The timed path broken underneath the harness (the port's period as
-    the system calls it)."""
+    the system calls it). On a mesh the faults other than ``unchanged``
+    work on the period's output joined by the port's ``gather_pytree``;
+    ``no_exchange`` leaves out the rings' exchange between the machines of
+    a mesh (each block keeps the rings it had)."""
+    import numpy as np
+
     import benchmark.system as S
+    from criteria3d_tpu_torch.parallel import sharding
     step, coupled = S.compute_period_stats, S.C.compute_period_coupled
+    if fault == "no_exchange":
+        def stale(join, x):
+            out = np.empty(x.blocks.shape, dtype=object)
+            for idx in join.groups[join.g]:
+                out[idx] = x.blocks[idx].clone()
+            return sharding.Blocked(x.mesh, out)
+        monkeypatch.setattr(sharding.Join, "_grown", stale)
+        return
+
+    def whole(x):
+        blocked = isinstance(getattr(x, "h", x), sharding.Blocked)
+        return sharding.gather_pytree(x) if blocked else x
 
     def unchanged_water(grid, params, state, seconds):
         out, stats = step(grid, params, state, seconds)
@@ -100,6 +150,7 @@ def _broken(monkeypatch, fault: str):
 
     def half(state, start):
         """Half of the grid's rows left at their initial heads."""
+        state, start = whole(state), whole(start)
         h = state.h.clone()
         rows = h.shape[-2] // 2
         h[..., rows:, :] = start.h[..., rows:, :]
@@ -115,6 +166,7 @@ def _broken(monkeypatch, fault: str):
 
     def altered(state, grid):
         """One valid node's head 0.5 m off where the period produces it."""
+        state, grid = whole(state), whole(grid)
         h = state.h.clone()
         nodes = torch.nonzero(grid.mask)
         h[tuple(nodes[len(nodes) // 2])] += 0.5

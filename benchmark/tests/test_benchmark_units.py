@@ -31,7 +31,7 @@ def test_window_rate_and_counts_by_hand():
     assert spec.reader("host_reads_per_sim_hour").read(r) == 2.0
     assert spec.reader("inner_iters_per_sim_hour").read(r) == 530.0
     assert spec.reader("heat_sweeps_per_sim_hour").read(r) == 10.0
-    r.peak_bytes = 3 * 2**30
+    r.peaks = [3 * 2**30]
     assert spec.reader("device_peak_gib").read(r) == 3.0
     r.capture_s = 0.5
     assert spec.reader("capture_s").read(r) == 0.5
