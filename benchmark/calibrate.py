@@ -20,6 +20,14 @@ gap's 99th percentile and the gap of the whole-period water MBRs):
   float64 accumulations in float32, :func:`benchmark.reference.precision.
   lowered`) against the reference on the same turned catchment (upper
   readings).
+
+Every count of the heads' water (:func:`benchmark.reference.storm.
+storage_of`) is made on the grid that a reference period built: the
+program's heads and a witness's on the grid of the reference on the
+catchment as it is, the control's on its own. Between counts the kept
+grid waits in host memory, so that the card holds one period at a time.
+Runs on the first visible card; on a host of several cards, one process a
+card (``CUDA_VISIBLE_DEVICES``) reads its share of the orientations.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ def _record(run: dict, ref: dict, storage: float, limits: dict) -> dict:
 def readings(workload: str, seeds=(), orientations=(), control_orientations=(),
              device=None, root: str = spec.ROOT):
     """Yield one dict a reading (see the module's text)."""
+    from benchmark.reference.device import map_tensors
     from benchmark.reference.storm import run_period, storage_of
     cell = spec.cell(workload, root)
     limits = cell.config.get("limits")
@@ -74,10 +83,29 @@ def readings(workload: str, seeds=(), orientations=(), control_orientations=(),
     dem = catchment_dem(cell.config, 0)
     refs = {}
 
+    def period(k, lowered=False):
+        """The reference (the control if ``lowered``) on orientation ``k``,
+        on a card cleared of the blocks the run before it cached: at 4352 a
+        period fills ~73 of the card's 80 GB, and a second one ran out of
+        memory in the first one's fragments."""
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        return run_period(cell.config, cell.traffic, turn(dem, k), device, lowered=lowered)
+
     def reference(k):
         if k not in refs:
-            refs[k] = run_period(cell.config, cell.traffic, turn(dem, k), device)
+            out = period(k)
+            grid = out.pop("grid")
+            if k == 0:
+                out["grid"] = map_tensors(grid, lambda t: t.to("cpu"))
+            refs[k] = out
         return refs[k]
+
+    def counted(h):
+        """``h``'s water on the grid of the reference on the catchment as
+        it is."""
+        return storage_of(cell.config, map_tensors(reference(0)["grid"],
+                                                   lambda t: t.to(device)), h)
 
     for seed in seeds:
         from benchmark.system import System
@@ -89,21 +117,20 @@ def readings(workload: str, seeds=(), orientations=(), control_orientations=(),
         del out
         system.free()
         yield dict(kind="program", seed=seed, hour_s=rec["wall_s"],
-                   **_record(program, reference(0), storage_of(cell.config, d, device,
-                                                               program["h"]), limits))
+                   **_record(program, reference(0), counted(program["h"]), limits))
     for k in orientations:
         t0 = time.perf_counter()
         turned = dict(reference(k))
         for key in ("h", "se", "t"):
             if key in turned:
                 turned[key] = turn_back(turned[key], k)
-        storage = storage_of(cell.config, dem, device, turned["h"])
+        storage = counted(turned["h"])
         yield dict(kind="witness", orientation=k, reference_s=time.perf_counter() - t0,
                    **_record(turned, reference(0), storage, limits))
     for k in control_orientations:
         t0 = time.perf_counter()
-        control = run_period(cell.config, cell.traffic, turn(dem, k), device, lowered=True)
-        storage = storage_of(cell.config, turn(dem, k), device, control["h"])
+        control = period(k, lowered=True)
+        storage = storage_of(cell.config, control.pop("grid"), control["h"])
         yield dict(kind="control", orientation=k, control_s=time.perf_counter() - t0,
                    **_record(control, reference(k), storage, limits))
 

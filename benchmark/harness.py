@@ -3,9 +3,11 @@ the comparison with the reference, and the result line.
 
 The run is a closed loop with one simulation at a time, as a hydrologist
 runs a period or an ensemble member: the window replays the cell's
-simulated hour from the same initial inputs, each hour ended by
-synchronising the card and reading its whole-period water MBR, until the
-first hour that ends at or after ``seconds``. Every hour is the same work.
+simulated period (the traffic's ``period_s``; "hour" below) from the same
+initial inputs, each ended by synchronising the card and reading its
+whole-period water MBR, until the first that ends at or after ``seconds``.
+Every period is the same work; the readings are per simulated hour of it
+(:attr:`Run.sim_hours`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,9 @@ WARM_S = 30.0
 # simulated seconds of the profiled stretch after the window: the first
 # ten minutes of the cell's period
 PROFILE_PERIOD_S = 600.0
+# the same on a mesh: the profiler slows the rounds' host enqueue ~24 x,
+# so a mesh cell profiles only the period's first minute
+MESH_PROFILE_PERIOD_S = 60.0
 # top-level module names that may not be loaded in a run
 FORBIDDEN = ("jax", "jaxlib", "flax", "criteria3d_tpu")
 
@@ -86,9 +91,15 @@ class Run:
             self.profile = _profiled_stretch(self.system)
         return self.profile
 
+    @property
+    def sim_hours(self) -> float:
+        """The simulated hours the window's periods cover (exactly their
+        number for a 3,600 s period)."""
+        return len(self.hours) * self.system.period_s / 3600.0
+
     def per_hour(self, key: str) -> float:
-        """An hour's count ``key`` per hour of the window."""
-        return sum(h[key] for h in self.hours) / len(self.hours)
+        """The window's count ``key`` per simulated hour."""
+        return sum(h[key] for h in self.hours) / self.sim_hours
 
     def roofline(self, call) -> float | None:
         """The share [%] of its roofline of one call of a ``benchmark/
@@ -137,6 +148,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         f"card {name}, power limit {limit}")
     dem = catchment_dem(cell.config, seed)
     system = System(cell.config, cell.traffic, dem, device)
+    log(f"# built: {system.n_nodes} nodes on {len(system.devices)} device(s); "
+        f"{time.time() - t_start} s since the process started")
     r = Run(cell, system, on_card, limit)
     r.capture_s = system.capture()
     t_warm, n_warm = time.perf_counter(), 0
@@ -197,8 +210,11 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
     from benchmark.reference.storm import run_period, storage_of
     t_ref = time.perf_counter()
     reference = run_period(cell.config, cell.traffic, dem, device)
-    storage = storage_of(cell.config, dem, device, program["h"])
-    log(f"# reference: {time.perf_counter() - t_ref} s; stats {reference['stats']}; "
+    t_count = time.perf_counter()
+    # the program's heads counted on the grid the reference ran on
+    storage = storage_of(cell.config, reference.pop("grid"), program["h"])
+    log(f"# reference: {t_count - t_ref} s, its count of the heads' water "
+        f"{time.perf_counter() - t_count} s; stats {reference['stats']}; "
         f"MBR {reference['mbr']}; program's last hour stats {r.hours[-1]['stats']}; "
         f"storage reported {program['storage']} m3, its heads' {storage} m3")
     correct, table = check.judge(check.gaps(program, reference, storage),
@@ -212,12 +228,14 @@ def run(workload: str, seed: int, seconds: float, trace: bool, t_start: float,
 
 def _profiled_stretch(system) -> dict:
     """The first ``PROFILE_PERIOD_S`` simulated seconds of the cell's
-    period once more under torch.profiler, after every other reading of
-    the program (the profiler slows the host's CUDA calls in it and after
-    it). Returns the card's busy seconds, the top device operations, the
-    longest idle gaps and the profiled stretch's wall (``wall_s``)."""
+    period (``MESH_PROFILE_PERIOD_S`` on a mesh) once more under
+    torch.profiler, after every other reading of the program (the profiler
+    slows the host's CUDA calls in it and after it). Returns each card's
+    busy seconds, the top device operations, the longest idle gaps and the
+    profiled stretch's wall (``wall_s``)."""
     from torch.profiler import ProfilerActivity, profile
-    stretch = min(PROFILE_PERIOD_S, system.period_s)
+    stretch = min(MESH_PROFILE_PERIOD_S if system.mesh is not None else PROFILE_PERIOD_S,
+                  system.period_s)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rec, out = system.hour(stretch)

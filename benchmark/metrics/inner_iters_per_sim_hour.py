@@ -6,4 +6,4 @@ SOURCE = "program_counter"
 
 
 def read(run):
-    return sum(h["stats"][3] for h in run.hours) / len(run.hours)
+    return sum(h["stats"][3] for h in run.hours) / run.sim_hours

@@ -1,5 +1,5 @@
 """Wall seconds per simulated hour on the cell's cards: the window's wall
-over the hours it completed."""
+over the simulated hours its periods cover."""
 LAYER = None
 UNIT = "s/sim-h"
 MOVES = None
@@ -7,4 +7,4 @@ SOURCE = "host_clock"
 
 
 def read(run):
-    return run.window_s / len(run.hours)
+    return run.window_s / run.sim_hours

@@ -1,8 +1,9 @@
 """A cell's period run by the plain reference: the grid and the initial
 inputs worked out again from the DEM the benchmark hands it, then the
 host-looped water or coupled period of 988b1ed; and the water a field of
-heads holds on that grid (:func:`storage_of`), which judges the storage a
-run reports against the heads it hands back.
+heads holds on the grid the period ran on, which :func:`run_period` hands
+back (:func:`storage_of`): it judges the storage a run reports against the
+heads it hands back.
 
 ``lowered=True`` runs the control: the float64 accumulations in float32
 (:mod:`benchmark.reference.precision`).
@@ -77,14 +78,16 @@ def reference_params(config: dict) -> SolverParameters:
                                      heat_frozen_props=bool(heat.get("frozen_props")))
 
 
-def storage_of(config: dict, dem, device, h: torch.Tensor) -> float:
+def storage_of(config: dict, grid: Grid, h: torch.Tensor) -> float:
     """The water [m3] that the total heads ``h`` (a float64 (L, R, C) field
-    of the cell's grid) hold, as the float32 psi-carry step counts its
-    storage: the signed psi in float32, its saturation, theta x volume in
-    the soil and the ponded depth x area on the surface, summed in
-    float64."""
+    of the cell's catchment) hold on ``grid``, the grid a period of the
+    cell ran on (``run_period``'s ``"grid"``), as the float32 psi-carry
+    step counts its storage: the signed psi in float32, its saturation,
+    theta x volume in the soil and the ponded depth x area on the surface,
+    summed in float64, on ``grid``'s device. The count reads the grid's
+    mask, elevations, volumes and soil, which the heat surface's boundary
+    types leave as they are."""
     params = reference_params(config)
-    grid = catchment_grid(config, dem, torch.device(device))
     psi = torch.where(grid.mask, h.to(grid.device) - grid.z, 0.0).to(params.sweep_dtype)
     se = W.compute_se_psi(grid, params, psi)
     surf, soil, _ = W.mass_balance_sums_psi(grid, params, psi, se, torch.zeros_like(psi))
@@ -94,7 +97,8 @@ def storage_of(config: dict, dem, device, h: torch.Tensor) -> float:
 def run_period(config: dict, traffic: dict, dem, device, lowered: bool = False) -> dict:
     """The cell's period from its initial inputs on ``device``: the heads,
     the saturation, the water storage it reports and the whole-period
-    water MBR on the CPU, the solver's counts and, with soil heat, the
+    water MBR on the CPU, the solver's counts, the grid it ran on (on
+    ``device``, for :func:`storage_of`) and, with soil heat, the
     temperatures and the period's boundary heat sink. ``lowered``: the
     control."""
     with precision.lowered() if lowered else contextlib.nullcontext():
@@ -117,7 +121,7 @@ def _run(config: dict, traffic: dict, dem, device) -> dict:
     out = dict(h=water.h.to("cpu", torch.float64), se=water.se.to("cpu", torch.float64),
                storage=float(water.balance_current.storage),
                mbr=float(water.balance_whole.mbr), stats=list(stats),
-               mask=inputs[0].mask.to("cpu"))
+               mask=inputs[0].mask.to("cpu"), grid=inputs[0])
     if heat_state is not None:
         out.update(t=heat_state.t.to("cpu", torch.float64),
                    heat_sink=float(heat_state.sink_whole),

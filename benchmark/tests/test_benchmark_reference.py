@@ -40,15 +40,14 @@ def test_reference_hour_by_hand(tmp_path):
     assert abs(float(w1.balance_whole.mbr)) < 2e-3 and stats[0] > 0
     # the water the heads hold, counted again from the heads alone: the
     # storage the period reports, and the hand count to float32 rounding
-    dem = catchment_dem(c.config, 0)
-    held = storm.storage_of(c.config, dem, "cpu", w1.h)
+    held = storm.storage_of(c.config, g, w1.h)
     assert held == float(w1.balance_current.storage)
     assert held == pytest.approx(stored(w1), rel=1e-6)
     # one unsaturated node's head 0.5 m higher holds more water
     node = tuple(torch.nonzero(g.mask[1:] & (w1.h[1:] < g.z[1:] - 0.6))[0] + torch.tensor([1, 0, 0]))
     h = w1.h.clone()
     h[node] += 0.5
-    assert storm.storage_of(c.config, dem, "cpu", h) - held > 1e-3
+    assert storm.storage_of(c.config, g, h) - held > 1e-3
 
 
 @pytest.mark.parametrize("cell", ["water_storm", "coupled_storm"])
@@ -64,7 +63,7 @@ def test_port_equals_reference_on_the_cpu(tmp_path, cell):
     program = system.outputs(out)
     ref = storm.run_period(c.config, c.traffic, dem, "cpu")
     assert rec["stats"] == ref["stats"] and program["storage"] == ref["storage"]
-    storage = storm.storage_of(c.config, dem, "cpu", program["h"])
+    storage = storm.storage_of(c.config, ref.pop("grid"), program["h"])
     assert all(v == 0.0 for v in check.gaps(program, ref, storage).values())
 
 
@@ -80,7 +79,7 @@ def test_control_departs_from_the_reference(tmp_path, cell):
     dem = catchment_dem(c.config, 6)
     ref = storm.run_period(c.config, c.traffic, dem, "cpu")
     control = storm.run_period(c.config, c.traffic, dem, "cpu", lowered=True)
-    g = check.gaps(control, ref, storm.storage_of(c.config, dem, "cpu", control["h"]))
+    g = check.gaps(control, ref, storm.storage_of(c.config, control["grid"], control["h"]))
     assert g["storage_gap_m3"] > 0.0 and g["h_p99_m"] > 0.0
 
 
@@ -105,8 +104,10 @@ def test_soil_as_a_view_changes_no_bit(tmp_path, monkeypatch, cell):
     for grid_of in (built, per_node):
         monkeypatch.setattr(storm, "catchment_grid", grid_of)
         ref = storm.run_period(c.config, c.traffic, dem, "cpu")
+        ref.pop("grid")
         control = storm.run_period(c.config, c.traffic, dem, "cpu", lowered=True)
-        runs.append((ref, control, storm.storage_of(c.config, dem, "cpu", control["h"])))
+        runs.append((ref, control, storm.storage_of(c.config, control.pop("grid"),
+                                                    control["h"])))
     (ref, control, held), (ref0, control0, held0) = runs
     assert held == held0
     for a, b in ((ref, ref0), (control, control0)):
@@ -114,6 +115,31 @@ def test_soil_as_a_view_changes_no_bit(tmp_path, monkeypatch, cell):
         for k in a:
             same = torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] == b[k]
             assert same, k
+
+
+@pytest.mark.parametrize("box", [12, 20])
+@pytest.mark.parametrize("cell", ["water_storm", "coupled_storm"])
+def test_the_count_on_the_references_own_grid_is_the_rebuilt_grids(tmp_path, cell, box):
+    """The heads' water counted on the grid the reference period ran on
+    (with soil heat, its surface made HeatSurface nodes) equals, bit for
+    bit, the count on the grid built again from the DEM: for the
+    reference's heads, the control's and a program's heads moved off
+    them."""
+    c = spec.cell(cell, small_copy(tmp_path, box=box))
+    dem = catchment_dem(c.config, 2)
+    rebuilt = storm.catchment_grid(c.config, dem, torch.device("cpu"))
+    for lowered in (False, True):
+        run = storm.run_period(c.config, c.traffic, dem, "cpu", lowered=lowered)
+        grid = run.pop("grid")
+        assert grid.shape == rebuilt.shape
+        moved = run["h"] + torch.linspace(-0.3, 0.3, run["h"].numel(),
+                                          dtype=torch.float64).reshape(run["h"].shape)
+        for h in (run["h"], moved):
+            own = storm.storage_of(c.config, grid, h)
+            assert own == storm.storage_of(c.config, rebuilt, h)
+        if not lowered:
+            assert own != storm.storage_of(c.config, grid, run["h"])
+            assert storm.storage_of(c.config, grid, run["h"]) == run["storage"]
 
 
 def _broken(monkeypatch, fault: str):

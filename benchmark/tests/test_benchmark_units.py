@@ -6,6 +6,7 @@ BENCHMARK.json."""
 import json
 import os
 import re
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -15,8 +16,9 @@ from benchmark import check, harness, peaks, spec, trace
 from benchmark.catchment import catchment_dem
 
 
-def fake_run(walls, **counts):
-    r = harness.Run(cell=None, system=None, on_card=True, power_limit="700.00 W")
+def fake_run(walls, period_s=3600.0, **counts):
+    system = SimpleNamespace(period_s=period_s)
+    r = harness.Run(cell=None, system=system, on_card=True, power_limit="700.00 W")
     r.hours = [dict(wall_s=w, **{k: v[i] for k, v in counts.items()})
                for i, w in enumerate(walls)]
     r.window_s = sum(walls)
@@ -38,6 +40,49 @@ def test_window_rate_and_counts_by_hand():
     r.on_card = False
     assert spec.reader("device_peak_gib").read(r) is None
     assert spec.reader("capture_s").read(r) is None
+
+
+PER_HOUR = ("s_per_sim_hour", "inner_iters_per_sim_hour", "host_reads_per_sim_hour",
+            "heat_sweeps_per_sim_hour")
+
+
+def test_readings_are_per_simulated_hour():
+    """Over a 3,600 s period a reading is the window's per-period mean, bit
+    for bit; over a 1,200 s period (three a simulated hour) three times
+    it."""
+    walls = [31.7, 32.9, 32.3]
+    counts = dict(host_reads=[11, 11, 12], heat_sweeps=[1103, 1103, 1104],
+                  stats=[[58, 59, 130, 170], [58, 59, 130, 171], [58, 59, 130, 169]])
+    per_period = {"s_per_sim_hour": sum(walls) / 3,
+                  "inner_iters_per_sim_hour": (170 + 171 + 169) / 3,
+                  "host_reads_per_sim_hour": (11 + 11 + 12) / 3,
+                  "heat_sweeps_per_sim_hour": (1103 + 1103 + 1104) / 3}
+    hour = fake_run(walls, **counts)
+    twenty = fake_run(walls, period_s=1200.0, **counts)
+    assert hour.sim_hours == 3.0 and twenty.sim_hours == 1.0
+    for name in PER_HOUR:
+        rd = spec.reader(name)
+        assert rd.read(hour) == per_period[name], name
+        assert rd.read(twenty) == pytest.approx(3 * per_period[name], rel=1e-15), name
+
+
+def test_a_mesh_cell_profiles_only_the_periods_first_minute(monkeypatch):
+    """The profiled stretch of a traced run: the period's first ten
+    minutes on one card, its first minute on a mesh (where the profiler
+    slows the rounds' host enqueue), never past the period's end."""
+    monkeypatch.setattr(harness, "read_profile",
+                        lambda prof: dict(busy_s={}, device_ops=[], idle_gaps=[]))
+    asked = []
+
+    def hour(seconds=None):
+        asked.append(seconds)
+        return {"wall_s": 0.0}, None
+
+    for mesh, period, stretch in ((None, 3600.0, 600.0), (None, 300.0, 300.0),
+                                  ("2 x 2", 1200.0, 60.0), ("2 x 2", 30.0, 30.0)):
+        system = SimpleNamespace(mesh=mesh, period_s=period, hour=hour)
+        p = harness._profiled_stretch(system)
+        assert asked[-1] == stretch and p["wall_s"] >= 0.0
 
 
 def test_busy_union_and_gaps_by_hand():
